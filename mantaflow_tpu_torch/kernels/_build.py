@@ -1,0 +1,74 @@
+"""Builds the CUDA sources in ``mantaflow_tpu_torch/csrc`` and loads them.
+
+Each ``csrc/<name>.cu`` exports plain C launch functions. It is compiled by
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so`` at
+the repository root (the hash covers the source and the flags, so an edited
+source is rebuilt) and loaded with ``ctypes``. Nothing here runs at import:
+the first call of a kernel wrapper builds its library, and ``build()``
+compiles several sources in parallel, one ``nvcc`` process each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("window_advect", "cg_solve")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile the named sources that are not built yet, all at once.
+
+    Returns each compiled source's compiler log (``ptxas`` register and
+    shared-memory use). Raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not library_path(n).exists()]
+    procs = {}
+    for n in todo:
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        logs[n] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(tmp, library_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]
