@@ -15,12 +15,27 @@ Phases (any failed check raises, and the script exits non-zero):
 4. hold the CG kernel against the plain CG on the card: the 128^3 smoke
    system after a few steps in full and unit mode, and a 128^3 system with
    an obstacle sphere and an empty (Dirichlet) slab;
-5. the port on the card against the port on the CPU, 3 steps at 32^3.
+5. the port on the card against the port on the CPU, 3 steps at 32^3;
+6. the FLIP main path: the bench's FLIP dam at 128^3 (bench.py:60-175;
+   ~3.8M particles, PPC 10), 1 warm step, then through
+   flip_run_bucketed_auto in chunks of 10 (an overflow escalates the PPC
+   and redoes the chunk): 10 timed steps, 30 more, the bench's settle
+   loop, 10 timed steps, with every kernel launch counted per step, then
+   checks of the final state (no particle lost);
+7. hold the four FLIP kernels (advection+blend, rebin, p2g+levelset,
+   extrapolation layer) and the CG on the ghost-fluid system against their
+   plain versions on the card: every kernel call of one 128^3 step, cold
+   (PPC 10) and developed (PPC 16), a 24^3 corner dam over the advection's
+   modes, blend and obstacle options, and the rebin overflow fixture;
+   then each kernel's time on the developed step's inputs;
+8. the FLIP port on the card against the port on the CPU, 3 steps at 24^3.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device.
 """
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,6 +45,16 @@ RES = 128
 K = 3  # window: the bench's CFL bound
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+
+
+FLIP_RES = 128
+FLIP_CHUNK = 10  # bench.py's n_steps: timed window and runner chunk
+
+
+def flip_bench_params(flip):
+    # bench.py:84-86
+    return flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
+                           cg_accuracy=1e-3, ring_only_obstacles=True)
 
 
 def bench_params(smoke):
@@ -66,6 +91,30 @@ def cuda_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """Record the arguments of every call of ``module.name`` (the calls
+    still run)."""
+    orig = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+    rec.launches = 0
+    setattr(module, name, rec)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def replay(calls, fn):
+    def go():
+        for args, kwargs in calls:
+            fn(*args, **kwargs)
+    return go
+
+
 def kernel_device_ms(torch, fn, reps, kernel):
     """Mean device milliseconds per launch of the CUDA kernel whose name
     contains ``kernel``, from a torch.profiler trace of reps runs of fn():
@@ -98,8 +147,14 @@ def main():
     from mantaflow_tpu_torch.core.domain import Domain
     from mantaflow_tpu_torch.core.shapes import Sphere
     from mantaflow_tpu_torch.kernels import _build
-    from mantaflow_tpu_torch.models import smoke
+    from mantaflow_tpu_torch.core import particles as cp
+    from mantaflow_tpu_torch.models import flip, smoke
+    from mantaflow_tpu_torch.ops import advect_bucket_kernels as fadk
     from mantaflow_tpu_torch.ops import advection_kernels as advk
+    from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
+    from mantaflow_tpu_torch.ops import flip_bucket as fb
+    from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
+    from mantaflow_tpu_torch.ops import rebin_kernels as rbk
     from mantaflow_tpu_torch.ops import extforces as ext
     from mantaflow_tpu_torch.ops import pressure as prs
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
@@ -243,12 +298,13 @@ def main():
     k1_bound_ops = k1_ops / FP32_OPS_PER_S * 1e3
 
     # -- 4. CG kernel vs plain CG -------------------------------------------
-    def cg_check(rhs, stencil, fluid, acc, max_iter, dom_):
+    def cg_check(rhs, stencil, fluid, acc, max_iter, dom_,
+                 units=(False, True)):
         p_ref, it_ref, _ = prs.cg_plain(rhs, stencil, dom_, acc, max_iter,
                                         fluid)
         scale = float(p_ref.abs().max()) + 1e-30
         worst = 0.0
-        for unit in (False, True):
+        for unit in units:
             p, it, rn = prk.cg_solve(rhs, stencil, dom_, acc, max_iter,
                                      fluid=fluid, unit_stencil=unit)
             it, it_ref_ = int(it), int(it_ref)
@@ -320,6 +376,323 @@ def main():
     print(f"32^3 x3 steps, card vs CPU: density {d_err:.3g}, vel "
           f"{v_err:.3g}", flush=True)
 
+    # -- 6. FLIP main path: the bench FLIP dam at 128^3 ---------------------
+    fparams = flip_bench_params(flip)
+    fdom = Domain(size=(FLIP_RES,) * 3)
+    t0 = time.perf_counter()
+    fst = flip.make_dam_state_bucketed(fdom, fparams, ppc=10, device=dev)
+    n_parts = int(fst.buckets.count())
+    setup_s = time.perf_counter() - t0
+    print(f"flip {FLIP_RES}^3 set-up: {n_parts} particles, PPC "
+          f"{fst.buckets.ppc}, {setup_s:.1f} s", flush=True)
+    flip_kernels = {"advect_bucket": fadk.advect_blend,
+                    "rebin": rbk.rebin_pass, "p2g_levelset": p2gk.p2g_union,
+                    "extrap_layer": xk.extrap_layer, "cg_solve": prk.cg_solve}
+    per_step = {"advect_bucket": 1, "rebin": 3, "p2g_levelset": 1,
+                "extrap_layer": 10, "cg_solve": 1}
+    # every step the path runs, redone chunks included, and its CG
+    # iterations (a device sum, no sync)
+    flip_steps = {"n": 0, "iters": torch.zeros((), dtype=torch.int64,
+                                               device=dev),
+                  "ppc": fst.buckets.ppc, "escalations": []}
+    step_fn = flip.flip_step_bucketed
+
+    def counted_step(state, dom_, params_):
+        if state.buckets.ppc != flip_steps["ppc"]:
+            # the runner rebinned before this step: (step, new PPC)
+            flip_steps["ppc"] = state.buckets.ppc
+            flip_steps["escalations"].append((int(state.ts.count) + 1,
+                                              state.buckets.ppc))
+        state = step_fn(state, dom_, params_)
+        flip_steps["n"] += 1
+        flip_steps["iters"] += state.cg_iters
+        return state
+
+    def timed_chunk(state):
+        """One runner chunk of FLIP_CHUNK steps: (state, steps/s, CG
+        iterations per step run, redone steps included)."""
+        torch.cuda.synchronize()
+        mark, steps_pre = int(flip_steps["iters"]), flip_steps["n"]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state = flip.flip_run_bucketed_auto(state, fdom, fparams, FLIP_CHUNK,
+                                            check_every=FLIP_CHUNK)
+        t1.record()
+        torch.cuda.synchronize()
+        return (state, FLIP_CHUNK / (t0.elapsed_time(t1) / 1e3),
+                (int(flip_steps["iters"]) - mark)
+                / (flip_steps["n"] - steps_pre))
+
+    torch.cuda.synchronize()
+    for fn in flip_kernels.values():
+        fn.launches = 0
+    flip.flip_step_bucketed = counted_step
+    try:
+        fst = flip.flip_step_bucketed(fst, fdom, fparams)  # warm
+        require(int(fst.buckets.dropped) == 0,
+                f"flip: {int(fst.buckets.dropped)} dropped in the warm step")
+        fst, flip_cold_sps, flip_cold_it = timed_chunk(fst)
+        cold_ppc = fst.buckets.ppc
+        fst = flip.flip_run_bucketed_auto(fst, fdom, fparams, 30,
+                                          check_every=FLIP_CHUNK)
+        # bench.py:147-153: a chunk that ends at an unchanged PPC shows that
+        # no escalation is pending
+        for _ in range(3):
+            ppc_pre = fst.buckets.ppc
+            fst = flip.flip_run_bucketed_auto(fst, fdom, fparams, FLIP_CHUNK,
+                                              check_every=FLIP_CHUNK)
+            if fst.buckets.ppc == ppc_pre:
+                break
+        fst, flip_dev_sps, flip_dev_it = timed_chunk(fst)
+    finally:
+        flip.flip_step_bucketed = step_fn
+    flip_launches = {k: fn.launches for k, fn in flip_kernels.items()}
+    n_flip_steps = flip_steps["n"]
+    for k, per in per_step.items():
+        require(flip_launches[k] == per * n_flip_steps,
+                f"flip: {k} launched {flip_launches[k]} times in "
+                f"{n_flip_steps} steps ({per} per step)")
+    require(int(fst.buckets.dropped) == 0,
+            f"flip: {int(fst.buckets.dropped)} particles dropped")
+    require(int(fst.buckets.count()) == n_parts,
+            f"flip: {int(fst.buckets.count())} particles, had {n_parts}")
+    for name in ("vel", "phi", "pressure"):
+        require(bool(torch.isfinite(getattr(fst, name)).all()),
+                f"flip: {name} not finite")
+    flip_steps_kept = int(fst.ts.count)
+    escalations = flip_steps["escalations"]
+    print(f"flip {FLIP_RES}^3: {n_flip_steps} steps run ({flip_steps_kept} "
+          f"kept), PPC {cold_ppc} after the cold window, "
+          f"{fst.buckets.ppc} at the end, escalations (from step, to PPC) "
+          f"{escalations}, {flip_cold_sps:.2f} steps/s cold, "
+          f"{flip_dev_sps:.2f} developed, CG {flip_cold_it:.1f} / "
+          f"{flip_dev_it:.1f} it/step", flush=True)
+
+    # -- 7. FLIP kernels vs their plain versions on the card ----------------
+    plain_of = {"advect_bucket": fadk.advect_blend_plain,
+                "rebin": fb._rebin_axis, "p2g_levelset": p2gk.p2g_union_plain,
+                "extrap_layer": xk.extrap_layer_plain}
+    sites = {"advect_bucket": (fadk, "advect_blend"),
+             "rebin": (rbk, "rebin_pass"),
+             "p2g_levelset": (p2gk, "p2g_union"),
+             "extrap_layer": (xk, "extrap_layer"),
+             "cg_solve": (prk, "cg_solve")}
+
+    def record_step(state):
+        """The arguments of every kernel call of one step from state."""
+        calls = {k: [] for k in sites}
+        with contextlib.ExitStack() as stack:
+            for k, (mod, name) in sites.items():
+                stack.enter_context(recording(mod, name, calls[k]))
+            flip.flip_step_bucketed(state, fdom, fparams)
+        torch.cuda.synchronize()
+        return calls
+
+    def bucket_err(got, ref, exact):
+        require(torch.equal(got.valid, ref.valid), "buckets: valid differs")
+        require(int(got.dropped) == int(ref.dropped),
+                f"buckets: dropped {int(got.dropped)} vs {int(ref.dropped)}")
+        err = 0.0
+        for f in ("px", "py", "pz", "vx", "vy", "vz"):
+            g, r = getattr(got, f), getattr(ref, f)
+            if exact:
+                require(torch.equal(g, r), f"rebin: {f} differs")
+            err = max(err, float((g - r).abs().max()))
+        return err
+
+    def check_call(kind, args, kwargs):
+        """Kernel vs plain on one recorded call; returns max abs error."""
+        orig = getattr(*sites[kind])
+        got = orig(*args, **kwargs)
+        ref = plain_of[kind](*args, **kwargs)
+        if kind == "rebin":
+            return bucket_err(got, ref, exact=True)
+        if kind == "advect_bucket":
+            err = bucket_err(got, ref, exact=False)
+            require(err <= 1e-6, f"advect_bucket: max abs err {err}")
+            return err
+        if kind == "extrap_layer":
+            for g, r in zip(got[0] + got[1], ref[0] + ref[1]):
+                require(torch.equal(g, r), "extrap_layer: differs")
+            return 0.0
+        # p2g_levelset: the gather sums in another order than the plain
+        # rolls (the Pallas kernel's tolerance, flip_bucket_pallas2.py:25-28)
+        err = 0.0
+        for g, r, what in zip(got, ref, ("vel", "weight", "phi")):
+            e = float((g - r).abs().max())
+            require(e <= 1e-5, f"p2g_levelset: {what} max abs err {e}")
+            err = max(err, e)
+        return err
+
+    errs = {k: 0.0 for k in sites}
+    # the 128^3 step from the developed state (PPC escalated), from a cold
+    # state a few steps in (PPC 10), and from that state rebinned at PPC 16
+    dev_calls = record_step(fst)
+    cold = flip.make_dam_state_bucketed(fdom, fparams, ppc=10, device=dev)
+    for _ in range(3):
+        cold = flip.flip_step_bucketed(cold, fdom, fparams)
+    cold_calls = record_step(cold)
+    cold = dataclasses.replace(
+        cold, buckets=fb.rebin_to_ppc(cold.buckets, fdom, 16))
+    ppc16_calls = record_step(cold)
+    del cold
+    for calls, what in ((dev_calls, f"PPC {fst.buckets.ppc}"),
+                        (cold_calls, "PPC 10"), (ppc16_calls, "PPC 16")):
+        for kind in plain_of:
+            require(len(calls[kind]) == per_step[kind],
+                    f"{kind}: {len(calls[kind])} calls in one step")
+            for args, kwargs in calls[kind]:
+                errs[kind] = max(errs[kind], check_call(kind, args, kwargs))
+        for args, kwargs in calls["cg_solve"]:
+            rhs, stencil, dom_, acc, max_iter = args
+            # the ghost-fluid diagonal needs the full-stencil mode
+            errs["cg_solve"] = max(errs["cg_solve"], cg_check(
+                rhs, stencil, kwargs["fluid"], acc, max_iter, dom_,
+                units=(False,)))
+        print(f"flip {FLIP_RES}^3 step kernels vs plain ({what}): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()),
+              flush=True)
+    del cold_calls, ppc16_calls
+
+    # the advection's options at 128^3 (developed inputs) and at 24^3
+    (a_args, _), = dev_calls["advect_bucket"]
+    bk128, flags128, vel128, vold128, dt128 = a_args[:5]
+    cdom = Domain(size=(24,) * 3)
+    corner = flip.make_dam_state_bucketed(cdom, fparams,
+                                          dam_frac=(0.3, 0.3, 0.35), ppc=12,
+                                          device=dev)
+    cbk = corner.buckets
+    cbk = dataclasses.replace(
+        cbk, vx=torch.where(cbk.valid, cbk.px * 0.01, 0.0),
+        vy=torch.where(cbk.valid, cbk.py * 0.02 - 0.05, 0.0),
+        vz=torch.where(cbk.valid, cbk.pz * 0.005, 0.0))
+    cvel = torch.tensor(np.random.RandomState(7).randn(3, 24, 24, 24)
+                        .astype(np.float32) * 0.25, device=dev)
+    c = torch.arange(24, device=dev) + 0.5
+    zz, yy, xx = torch.meshgrid(c, c, c, indexing="ij")
+    sphere_flags = torch.where(
+        ((xx - 5.0) ** 2 + (yy - 4.0) ** 2 + (zz - 4.5) ** 2).sqrt() < 3.0,
+        fl.TypeObstacle, corner.flags)
+    options = []
+    for mode in (0, 1, 2):
+        for pending in (True, False):
+            options.append((bk128, flags128, vel128, vold128, dt128,
+                            pending, mode, True, fdom))
+            for ring, cflags in ((True, corner.flags), (False, sphere_flags)):
+                for dt in (0.5, 2.5):
+                    options.append((cbk, cflags, cvel, cvel * 0.85,
+                                    torch.tensor(dt, device=dev), pending,
+                                    mode, ring, cdom))
+    options.append((bk128, flags128, vel128, vold128, dt128, True, 2, False,
+                    fdom))
+    for b_, f_, v_, vo_, dt_, pend, mode, ring, d_ in options:
+        errs["advect_bucket"] = max(errs["advect_bucket"], check_call(
+            "advect_bucket", (b_, f_, v_, vo_, dt_,
+                              torch.tensor(pend, device=dev),
+                              fparams.flip_ratio, d_, mode, ring), {}))
+    # the rebin on a 24^3 overflow (displacements of a cell) and the
+    # overflow fixture of tests/test_flip_bucket.py
+    moved = fb.advect_bucketed(cbk, corner.flags, cvel * 6.0,
+                               torch.tensor(1.0, device=dev), cdom, 0)
+    opos = np.array([[3.5, 3.5, 3.5], [2.6, 3.5, 3.5], [4.4, 3.5, 3.5],
+                     [3.5, 2.7, 3.5], [3.5, 3.5, 4.3]], np.float32)
+    odom = Domain(size=(8, 8, 8))
+    obk = fb.bin_from_particles(
+        cp.make_particles(opos, capacity=8, device=dev),
+        np.arange(24, dtype=np.float32).reshape(8, 3) * np.float32(0.01),
+        odom, ppc=4)
+    obk = dataclasses.replace(obk, **{
+        f: torch.where(obk.valid, getattr(obk, f)
+                       + 0.9 * (3.5 - getattr(obk, f)), getattr(obk, f))
+        for f in ("px", "py", "pz")})
+    drops = []
+    for b_, d_ in ((moved, cdom), (obk, odom)):
+        got, ref = b_, b_
+        for axis in range(3):
+            got = rbk.rebin_pass(got, d_, axis)
+            ref = fb._rebin_axis(ref, d_, axis)
+            bucket_err(got, ref, exact=True)
+        drops.append(int(got.dropped))
+    require(drops[0] > 0 and drops[1] == 1, f"rebin overflow drops {drops}")
+    errs["p2g_levelset"] = max(errs["p2g_levelset"], check_call(
+        "p2g_levelset", (cbk, cdom, 1.0), {}))
+    print(f"flip kernels vs plain, 24^3 and option sweeps: "
+          f"advect_bucket {errs['advect_bucket']:.3g} over {len(options)} "
+          f"cases, rebin overflow drops {drops} bitwise, p2g_levelset "
+          f"{errs['p2g_levelset']:.3g}", flush=True)
+
+    # times on the developed step's inputs
+    P, T = bk128.ppc, fdom.num_cells
+    live = int(bk128.valid.sum())
+    fk = {}
+    for kind, kname in (("advect_bucket", "advect_bucket_kernel"),
+                        ("rebin", "rebin_pass_kernel"),
+                        ("p2g_levelset", "p2g_levelset_kernel"),
+                        ("extrap_layer", "extrap_layer_kernel")):
+        calls = dev_calls[kind]
+        orig = getattr(*sites[kind])
+        fk[kind] = {
+            "ms": kernel_device_ms(torch, replay(calls, orig), 5, kname),
+            "call_ms": cuda_ms(torch, replay(calls, orig), 5) / len(calls),
+            "plain_ms": cuda_ms(torch, replay(calls, plain_of[kind]), 1)
+            / len(calls)}
+    # least bytes per launch, for what each function must read and write:
+    # slot fields are 4 bytes, valid 1 byte. The advection passes invalid
+    # slots through, so it reads the seven slot fields of every slot and
+    # writes six, plus the vel and vel_old grids. The rebin and p2g skip an
+    # invalid slot on its valid byte: they read the mask of every slot and
+    # the six fields of the live particles only; the rebin writes all seven
+    # output fields of every slot, p2g its seven grids (vel and weight 3
+    # each, phi).
+    layer_bytes = [len(a[0]) * 16 * T for a, _ in dev_calls["extrap_layer"]]
+    fbytes = {
+        "advect_bucket": (25 + 24) * P * T + 2 * 12 * T,
+        "rebin": (1 + 25) * P * T + 24 * live,
+        "p2g_levelset": P * T + 24 * live + 28 * T,
+        "extrap_layer": sum(layer_bytes) / len(layer_bytes),
+    }
+    # float operations per launch, counted on the live particles: RK4 with
+    # the blend ~620 per particle (4 stages x 3 components x ~36 for the
+    # weights and the 8-corner blend, plus dt scaling and clamps; the
+    # blend's second grid and mix ~120); a rebin pass ~10 per particle;
+    # p2g+levelset ~540 per particle (3 components x 18 taps x 5, and 27
+    # levelset distances x 10); a layer ~20 per cell and pair
+    fops = {"advect_bucket": 620 * live, "rebin": 10 * live,
+            "p2g_levelset": 540 * live,
+            "extrap_layer": 20 * sum(len(a[0]) for a, _ in
+                                     dev_calls["extrap_layer"]) * T
+            / len(dev_calls["extrap_layer"])}
+    for kind in fk:
+        b_ms = fbytes[kind] / HBM_BYTES_PER_S * 1e3
+        o_ms = fops[kind] / FP32_OPS_PER_S * 1e3
+        fk[kind].update(bound_ms=max(b_ms, o_ms),
+                        bound_by="bytes" if b_ms >= o_ms else "operations")
+        print(f"{kind}: {fk[kind]['ms'] * 1e3:.1f} us/launch (bound "
+              f"{fk[kind]['bound_ms'] * 1e3:.1f} us, "
+              f"{fk[kind]['bound_by']}; P {P}, {live} live), "
+              f"plain {fk[kind]['plain_ms']:.2f} ms", flush=True)
+
+    # -- 8. FLIP port on the card vs the port on the CPU -------------------
+    sdom = Domain(size=(24,) * 3)
+    runs = []
+    for d_ in (dev, "cpu"):
+        s_ = flip.make_dam_state_bucketed(sdom, fparams, ppc=10, device=d_)
+        for _ in range(3):
+            s_ = flip.flip_step_bucketed(s_, sdom, fparams)
+        runs.append(s_)
+    f_gpu, f_cpu = runs
+    require(torch.equal(f_gpu.flags.cpu(), f_cpu.flags),
+            "24^3 FLIP card vs CPU: flags differ")
+    require(int(f_gpu.buckets.count()) == int(f_cpu.buckets.count()),
+            "24^3 FLIP card vs CPU: particle counts differ")
+    fv_err = float((f_gpu.vel.cpu() - f_cpu.vel).abs().max())
+    fphi_err = float((f_gpu.phi.cpu() - f_cpu.phi).abs().max())
+    require(fv_err < 2e-4 and fphi_err < 2e-4,
+            f"24^3 FLIP card vs CPU: vel {fv_err}, phi {fphi_err}")
+    print(f"24^3 FLIP x3 steps, card vs CPU: vel {fv_err:.3g}, phi "
+          f"{fphi_err:.3g}", flush=True)
+
     kernels = [
         {"name": "window_advect", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
@@ -338,9 +711,25 @@ def main():
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
          else "operations", "library_ms": None,
          "call_ms": k2_call_ms, "iterations": k2_it,
+         "launches_by_path": {"smoke_128": launches["cg_solve"],
+                              "flip_128": flip_launches["cg_solve"]},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
          "iteration_stream_bound_ms": k2_iter_stream_ms},
     ]
+    fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
+    # the TPU kernel replaced, and (rebin) the others of the same function
+    flip_replaces = {
+        "advect_bucket": [f"{fbp}:80"],
+        "rebin": [f"{fbp}:{n}" for n in (744, 301, 433, 482, 1079)],
+        "p2g_levelset": ["mantaflow_tpu/ops/flip_bucket_pallas2.py:408"],
+        "extrap_layer": ["mantaflow_tpu/ops/extrapolation_pallas.py:45"]}
+    for kind, (repl, *also) in flip_replaces.items():
+        kernels.append({
+            "name": kind, "route": "cuda",
+            "source": f"mantaflow_tpu_torch/csrc/{kind}.cu",
+            "replaces": repl, "also_replaces": also,
+            "launches": flip_launches[kind], "max_abs_err": errs[kind],
+            "library_ms": None, **fk[kind]})
     print(card)
     print(json.dumps({
         "smoke_128": {"steps_per_s_cold": cold_sps,
@@ -348,6 +737,15 @@ def main():
                       "cg_iters_per_step_cold": cold_it,
                       "cg_iters_per_step_developed": dev_it,
                       "density_max": dmax},
+        "flip_128": {"steps_per_s_cold": flip_cold_sps,
+                     "steps_per_s_developed": flip_dev_sps,
+                     "particles": n_parts, "ppc_cold": cold_ppc,
+                     "ppc_final": fst.buckets.ppc,
+                     "escalations": escalations,
+                     "steps_run": n_flip_steps, "steps_kept": flip_steps_kept,
+                     "cg_iters_per_step_cold": flip_cold_it,
+                     "cg_iters_per_step_developed": flip_dev_it,
+                     "setup_s": setup_s},
         "build_s": build_s, "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of mantaflow_tpu.
 
 Same modules, state layouts and op semantics as the JAX package: grids are
-``(z, y, x)``, MAC fields ``(3, z, y, x)`` float32, flags int32. The two
-window-advection and CG kernels are hand-written CUDA for Hopper (``csrc/``);
-on a CPU tensor each kernel wrapper runs its plain PyTorch version instead.
+``(z, y, x)``, MAC fields ``(3, z, y, x)`` float32, flags int32, FLIP
+particles in ``(P, T)`` cell buckets. The kernels of the smoke and bucketed
+FLIP steps are hand-written CUDA for Hopper (``csrc/``); on a CPU tensor
+each kernel wrapper runs its plain PyTorch version instead.
 """
 
 import torch

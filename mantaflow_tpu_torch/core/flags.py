@@ -89,6 +89,16 @@ def fill_grid(flags, ftype: int = TypeFluid):
     return torch.where(keep, flags, replaced)
 
 
+def update_from_levelset(flags, phi, invalid_time_value: float):
+    """Retype non-obstacle/outflow cells to fluid/empty from a levelset
+    (FlagGrid::updateFromLevelset, grid.cpp:910-920)."""
+    skip = is_obstacle(flags) | is_outflow(flags) | (phi > invalid_time_value)
+    cleared = flags & ~(TypeEmpty | TypeFluid)
+    retyped = cleared | torch.where(phi <= 0, TypeFluid, TypeEmpty).to(
+        flags.dtype)
+    return torch.where(skip, flags, retyped)
+
+
 def set_open_bound(flags, dom: Domain, b_width: int, open_bound: str = ""):
     """Mark open-boundary shells as outflow+empty
     (reference setOpenBound, plugin/extforces.cpp:106-168).

@@ -1,8 +1,10 @@
 """Geometric shapes: analytic SDFs evaluated on the grid.
 
-Behavioral port of ``source/shapes.h/.cpp`` for Sphere (:240, SphereSDF
-:309), the shape the smoke plume's emitter uses. The other shapes of the JAX
-package (Box, Cylinder, Slope, mesh shapes) are not ported yet (ROADMAP.md).
+Behavioral port of ``source/shapes.h/.cpp`` for Box (BoxSDF :178), the
+shape of the FLIP dam, and Sphere (:240, SphereSDF :309), the shape of the
+smoke plume's emitter. The other shapes of the JAX package (Cylinder, Slope,
+mesh shapes) and the inside tests and grid stamping are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +20,74 @@ def _cell_centers(dom: Domain, device):
     y = torch.arange(sy, dtype=torch.float32, device=device).reshape(1, sy, 1) + 0.5
     z = torch.arange(sz, dtype=torch.float32, device=device).reshape(sz, 1, 1) + 0.5
     return x.expand(dom.shape), y.expand(dom.shape), z.expand(dom.shape)
+
+
+class Box:
+    def __init__(self, p0=None, p1=None, center=None, size=None, dim=3):
+        if center is not None and size is not None:
+            self.p0 = tuple(c - s for c, s in zip(center, size))
+            self.p1 = tuple(c + s for c, s in zip(center, size))
+        elif p0 is not None and p1 is not None:
+            self.p0, self.p1 = tuple(p0), tuple(p1)
+        else:
+            raise ValueError("Box: specify either p0,p1 or size,center")
+        self.dim = dim
+
+    def sdf(self, px, py, pz):
+        """BoxSDF (shapes.cpp:178-229), branch for branch: face distances
+        are returned linearly, edge and corner distances by the same
+        square-sum expressions, and the reference's `p.z > p1.x` typo in the
+        lines-Z guard is kept."""
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=px.device)
+        p1x, p1y, p1z = (f32(v) for v in self.p0)
+        p2x, p2y, p2z = (f32(v) for v in self.p1)
+        in_x = (px <= p2x) & (px >= p1x)
+        in_y = (py <= p2y) & (py >= p1y)
+        in_z = (pz <= p2z) & (pz >= p1z)
+
+        mx = torch.maximum(px - p2x, p1x - px)
+        my = torch.maximum(py - p2y, p1y - py)
+        mz = torch.maximum(pz - p2z, p1z - pz) if self.dim == 3 else mx
+        v_inside = torch.maximum(mx, torch.maximum(my, mz))
+
+        def edge_min(a1, a2, b1, b2):
+            m1 = torch.sqrt(a1 * a1 + b1 * b1)
+            m2 = torch.sqrt(a2 * a2 + b1 * b1)
+            m3 = torch.sqrt(a1 * a1 + b2 * b2)
+            m4 = torch.sqrt(a2 * a2 + b2 * b2)
+            return torch.minimum(m1, torch.minimum(m2, torch.minimum(m3, m4)))
+
+        dy1, dy2 = p1y - py, p2y - py
+        dz1, dz2 = p1z - pz, p2z - pz
+        dx1, dx2 = p1x - px, p2x - px
+        v_lx = edge_min(dy1, dy2, dz1, dz2)
+        v_ly = edge_min(dx1, dx2, dz1, dz2)
+        v_lz = edge_min(dy1, dy2, dx1, dx2)
+
+        def corner(cx, cy, cz):
+            ddx, ddy, ddz = px - cx, py - cy, pz - cz
+            return torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+
+        v_pt = corner(p1x, p1y, p1z)
+        for cx in (p1x, p2x):
+            for cy in (p1y, p2y):
+                for cz in (p1z, p2z):
+                    v_pt = torch.minimum(v_pt, corner(cx, cy, cz))
+
+        res = v_pt
+        # reference branch priority, innermost else first
+        res = torch.where((pz > p1x) & (pz < p2z), v_lz, res)  # (typo kept)
+        res = torch.where((py > p1y) & (py < p2y), v_ly, res)
+        res = torch.where((px > p1x) & (px < p2x), v_lx, res)
+        res = torch.where(in_x & in_y, mz, res)
+        res = torch.where(in_x & in_z, my, res)
+        res = torch.where(in_y & in_z, mx, res)
+        return torch.where(in_x & in_y & in_z, v_inside, res)
+
+    def compute_levelset(self, dom: Domain, device):
+        px, py, pz = _cell_centers(dom, device)
+        return self.sdf(px, py, pz)
 
 
 class Sphere:

@@ -19,9 +19,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("window_advect", "cg_solve")
+SOURCES = ("window_advect", "cg_solve", "extrap_layer", "rebin",
+           "advect_bucket", "p2g_levelset")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# the FLIP kernels keep their plain versions' rounding: no a*b+c contracted
+# into one fused multiply-add
+EXTRA_FLAGS = {name: ("-fmad=false",) for name in
+               ("extrap_layer", "advect_bucket", "p2g_levelset")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -34,9 +39,13 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -50,7 +59,7 @@ def build(names=SOURCES) -> dict[str, str]:
     procs = {}
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

@@ -1,0 +1,322 @@
+"""FLIP liquid solver on the cell-bucketed particle layout.
+
+Port of the bucketed half of ``mantaflow_tpu/models/flip.py`` (the
+reference FLIP scene loops, scenes/flip01_simple.py:47-68): one step is
+advection -> rebin -> p2g -> extrapolation -> forces -> levelset ->
+projection -> extrapolation, over the ``(P, T)`` bucket layout of
+``ops/flip_bucket.py``. The FLIP blend of step t runs at the head of step
+t+1, fused into the advection; ``finalize_buckets`` applies a pending blend
+before particle velocities are read.
+
+On a GPU the particle stages run through the hand-written CUDA kernels, as
+the JAX package's TPU branch runs its Pallas kernels: advection with the
+blend (``advect_bucket_kernels``), the three rebin passes
+(``rebin_kernels``), the fused p2g and union levelset (``p2g_kernels``),
+the extrapolation layers (``extrapolation_kernels``) and the CG
+(``pressure_kernels``). On the CPU the same wrappers run their plain
+PyTorch versions, which are the JAX package's CPU forms. Nothing on the step
+path reads a value back to the host; ``flip_run_bucketed_auto`` reads
+``dropped`` once per chunk.
+
+Not ported yet (ROADMAP.md): the flat particle layout (``flip_step``,
+``flip_run``), APIC, the z-sharded multi-device branch, obstacle shapes in
+the dam set-up, and on a GPU the routes that reach the p2g kernel alone
+(no ghost fluid) or the wide levelset kernel (``radius_factor`` above
+~1.14): asking for them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import flags as fl
+from ..core import particles as cp
+from ..core import solver as slv
+from ..core.domain import Domain
+from ..core.shapes import Box
+from ..ops import advect_bucket_kernels as advk
+from ..ops import extforces as ext
+from ..ops import extrapolation as xtr
+from ..ops import flip_bucket as fb
+from ..ops import p2g_kernels as p2gk
+from ..ops import pressure as prs
+from ..ops import rebin_kernels as rbk
+
+
+@dataclasses.dataclass(frozen=True)
+class FlipParams:
+    gravity: tuple[float, float, float] = (0.0, -0.002, 0.0)
+    gravity_scale: bool = False      # addGravityNoScale by default
+    flip_ratio: float = 0.97
+    integration_mode: int = 2        # IntRK4
+    apic: bool = False               # affine transfers instead of FLIP blend
+    ghost_fluid: bool = False        # build particle levelset for surface BCs
+    radius_factor: float = 1.0
+    cg_accuracy: float = 1e-3
+    cg_max_iter_fac: float = 1.5
+    preconditioner: int = prs.PcNone
+    extrap_weight_dist: int = 2
+    extrap_vel_dist: int = 4
+    adaptive_dt: bool = False
+    cfl: float = 1.0
+    dt_min: float = 1e-4
+    dt_max: float = 1.0
+    frame_length: float = 1.0
+    # promise that the only obstacle cells are the bnd=1 boundary ring: the
+    # advection replaces every flags-at-position obstacle probe with a
+    # bounds test (the same result for such scenes)
+    ring_only_obstacles: bool = False
+
+
+@dataclasses.dataclass
+class FlipBucketState:
+    """Full simulation state; every tensor lives on the simulation device."""
+    flags: torch.Tensor     # int32 [z,y,x]
+    vel: torch.Tensor       # float32 (3,z,y,x)
+    vel_old: torch.Tensor   # float32 (3,z,y,x): the p2g grid, for the blend
+    pressure: torch.Tensor  # float32 [z,y,x]
+    phi: torch.Tensor       # float32 [z,y,x]
+    buckets: fb.Buckets
+    ts: slv.TimeState
+    # True: the last step's FLIP blend is still pending (0-dim bool)
+    blend_pending: torch.Tensor
+    # CG iterations of the last step's pressure solve (0-dim int32); not
+    # part of the JAX state
+    cg_iters: torch.Tensor | None = None
+
+
+def make_dam_state_bucketed(dom: Domain, params: FlipParams,
+                            dam_frac=(0.4, 0.6, 1.0),
+                            discretization: int = 2,
+                            randomness: float = 0.05,
+                            boundary_width: int = 0, dt: float = 0.5,
+                            obstacle=None, ppc: int = 10,
+                            device=None) -> FlipBucketState:
+    """Breaking-dam set-up (flip01_simple.py:29-38) binned at ``ppc``
+    particles per cell. Sampling and binning run once on the host; the
+    particle positions are the JAX package's bit for bit. Runs on CUDA
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    if params.ring_only_obstacles and obstacle is not None:
+        raise ValueError("ring_only_obstacles promises no interior "
+                         "obstacles; stamping an obstacle shape breaks the "
+                         "bounds-test shortcut (see ops/flip_bucket.py)")
+    if obstacle is not None:
+        raise prs._not_ported("an obstacle shape in the dam set-up")
+    sx, sy, sz = dom.size
+    box = Box(p0=(0, 0, 0), p1=(sx * dam_frac[0], sy * dam_frac[1],
+                                sz * dam_frac[2]), dim=dom.dim)
+    flags = fl.update_from_levelset(
+        fl.init_domain(dom, boundary_width, device=device),
+        box.compute_levelset(dom, device), 1e10)
+    # the bucketed model never reseeds: tight capacity
+    parts = cp.sample_flags_with_particles(flags.cpu().numpy(), dom,
+                                           discretization, randomness,
+                                           headroom=1.02, device=device)
+    pvel = np.zeros((parts.capacity, 3), np.float32)
+    grid = (3,) + dom.shape
+    return FlipBucketState(
+        flags=flags,
+        vel=torch.zeros(grid, dtype=torch.float32, device=device),
+        vel_old=torch.zeros(grid, dtype=torch.float32, device=device),
+        pressure=torch.zeros(dom.shape, dtype=torch.float32, device=device),
+        phi=torch.full(dom.shape, 0.5, dtype=torch.float32, device=device),
+        buckets=fb.bin_from_particles(parts, pvel, dom, ppc=ppc),
+        ts=slv.TimeState.create(dt, device=device),
+        blend_pending=torch.zeros((), dtype=torch.bool, device=device))
+
+
+def _fused_levelset(dom: Domain, params: FlipParams) -> bool:
+    """The p2g + levelset kernel covers ghost fluid with a one-cell
+    levelset window (flip_bucket_pallas2.p2g_union_pallas's condition)."""
+    return params.ghost_fluid and fb.levelset_radius(
+        dom, params.radius_factor)[1] == 1
+
+
+def _check_supported(state: FlipBucketState, dom: Domain,
+                     params: FlipParams):
+    if params.apic:
+        raise ValueError("flip_step_bucketed implements the FLIP blend "
+                         "only; APIC (params.apic) is not ported")
+    if params.adaptive_dt and params.cfl > 1.0:
+        raise ValueError(f"bucketed layout needs cfl <= 1 (got "
+                         f"{params.cfl}): particles may only move one cell "
+                         "per step (rebin window contract)")
+    if state.buckets.px.device.type != "cpu" and not _fused_levelset(
+            dom, params):
+        raise prs._not_ported(
+            "on a GPU, the p2g kernel alone (ghost_fluid=False) and the "
+            "union levelset kernel for radius_factor above ~1.14")
+
+
+def flip_step_bucketed(state: FlipBucketState, dom: Domain,
+                       params: FlipParams) -> FlipBucketState:
+    """One step on the bucket layout, following
+    mantaflow_tpu/models/flip.py:flip_step_bucketed (its TPU branch on a
+    GPU, its CPU branch on the CPU; both compute the same function).
+
+    The layout relies on the CFL <= 1 contract: particles move at most one
+    cell per step. A violation adds 10^6 to ``buckets.dropped``; a
+    configuration that cannot honour it statically is refused."""
+    _check_supported(state, dom, params)
+    flags, vel, bk, ts = state.flags, state.vel, state.buckets, state.ts
+
+    max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2))
+    if params.adaptive_dt:
+        ts = slv.adapt_timestep(ts, max_vel, params.cfl, params.dt_min,
+                                params.dt_max, params.frame_length)
+    dt = ts.dt
+    viol = (max_vel * dt > 1.0).to(torch.int32)
+    bk = dataclasses.replace(bk, dropped=bk.dropped + 1_000_000 * viol)
+
+    # the previous step's deferred FLIP blend, fused into advection stage 1
+    bk = advk.advect_blend(bk, flags, vel, state.vel_old, dt,
+                           state.blend_pending, params.flip_ratio, dom,
+                           params.integration_mode,
+                           ring_only=params.ring_only_obstacles)
+    bk = rbk.rebin(bk, dom)
+    phi = state.phi
+    if _fused_levelset(dom, params):
+        vel, weight, phi = p2gk.p2g_union(bk, dom, params.radius_factor)
+    else:
+        vel, weight = fb.p2g_mac(bk, dom)
+        if params.ghost_fluid:
+            phi = fb.union_levelset_bucketed(bk, dom, params.radius_factor)
+    vel_old = vel
+    vel, _ = xtr.extrapolate_mac_from_weight(vel, weight, dom,
+                                             params.extrap_weight_dist)
+    flags = fb.mark_fluid_cells_bucketed(bk, flags, dom)
+
+    vel = ext.add_gravity(flags, vel, params.gravity, dt, dom,
+                          scale=params.gravity_scale)
+    if params.ghost_fluid:
+        phi = xtr.extrapolate_ls_simple(phi, dom, distance=4, inside=True)
+
+    vel = ext.set_wall_bcs(flags, vel, dom)
+    vel, pressure, _, iters, _ = prs.solve_pressure(
+        vel, flags, dom, cg_accuracy=params.cg_accuracy,
+        phi=phi if params.ghost_fluid else None,
+        cg_max_iter_fac=params.cg_max_iter_fac,
+        preconditioner=params.preconditioner)
+    vel = ext.set_wall_bcs(flags, vel, dom)
+    vel = xtr.extrapolate_mac_simple(flags, vel, dom, params.extrap_vel_dist)
+
+    # this step's blend is deferred to the head of the next step (or to
+    # finalize_buckets)
+    ts = slv.step(ts, params.frame_length)
+    return FlipBucketState(flags=flags, vel=vel, vel_old=vel_old,
+                           pressure=pressure, phi=phi, buckets=bk, ts=ts,
+                           blend_pending=torch.ones_like(state.blend_pending),
+                           cg_iters=iters)
+
+
+def finalize_buckets(state: FlipBucketState, dom: Domain,
+                     params: FlipParams) -> FlipBucketState:
+    """Apply the deferred FLIP blend of the last step (none when not
+    pending). Call before reading particle velocities out of the buckets;
+    grid fields never need it."""
+    bk = state.buckets
+    blended = fb.flip_update_bucketed(bk, state.vel, state.vel_old,
+                                      params.flip_ratio, dom)
+    pend = state.blend_pending
+    bk = dataclasses.replace(
+        bk, vx=torch.where(pend, blended.vx, bk.vx),
+        vy=torch.where(pend, blended.vy, bk.vy),
+        vz=torch.where(pend, blended.vz, bk.vz))
+    return dataclasses.replace(state, buckets=bk,
+                               blend_pending=torch.zeros_like(pend))
+
+
+def _next_ppc(want: int, occ: int) -> int:
+    """Escalation target: the smallest multiple of 8 covering both, as in
+    the JAX package, so that both escalate to the same PPC."""
+    need = max(want, occ)
+    return ((need + 7) // 8) * 8
+
+
+def _escalate(state: FlipBucketState, dom: Domain, ppc_step: int,
+              max_ppc: int, dropped: int, who: str) -> FlipBucketState:
+    """``state`` rebinned at the next PPC that holds every particle."""
+    ppc = _next_ppc(state.buckets.ppc + ppc_step,
+                    fb.max_cell_occupancy(state.buckets, dom))
+    if ppc > max_ppc:
+        raise RuntimeError(
+            f"{who}: still dropping {dropped} particles at "
+            f"ppc={state.buckets.ppc} (needs {ppc}); raise max_ppc")
+    return dataclasses.replace(
+        state, buckets=fb.rebin_to_ppc(state.buckets, dom, ppc))
+
+
+def flip_step_bucketed_auto(state: FlipBucketState, dom: Domain,
+                            params: FlipParams, ppc_step: int = 4,
+                            max_ppc: int = 48) -> FlipBucketState:
+    """Overflow-safe wrapper around flip_step_bucketed: after each step it
+    reads ``buckets.dropped``; on overflow it rebins the pre-step state at
+    a higher PPC and redoes the step, so no particle is lost."""
+    prev = state
+    while True:
+        new = flip_step_bucketed(prev, dom, params)
+        d = int(new.buckets.dropped - prev.buckets.dropped)
+        if d == 0:
+            return new
+        prev = _escalate(prev, dom, ppc_step, max_ppc, d,
+                         "flip_step_bucketed_auto")
+
+
+def flip_run_bucketed_auto(state: FlipBucketState, dom: Domain,
+                           params: FlipParams, n_steps: int,
+                           check_every: int = 8, ppc_step: int = 4,
+                           max_ppc: int = 48) -> FlipBucketState:
+    """Chunked overflow-safe runner: ``check_every`` steps per chunk, one
+    host read of ``buckets.dropped`` per chunk, and on overflow the
+    pre-chunk state is rebinned at a higher PPC and the chunk redone."""
+    done = 0
+    while done < n_steps:
+        k = min(check_every, n_steps - done)
+        new = state
+        for _ in range(k):
+            new = flip_step_bucketed(new, dom, params)
+        d = int(new.buckets.dropped - state.buckets.dropped)
+        if d == 0:
+            state = new
+            done += k
+            continue
+        state = _escalate(state, dom, ppc_step, max_ppc, d,
+                          "flip_run_bucketed_auto")
+    return state
+
+
+_GRIDS = ("flags", "vel", "vel_old", "pressure", "phi")
+_BUCKETS = ("px", "py", "pz", "vx", "vy", "vz", "valid", "dropped")
+_TS = ("dt", "time_total", "time_per_frame", "frame", "lock_dt", "count")
+
+
+def state_from_numpy(d: dict, device=None) -> FlipBucketState:
+    """A FlipBucketState from numpy arrays: ``d`` holds the grids of a JAX
+    FlipBucketState under their field names, its bucket fields under
+    ``d["buckets"]``, its TimeState fields under ``d["ts"]`` and
+    ``d["blend_pending"]``, each as a numpy array or scalar."""
+    device = resolve_device(device)
+
+    def t(v):
+        return torch.tensor(np.asarray(v), device=device)
+    return FlipBucketState(
+        **{k: t(d[k]) for k in _GRIDS},
+        buckets=fb.Buckets(**{k: t(d["buckets"][k]) for k in _BUCKETS}),
+        ts=slv.TimeState(**{k: t(d["ts"][k]) for k in _TS}),
+        blend_pending=t(d["blend_pending"]))
+
+
+def state_to_numpy(state: FlipBucketState) -> dict:
+    """The inverse of ``state_from_numpy``: numpy copies of every field."""
+    def n(v):
+        return np.array(v.cpu())
+    out = {k: n(getattr(state, k)) for k in _GRIDS}
+    out["buckets"] = {k: n(getattr(state.buckets, k)) for k in _BUCKETS}
+    out["ts"] = {k: n(getattr(state.ts, k)) for k in _TS}
+    out["blend_pending"] = n(state.blend_pending)
+    return out

@@ -24,6 +24,31 @@ def _face_ok(flags, axis: str):
     return shift(fluid, -1, axis) | (fluid & shift(empty, -1, axis))
 
 
+def apply_force(flags, vel, force_xyz, dom: Domain):
+    """KnApplyForce, additive (extforces.cpp:24-44): a constant force on
+    the faces between fluid/fluid and fluid/empty cells. ``force_xyz``
+    entries are Python floats or 0-dim tensors on vel's device."""
+    cur = fl.is_fluid(flags) | fl.is_empty(flags)
+    inter = interior_mask(dom, 1, vel.device)
+    axes = ["x", "y", "z"]
+    n_comp = 3 if dom.is3d else 2
+    comps = []
+    for c in range(3):
+        if c >= n_comp:
+            comps.append(vel[c])
+            continue
+        ok = cur & inter & _face_ok(flags, axes[c])
+        comps.append(torch.where(ok, vel[c] + force_xyz[c], vel[c]))
+    return torch.stack(comps)
+
+
+def add_gravity(flags, vel, gravity, dt, dom: Domain, scale: bool = True):
+    """addGravity: f = gravity*dt/dx (extforces.cpp:62-67); ``scale=False``
+    is addGravityNoScale (f = gravity*dt). ``dt`` may be a 0-dim tensor."""
+    gs = dom.dx if scale else 1.0
+    return apply_force(flags, vel, tuple(g * dt / gs for g in gravity), dom)
+
+
 def add_buoyancy(flags, density, vel, gravity, dt, dom: Domain):
     """addBuoyancy: face-averaged density * (-gravity*dt/dx), fluid-fluid
     faces only (extforces.cpp:74-90)."""

@@ -8,9 +8,12 @@ MakeLaplaceMatrix :155).
 
 The solve goes through ``pressure_kernels.cg_solve``: the CUDA kernel on a
 GPU, the plain CG of this module (``cg_plain``) on the CPU. The ghost-fluid
-(``phi``), fraction-weighted, multigrid and l2-norm branches of the JAX
-package are not ported yet (ROADMAP.md); asking for one raises
-NotImplementedError.
+branch (``phi``: ghostFluidHelper :115-133, ApplyGhostFluidDiagonal
+:136-151, knCorrectVelocityGhostFluid :153-187,
+knReplaceClampedGhostFluidVels :208-224) is ported without surface
+tension (``curv``), which leaves the RHS as it is. The fraction-weighted,
+multigrid and l2-norm branches of the JAX package are not ported yet
+(ROADMAP.md); asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +36,24 @@ def _not_ported(what: str):
         f"{what} is not ported to mantaflow_tpu_torch yet (see ROADMAP.md)")
 
 
+# ---------------------------------------------------------------------------
+# ghost fluid helpers (pressure.cpp:115-133)
+
+def _theta(inside, outside):
+    denom = inside - outside
+    safe = torch.where(denom < -1e-4, denom, -1.0)
+    theta = torch.clamp(inside / safe, 0.0, 1.0)
+    return torch.where(denom > -1e-4, 0.5, theta)
+
+
+def _ghost_fluid(phi_c, phi_nb, gf_clamp):
+    """ghostFluidHelper: gfClamp itself when alpha < gfClamp (reference
+    behavior, pressure.cpp:126-131), else 1 - 1/alpha."""
+    alpha = _theta(phi_c, phi_nb)
+    return torch.where(alpha < gf_clamp, gf_clamp,
+                       1.0 - 1.0 / torch.clamp(alpha, min=gf_clamp))
+
+
 def _neighbor_terms(dom: Domain):
     """(axis, direction) pairs for the 4/6-neighborhood."""
     dirs = [("x", -1), ("x", 1), ("y", -1), ("y", 1)]
@@ -44,8 +65,10 @@ def _neighbor_terms(dom: Domain):
 # ---------------------------------------------------------------------------
 # RHS (MakeRhs, pressure.cpp:33-86)
 
-def make_rhs(flags, vel, dom: Domain):
-    """Negative divergence on interior fluid cells, zero elsewhere."""
+def make_rhs(flags, vel, dom: Domain, phi=None):
+    """Negative divergence on interior fluid cells, zero elsewhere. The
+    levelset ``phi`` changes the RHS only through surface tension, which is
+    not ported, so it is accepted and unused."""
     fluid = fl.is_fluid(flags)
     div = (vel[0] - shift(vel[0], 1, "x")) + (vel[1] - shift(vel[1], 1, "y"))
     if dom.is3d:
@@ -54,10 +77,13 @@ def make_rhs(flags, vel, dom: Domain):
 
 
 # ---------------------------------------------------------------------------
-# stencil coefficients (MakeLaplaceMatrix, conjugategrad.h:155-190)
+# stencil coefficients (MakeLaplaceMatrix, conjugategrad.h:155-190;
+# ApplyGhostFluidDiagonal, pressure.cpp:136-151)
 
-def make_laplace_stencil(flags, dom: Domain):
-    """Returns (A0, Ai, Aj, Ak): diagonal and +x/+y/+z off-diagonals."""
+def make_laplace_stencil(flags, dom: Domain, phi=None, gf_clamp: float = 1e-4):
+    """Returns (A0, Ai, Aj, Ak): diagonal and +x/+y/+z off-diagonals; with
+    ``phi``, the ghost-fluid terms of empty neighbours leave the
+    diagonal."""
     fluid = fl.is_fluid(flags)
     obst = fl.is_obstacle(flags)
     zero = torch.zeros(dom.shape, dtype=torch.float32, device=flags.device)
@@ -69,7 +95,13 @@ def make_laplace_stencil(flags, dom: Domain):
     ak = torch.where(shift(fluid, 1, "z"), -1.0, 0.0) if dom.is3d else zero
 
     mask = fluid & interior_mask(dom, 1, flags.device)
-    return tuple(torch.where(mask, a, 0.0) for a in (a0, ai, aj, ak))
+    a0, ai, aj, ak = (torch.where(mask, a, 0.0) for a in (a0, ai, aj, ak))
+    if phi is not None:
+        empty = fl.is_empty(flags)
+        for ax, d in _neighbor_terms(dom):
+            gf = _ghost_fluid(phi, shift(phi, d, ax), gf_clamp)
+            a0 = a0 - torch.where(mask & shift(empty, d, ax), gf, 0.0)
+    return a0, ai, aj, ak
 
 
 def apply_laplace(flags, src, stencil, dom: Domain):
@@ -188,7 +220,8 @@ def solve_pressure_system(rhs, flags, dom: Domain, stencil,
 # ---------------------------------------------------------------------------
 # velocity correction (knCorrectVelocity :88)
 
-def correct_velocity(flags, vel, pressure, dom: Domain):
+def correct_velocity(flags, vel, pressure, dom: Domain, phi=None,
+                     gf_clamp: float = 1e-4):
     fluid = fl.is_fluid(flags)
     empty = fl.is_empty(flags)
     outflow = fl.is_outflow(flags)
@@ -209,6 +242,58 @@ def correct_velocity(flags, vel, pressure, dom: Domain):
         u_em = torch.where(nb_fluid, u + p_nb, 0.0)
         new = torch.where(fluid, u_fl, torch.where(empty & ~outflow, u_em, u))
         comps[c] = torch.where(inter, new, u)
+    vel = torch.stack(comps)
+    if phi is not None:
+        vel = _correct_velocity_ghost_fluid(flags, vel, pressure, phi, dom,
+                                            gf_clamp)
+        vel = _replace_clamped_ghost_fluid(flags, vel, phi, dom, gf_clamp)
+    return vel
+
+
+def _correct_velocity_ghost_fluid(flags, vel, pressure, phi, dom: Domain,
+                                  gf_clamp):
+    """knCorrectVelocityGhostFluid (pressure.cpp:153-187), without surface
+    tension."""
+    fluid = fl.is_fluid(flags)
+    empty = fl.is_empty(flags)
+    outflow = fl.is_outflow(flags)
+    inter = interior_mask(dom, 1, vel.device)
+    n_comp = 3 if dom.is3d else 2
+    comps = [vel[0], vel[1], vel[2]]
+    for c in range(n_comp):
+        ax = "xyz"[c]
+        nb_fluid = shift(fluid, -1, ax)
+        nb_empty = shift(empty, -1, ax)
+        p_nb = shift(pressure, -1, ax)
+        u = comps[c]
+        gf_c = _ghost_fluid(phi, shift(phi, -1, ax), gf_clamp)
+        gf_nb = shift(_ghost_fluid(phi, shift(phi, 1, ax), gf_clamp), -1, ax)
+        u_fl = u + torch.where(nb_empty, pressure * gf_c, 0.0)
+        u_em = torch.where(nb_fluid, u - p_nb * gf_nb, 0.0)
+        new = torch.where(fluid, u_fl,
+                          torch.where(empty & ~outflow, u_em, u))
+        comps[c] = torch.where(inter, new, u)
+    return torch.stack(comps)
+
+
+def _replace_clamped_ghost_fluid(flags, vel, phi, dom: Domain, gf_clamp):
+    """knReplaceClampedGhostFluidVels (pressure.cpp:208-224)."""
+    fluid = fl.is_fluid(flags)
+    empty = fl.is_empty(flags)
+    inter = interior_mask(dom, 1, vel.device)
+    n_comp = 3 if dom.is3d else 2
+    comps = [vel[0], vel[1], vel[2]]
+    for c in range(n_comp):
+        ax = "xyz"[c]
+        # clamped at the lower neighbour cell, looking back toward us
+        alpha_lo = shift(_theta(phi, shift(phi, 1, ax)), -1, ax)
+        lo = shift(fluid, -1, ax) & (alpha_lo < gf_clamp)
+        alpha_hi = shift(_theta(phi, shift(phi, -1, ax)), 1, ax)
+        hi = shift(fluid, 1, ax) & (alpha_hi < gf_clamp)
+        u = comps[c]
+        new = torch.where(lo, shift(u, -1, ax), u)
+        new = torch.where(hi & ~lo, shift(u, 1, ax), new)
+        comps[c] = torch.where(empty & inter, new, u)
     return torch.stack(comps)
 
 
@@ -216,7 +301,8 @@ def correct_velocity(flags, vel, pressure, dom: Domain):
 # top-level driver (solvePressure, pressure.cpp:482-525)
 
 def solve_pressure(vel, flags, dom: Domain, cg_accuracy: float = 1e-3,
-                   phi=None, fractions=None, cg_max_iter_fac: float = 1.5,
+                   phi=None, fractions=None, gf_clamp: float = 1e-4,
+                   cg_max_iter_fac: float = 1.5,
                    preconditioner: int = PcNone,
                    use_l2_norm: bool = False,
                    zero_pressure_fixing: bool = False,
@@ -225,17 +311,17 @@ def solve_pressure(vel, flags, dom: Domain, cg_accuracy: float = 1e-3,
 
     The CG kernel takes every PcNone max-norm solve, on any grid size and
     tolerance, as the JAX package's Pallas CG does on a single TPU chip; the
-    JAX package's automatic switch to multigrid therefore never applies."""
-    if phi is not None:
-        raise _not_ported("the ghost-fluid (phi) pressure solve")
+    JAX package's automatic switch to multigrid therefore never applies,
+    and a ghost-fluid system (``phi``) goes to the kernel's full-stencil
+    mode, as on the TPU."""
     if fractions is not None:
         raise _not_ported("the fraction-weighted pressure solve")
     rhs = make_rhs(flags, vel, dom)
-    stencil = make_laplace_stencil(flags, dom)
+    stencil = make_laplace_stencil(flags, dom, phi, gf_clamp)
     if zero_pressure_fixing or cg_accuracy < 1e-7:
         rhs, stencil = _fix_pressure(flags, rhs, stencil, dom)
     pressure, iters, rn = solve_pressure_system(
         rhs, flags, dom, stencil, cg_accuracy, cg_max_iter_fac,
         preconditioner, use_l2_norm, max_iter)
-    vel = correct_velocity(flags, vel, pressure, dom)
+    vel = correct_velocity(flags, vel, pressure, dom, phi, gf_clamp)
     return vel, pressure, rhs, iters, rn

@@ -134,7 +134,7 @@ def test_fixed_pressure_closed_domain():
 def test_unported_branches_raise(system):
     vel, flags = torch.tensor(system["vel"]), torch.tensor(system["flags"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tprs.solve_pressure(vel, flags, system["dom"], phi=vel[0])
+        tprs.solve_pressure(vel, flags, system["dom"], fractions=vel)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tprs.solve_pressure(vel, flags, system["dom"],
                             preconditioner=tprs.PcMGStatic)
