@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's smoke step on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,22 @@ Phases (any failed check raises, and the script exits non-zero):
    (PPC 10) and developed (PPC 16), a 24^3 corner dam over the advection's
    modes, blend and obstacle options, and the rebin overflow fixture;
    then each kernel's time on the developed step's inputs;
-8. the FLIP port on the card against the port on the CPU, 3 steps at 24^3.
+8. the FLIP port on the card against the port on the CPU, 3 steps at 24^3;
+9. path A, the bench dam solved without ghost fluid
+   (scenes/flip01_simple.py: no particle levelset) at 128^3, driven and
+   checked as phase 6: the transfer kernel alone;
+10. path B, the dam with a sphere obstacle (the flip06_obstacle.py
+   pattern) and scenes/flip03_gen.py's particle radius (radius_factor 2.5,
+   a levelset window of 3 cells) at 128^3, the same way: the advection on
+   its flags-at-position probes, the transfer kernel, the levelset kernel;
+   then finalize_buckets (the blend kernel, once) and the particles read
+   out; no particle lost or inside an obstacle cell;
+11. hold the transfer, levelset (windows of 1, 2 and 3 cells) and blend
+   kernels, and the advection with the obstacle, against their plain
+   versions on the card, on the inputs of one cold and one developed 128^3
+   step of paths A and B and on the 24^3 corner dam; then each kernel's
+   time on the developed step's inputs;
+12. paths A and B on the card against the port on the CPU, 3 steps at 24^3.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device.
@@ -115,25 +130,37 @@ def replay(calls, fn):
     return go
 
 
-def kernel_device_ms(torch, fn, reps, kernel):
+def kernel_device_ms(torch, fn, reps, kernel, launches):
     """Mean device milliseconds per launch of the CUDA kernel whose name
-    contains ``kernel``, from a torch.profiler trace of reps runs of fn():
-    the kernel's own time, without the host's launch gaps."""
+    contains ``kernel``, from a torch.profiler trace of reps runs of fn()
+    (``launches`` of the kernel each): the kernel's own time, without the
+    host's launch gaps. A trace can come back without the kernel's records;
+    it is then taken again, and after three empty traces the launches are
+    timed with CUDA events instead (which adds the host's gaps; the line
+    printed says so)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
-    require(count > 0 and us > 0, f"profiler saw no device time of {kernel}")
-    return us / 1e3 / count
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us, count = 0.0, 0
+        for e in events:
+            if kernel in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+                count += e.count
+        if count > 0 and us > 0:
+            return us / 1e3 / count
+        print(f"profiler trace {attempt + 1} holds {len(events)} kernels "
+              f"and no device time of {kernel}", flush=True)
+    ms = cuda_ms(torch, fn, reps) / launches
+    print(f"{kernel}: timed with CUDA events, {ms * 1e3:.1f} us/launch",
+          flush=True)
+    return ms
 
 
 def main():
@@ -151,8 +178,10 @@ def main():
     from mantaflow_tpu_torch.models import flip, smoke
     from mantaflow_tpu_torch.ops import advect_bucket_kernels as fadk
     from mantaflow_tpu_torch.ops import advection_kernels as advk
+    from mantaflow_tpu_torch.ops import blend_kernels as blk
     from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
     from mantaflow_tpu_torch.ops import flip_bucket as fb
+    from mantaflow_tpu_torch.ops import levelset_kernels as lsk
     from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
     from mantaflow_tpu_torch.ops import rebin_kernels as rbk
     from mantaflow_tpu_torch.ops import extforces as ext
@@ -286,7 +315,7 @@ def main():
         return go
 
     k1_ms = kernel_device_ms(torch, run_passes(advk.window_pass), 20,
-                             "window_advect_kernel")
+                             "window_advect_kernel", len(passes))
     k1_call_ms = cuda_ms(torch, run_passes(advk.window_pass), 20) / len(passes)
     k1_plain_ms = cuda_ms(torch, run_passes(window_interp), 1) / len(passes)
     n = dom.num_cells
@@ -352,7 +381,7 @@ def main():
         cg_iters["p"] = prs.cg_plain(rhs, stencil, dom, params.cg_accuracy,
                                      max_iter, fluid)[1]
 
-    k2_ms = kernel_device_ms(torch, cg_kernel_run, 5, "cg_kernel")
+    k2_ms = kernel_device_ms(torch, cg_kernel_run, 5, "cg_kernel", 1)
     k2_call_ms = cuda_ms(torch, cg_kernel_run, 5)
     k2_plain_ms = cuda_ms(torch, cg_plain_run, 1)
     k2_it = int(cg_iters["k"])
@@ -377,115 +406,166 @@ def main():
           f"{v_err:.3g}", flush=True)
 
     # -- 6. FLIP main path: the bench FLIP dam at 128^3 ---------------------
-    fparams = flip_bench_params(flip)
     fdom = Domain(size=(FLIP_RES,) * 3)
-    t0 = time.perf_counter()
-    fst = flip.make_dam_state_bucketed(fdom, fparams, ppc=10, device=dev)
-    n_parts = int(fst.buckets.count())
-    setup_s = time.perf_counter() - t0
-    print(f"flip {FLIP_RES}^3 set-up: {n_parts} particles, PPC "
-          f"{fst.buckets.ppc}, {setup_s:.1f} s", flush=True)
     flip_kernels = {"advect_bucket": fadk.advect_blend,
                     "rebin": rbk.rebin_pass, "p2g_levelset": p2gk.p2g_union,
+                    "p2g_mac": p2gk.p2g_mac,
+                    "union_levelset": lsk.union_levelset,
+                    "flip_blend": blk.flip_update,
                     "extrap_layer": xk.extrap_layer, "cg_solve": prk.cg_solve}
-    per_step = {"advect_bucket": 1, "rebin": 3, "p2g_levelset": 1,
-                "extrap_layer": 10, "cg_solve": 1}
-    # every step the path runs, redone chunks included, and its CG
-    # iterations (a device sum, no sync)
-    flip_steps = {"n": 0, "iters": torch.zeros((), dtype=torch.int64,
-                                               device=dev),
-                  "ppc": fst.buckets.ppc, "escalations": []}
     step_fn = flip.flip_step_bucketed
 
-    def counted_step(state, dom_, params_):
-        if state.buckets.ppc != flip_steps["ppc"]:
-            # the runner rebinned before this step: (step, new PPC)
-            flip_steps["ppc"] = state.buckets.ppc
-            flip_steps["escalations"].append((int(state.ts.count) + 1,
-                                              state.buckets.ppc))
-        state = step_fn(state, dom_, params_)
-        flip_steps["n"] += 1
-        flip_steps["iters"] += state.cg_iters
-        return state
+    def drive_flip(name, fparams, per_step, obstacle=None, finalize=False):
+        """One FLIP main path at 128^3: the dam set up at PPC 10, 1 warm
+        step, then through flip_run_bucketed_auto in chunks of FLIP_CHUNK:
+        a timed chunk (cold), 30 more steps, the bench's settle loop (so
+        that no escalation falls into the timed window), and a timed chunk
+        (developed); with ``finalize`` the pending blend and the particles
+        read out. Every kernel's count is set to 0 just before and read
+        just after; the launches per step, the particle count and the
+        fields are checked. Returns the run's numbers, its last state
+        (before the finalize) and the launches."""
+        t0 = time.perf_counter()
+        fst = flip.make_dam_state_bucketed(fdom, fparams, ppc=10,
+                                           obstacle=obstacle, device=dev)
+        n_parts = int(fst.buckets.count())
+        setup_s = time.perf_counter() - t0
+        print(f"{name} {FLIP_RES}^3 set-up: {n_parts} particles, PPC "
+              f"{fst.buckets.ppc}, {setup_s:.1f} s", flush=True)
+        # every step the path runs, redone chunks included, and its CG
+        # iterations (a device sum, no sync)
+        run = {"n": 0, "iters": torch.zeros((), dtype=torch.int64,
+                                            device=dev),
+               "ppc": fst.buckets.ppc, "escalations": []}
 
-    def timed_chunk(state):
-        """One runner chunk of FLIP_CHUNK steps: (state, steps/s, CG
-        iterations per step run, redone steps included)."""
-        torch.cuda.synchronize()
-        mark, steps_pre = int(flip_steps["iters"]), flip_steps["n"]
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        state = flip.flip_run_bucketed_auto(state, fdom, fparams, FLIP_CHUNK,
-                                            check_every=FLIP_CHUNK)
-        t1.record()
-        torch.cuda.synchronize()
-        return (state, FLIP_CHUNK / (t0.elapsed_time(t1) / 1e3),
-                (int(flip_steps["iters"]) - mark)
-                / (flip_steps["n"] - steps_pre))
+        def counted_step(state, dom_, params_):
+            if state.buckets.ppc != run["ppc"]:
+                # the runner rebinned before this step: (step, new PPC)
+                run["ppc"] = state.buckets.ppc
+                run["escalations"].append((int(state.ts.count) + 1,
+                                           state.buckets.ppc))
+            state = step_fn(state, dom_, params_)
+            run["n"] += 1
+            run["iters"] += state.cg_iters
+            return state
 
-    torch.cuda.synchronize()
-    for fn in flip_kernels.values():
-        fn.launches = 0
-    flip.flip_step_bucketed = counted_step
-    try:
-        fst = flip.flip_step_bucketed(fst, fdom, fparams)  # warm
+        def chunk(state):
+            return flip.flip_run_bucketed_auto(state, fdom, fparams,
+                                               FLIP_CHUNK,
+                                               check_every=FLIP_CHUNK)
+
+        def timed_chunk(state):
+            """One runner chunk of FLIP_CHUNK steps: (state, steps/s, CG
+            iterations per step run, redone steps included)."""
+            torch.cuda.synchronize()
+            mark, steps_pre = int(run["iters"]), run["n"]
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            state = chunk(state)
+            t1.record()
+            torch.cuda.synchronize()
+            return (state, FLIP_CHUNK / (t0.elapsed_time(t1) / 1e3),
+                    (int(run["iters"]) - mark) / (run["n"] - steps_pre))
+
+        torch.cuda.synchronize()
+        for fn in flip_kernels.values():
+            fn.launches = 0
+        flip.flip_step_bucketed = counted_step
+        try:
+            fst = flip.flip_step_bucketed(fst, fdom, fparams)  # warm
+            require(int(fst.buckets.dropped) == 0,
+                    f"{name}: {int(fst.buckets.dropped)} dropped in the "
+                    "warm step")
+            fst, cold_sps, cold_it = timed_chunk(fst)
+            cold_ppc = fst.buckets.ppc
+            for _ in range(3):
+                fst = chunk(fst)
+            # bench.py:147-153: a chunk that ends at an unchanged PPC shows
+            # that no escalation is pending
+            for _ in range(3):
+                ppc_pre = fst.buckets.ppc
+                fst = chunk(fst)
+                if fst.buckets.ppc == ppc_pre:
+                    break
+            fst, dev_sps, dev_it = timed_chunk(fst)
+        finally:
+            flip.flip_step_bucketed = step_fn
+        if finalize:
+            fin = flip.finalize_buckets(fst, fdom, fparams)
+            parts, pvel = fb.to_particles(fin.buckets, fdom)
+            torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in flip_kernels.items()}
+        n_steps = run["n"]
+        for k in flip_kernels:
+            want = per_step.get(k, 0) * n_steps
+            if k == "flip_blend":
+                want = 1 if finalize else 0
+            require(launches[k] == want,
+                    f"{name}: {k} launched {launches[k]} times in {n_steps} "
+                    f"steps (expected {want})")
         require(int(fst.buckets.dropped) == 0,
-                f"flip: {int(fst.buckets.dropped)} dropped in the warm step")
-        fst, flip_cold_sps, flip_cold_it = timed_chunk(fst)
-        cold_ppc = fst.buckets.ppc
-        fst = flip.flip_run_bucketed_auto(fst, fdom, fparams, 30,
-                                          check_every=FLIP_CHUNK)
-        # bench.py:147-153: a chunk that ends at an unchanged PPC shows that
-        # no escalation is pending
-        for _ in range(3):
-            ppc_pre = fst.buckets.ppc
-            fst = flip.flip_run_bucketed_auto(fst, fdom, fparams, FLIP_CHUNK,
-                                              check_every=FLIP_CHUNK)
-            if fst.buckets.ppc == ppc_pre:
-                break
-        fst, flip_dev_sps, flip_dev_it = timed_chunk(fst)
-    finally:
-        flip.flip_step_bucketed = step_fn
-    flip_launches = {k: fn.launches for k, fn in flip_kernels.items()}
-    n_flip_steps = flip_steps["n"]
-    for k, per in per_step.items():
-        require(flip_launches[k] == per * n_flip_steps,
-                f"flip: {k} launched {flip_launches[k]} times in "
-                f"{n_flip_steps} steps ({per} per step)")
-    require(int(fst.buckets.dropped) == 0,
-            f"flip: {int(fst.buckets.dropped)} particles dropped")
-    require(int(fst.buckets.count()) == n_parts,
-            f"flip: {int(fst.buckets.count())} particles, had {n_parts}")
-    for name in ("vel", "phi", "pressure"):
-        require(bool(torch.isfinite(getattr(fst, name)).all()),
-                f"flip: {name} not finite")
-    flip_steps_kept = int(fst.ts.count)
-    escalations = flip_steps["escalations"]
-    print(f"flip {FLIP_RES}^3: {n_flip_steps} steps run ({flip_steps_kept} "
-          f"kept), PPC {cold_ppc} after the cold window, "
-          f"{fst.buckets.ppc} at the end, escalations (from step, to PPC) "
-          f"{escalations}, {flip_cold_sps:.2f} steps/s cold, "
-          f"{flip_dev_sps:.2f} developed, CG {flip_cold_it:.1f} / "
-          f"{flip_dev_it:.1f} it/step", flush=True)
+                f"{name}: {int(fst.buckets.dropped)} particles dropped")
+        require(int(fst.buckets.count()) == n_parts,
+                f"{name}: {int(fst.buckets.count())} particles, had "
+                f"{n_parts}")
+        for field in ("vel", "phi", "pressure"):
+            require(bool(torch.isfinite(getattr(fst, field)).all()),
+                    f"{name}: {field} not finite")
+        occupied = fst.buckets.valid.any(dim=0).reshape(fdom.shape)
+        require(not bool((fl.is_obstacle(fst.flags) & occupied).any()),
+                f"{name}: a valid slot lies in an obstacle cell")
+        if finalize:
+            require(not bool(fin.blend_pending), f"{name}: blend pending")
+            require(int(parts.count) == n_parts,
+                    f"{name}: to_particles read {int(parts.count)} of "
+                    f"{n_parts} particles")
+            require(bool(torch.isfinite(pvel).all()),
+                    f"{name}: particle velocities not finite")
+        print(f"{name} {FLIP_RES}^3: {n_steps} steps run "
+              f"({int(fst.ts.count)} kept), PPC {cold_ppc} after the cold "
+              f"window, {fst.buckets.ppc} at the end, escalations (from "
+              f"step, to PPC) {run['escalations']}, {cold_sps:.2f} steps/s "
+              f"cold, {dev_sps:.2f} developed, CG {cold_it:.1f} / "
+              f"{dev_it:.1f} it/step, launches {launches}", flush=True)
+        numbers = {"steps_per_s_cold": cold_sps,
+                   "steps_per_s_developed": dev_sps, "particles": n_parts,
+                   "ppc_cold": cold_ppc, "ppc_final": fst.buckets.ppc,
+                   "escalations": run["escalations"], "steps_run": n_steps,
+                   "steps_kept": int(fst.ts.count),
+                   "cg_iters_per_step_cold": cold_it,
+                   "cg_iters_per_step_developed": dev_it,
+                   "launches_per_step": per_step, "setup_s": setup_s}
+        return numbers, fst, launches
+
+    fparams = flip_bench_params(flip)
+    per_step = {"advect_bucket": 1, "rebin": 3, "p2g_levelset": 1,
+                "extrap_layer": 10, "cg_solve": 1}
+    flip_numbers, fst, flip_launches = drive_flip("flip", fparams, per_step)
 
     # -- 7. FLIP kernels vs their plain versions on the card ----------------
     plain_of = {"advect_bucket": fadk.advect_blend_plain,
                 "rebin": fb._rebin_axis, "p2g_levelset": p2gk.p2g_union_plain,
+                "p2g_mac": fb.p2g_mac,
+                "union_levelset": fb.union_levelset_bucketed,
+                "flip_blend": fb.flip_update_bucketed,
                 "extrap_layer": xk.extrap_layer_plain}
     sites = {"advect_bucket": (fadk, "advect_blend"),
              "rebin": (rbk, "rebin_pass"),
              "p2g_levelset": (p2gk, "p2g_union"),
+             "p2g_mac": (p2gk, "p2g_mac"),
+             "union_levelset": (lsk, "union_levelset"),
+             "flip_blend": (blk, "flip_update"),
              "extrap_layer": (xk, "extrap_layer"),
              "cg_solve": (prk, "cg_solve")}
 
-    def record_step(state):
+    def record_step(state, params_=fparams):
         """The arguments of every kernel call of one step from state."""
         calls = {k: [] for k in sites}
         with contextlib.ExitStack() as stack:
             for k, (mod, name) in sites.items():
                 stack.enter_context(recording(mod, name, calls[k]))
-            flip.flip_step_bucketed(state, fdom, fparams)
+            flip.flip_step_bucketed(state, fdom, params_)
         torch.cuda.synchronize()
         return calls
 
@@ -508,24 +588,29 @@ def main():
         ref = plain_of[kind](*args, **kwargs)
         if kind == "rebin":
             return bucket_err(got, ref, exact=True)
-        if kind == "advect_bucket":
+        if kind in ("advect_bucket", "flip_blend"):
             err = bucket_err(got, ref, exact=False)
-            require(err <= 1e-6, f"advect_bucket: max abs err {err}")
+            require(err <= 1e-6, f"{kind}: max abs err {err}")
             return err
         if kind == "extrap_layer":
             for g, r in zip(got[0] + got[1], ref[0] + ref[1]):
                 require(torch.equal(g, r), "extrap_layer: differs")
             return 0.0
-        # p2g_levelset: the gather sums in another order than the plain
-        # rolls (the Pallas kernel's tolerance, flip_bucket_pallas2.py:25-28)
+        # the transfer's gather sums in another order than the plain rolls
+        # (the Pallas kernel's tolerance, flip_bucket_pallas2.py:25-28); the
+        # levelset alone is a min of the same expressions (the JAX tests'
+        # tolerance, tests/test_flip_bucket.py:165-167)
+        if kind == "union_levelset":
+            got, ref = (got,), (ref,)
+        tol = 1e-6 if kind == "union_levelset" else 1e-5
         err = 0.0
         for g, r, what in zip(got, ref, ("vel", "weight", "phi")):
             e = float((g - r).abs().max())
-            require(e <= 1e-5, f"p2g_levelset: {what} max abs err {e}")
+            require(e <= tol, f"{kind}: output {what} max abs err {e}")
             err = max(err, e)
         return err
 
-    errs = {k: 0.0 for k in sites}
+    errs = {k: 0.0 for k in flip_kernels}
     # the 128^3 step from the developed state (PPC escalated), from a cold
     # state a few steps in (PPC 10), and from that state rebinned at PPC 16
     dev_calls = record_step(fst)
@@ -540,7 +625,7 @@ def main():
     for calls, what in ((dev_calls, f"PPC {fst.buckets.ppc}"),
                         (cold_calls, "PPC 10"), (ppc16_calls, "PPC 16")):
         for kind in plain_of:
-            require(len(calls[kind]) == per_step[kind],
+            require(len(calls[kind]) == per_step.get(kind, 0),
                     f"{kind}: {len(calls[kind])} calls in one step")
             for args, kwargs in calls[kind]:
                 errs[kind] = max(errs[kind], check_call(kind, args, kwargs))
@@ -551,7 +636,7 @@ def main():
                 rhs, stencil, kwargs["fluid"], acc, max_iter, dom_,
                 units=(False,)))
         print(f"flip {FLIP_RES}^3 step kernels vs plain ({what}): "
-              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()),
+              + ", ".join(f"{k} {errs[k]:.3g}" for k in per_step),
               flush=True)
     del cold_calls, ppc16_calls
 
@@ -626,17 +711,25 @@ def main():
     P, T = bk128.ppc, fdom.num_cells
     live = int(bk128.valid.sum())
     fk = {}
-    for kind, kname in (("advect_bucket", "advect_bucket_kernel"),
-                        ("rebin", "rebin_pass_kernel"),
-                        ("p2g_levelset", "p2g_levelset_kernel"),
-                        ("extrap_layer", "extrap_layer_kernel")):
-        calls = dev_calls[kind]
-        orig = getattr(*sites[kind])
+
+    def time_kernel(kind, kname, calls, fn, plain, nbytes, nops, what):
+        """Device ms per launch of ``fn`` over the recorded calls, the
+        plain version's ms, and the bound from the bytes and operations
+        the function needs for these inputs."""
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
         fk[kind] = {
-            "ms": kernel_device_ms(torch, replay(calls, orig), 5, kname),
-            "call_ms": cuda_ms(torch, replay(calls, orig), 5) / len(calls),
-            "plain_ms": cuda_ms(torch, replay(calls, plain_of[kind]), 1)
-            / len(calls)}
+            "ms": kernel_device_ms(torch, replay(calls, fn), 5, kname,
+                                   len(calls)),
+            "call_ms": cuda_ms(torch, replay(calls, fn), 5) / len(calls),
+            "plain_ms": cuda_ms(torch, replay(calls, plain), 1) / len(calls),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        print(f"{kind}: {fk[kind]['ms'] * 1e3:.1f} us/launch (bound "
+              f"{fk[kind]['bound_ms'] * 1e3:.1f} us, "
+              f"{fk[kind]['bound_by']}; {what}), "
+              f"plain {fk[kind]['plain_ms']:.2f} ms", flush=True)
+
     # least bytes per launch, for what each function must read and write:
     # slot fields are 4 bytes, valid 1 byte. The advection passes invalid
     # slots through, so it reads the seven slot fields of every slot and
@@ -663,36 +756,191 @@ def main():
             "extrap_layer": 20 * sum(len(a[0]) for a, _ in
                                      dev_calls["extrap_layer"]) * T
             / len(dev_calls["extrap_layer"])}
-    for kind in fk:
-        b_ms = fbytes[kind] / HBM_BYTES_PER_S * 1e3
-        o_ms = fops[kind] / FP32_OPS_PER_S * 1e3
-        fk[kind].update(bound_ms=max(b_ms, o_ms),
-                        bound_by="bytes" if b_ms >= o_ms else "operations")
-        print(f"{kind}: {fk[kind]['ms'] * 1e3:.1f} us/launch (bound "
-              f"{fk[kind]['bound_ms'] * 1e3:.1f} us, "
-              f"{fk[kind]['bound_by']}; P {P}, {live} live), "
-              f"plain {fk[kind]['plain_ms']:.2f} ms", flush=True)
+    for kind, kname in (("advect_bucket", "advect_bucket_kernel"),
+                        ("rebin", "rebin_pass_kernel"),
+                        ("p2g_levelset", "p2g_levelset_kernel"),
+                        ("extrap_layer", "extrap_layer_kernel")):
+        time_kernel(kind, kname, dev_calls[kind], getattr(*sites[kind]),
+                    plain_of[kind], fbytes[kind], fops[kind],
+                    f"P {P}, {live} live")
 
     # -- 8. FLIP port on the card vs the port on the CPU -------------------
     sdom = Domain(size=(24,) * 3)
-    runs = []
-    for d_ in (dev, "cpu"):
-        s_ = flip.make_dam_state_bucketed(sdom, fparams, ppc=10, device=d_)
-        for _ in range(3):
-            s_ = flip.flip_step_bucketed(s_, sdom, fparams)
-        runs.append(s_)
-    f_gpu, f_cpu = runs
-    require(torch.equal(f_gpu.flags.cpu(), f_cpu.flags),
-            "24^3 FLIP card vs CPU: flags differ")
-    require(int(f_gpu.buckets.count()) == int(f_cpu.buckets.count()),
-            "24^3 FLIP card vs CPU: particle counts differ")
-    fv_err = float((f_gpu.vel.cpu() - f_cpu.vel).abs().max())
-    fphi_err = float((f_gpu.phi.cpu() - f_cpu.phi).abs().max())
-    require(fv_err < 2e-4 and fphi_err < 2e-4,
-            f"24^3 FLIP card vs CPU: vel {fv_err}, phi {fphi_err}")
-    print(f"24^3 FLIP x3 steps, card vs CPU: vel {fv_err:.3g}, phi "
-          f"{fphi_err:.3g}", flush=True)
 
+    def card_vs_cpu(name, params_, obstacle=None, ppc=10):
+        """3 steps at 24^3 on the card and on the CPU: flags and particle
+        counts exact, grids to abs 2e-4."""
+        runs = []
+        for d_ in (dev, "cpu"):
+            s_ = flip.make_dam_state_bucketed(sdom, params_, ppc=ppc,
+                                              obstacle=obstacle, device=d_)
+            for _ in range(3):
+                s_ = flip.flip_step_bucketed(s_, sdom, params_)
+            runs.append(s_)
+        f_gpu, f_cpu = runs
+        require(torch.equal(f_gpu.flags.cpu(), f_cpu.flags),
+                f"24^3 {name} card vs CPU: flags differ")
+        require(int(f_gpu.buckets.count()) == int(f_cpu.buckets.count()),
+                f"24^3 {name} card vs CPU: particle counts differ")
+        require(int(f_gpu.buckets.dropped) == 0,
+                f"24^3 {name}: particles dropped")
+        fv_err = float((f_gpu.vel.cpu() - f_cpu.vel).abs().max())
+        fphi_err = float((f_gpu.phi.cpu() - f_cpu.phi).abs().max())
+        require(fv_err < 2e-4 and fphi_err < 2e-4,
+                f"24^3 {name} card vs CPU: vel {fv_err}, phi {fphi_err}")
+        print(f"24^3 {name} x3 steps, card vs CPU: vel {fv_err:.3g}, phi "
+              f"{fphi_err:.3g}", flush=True)
+
+    card_vs_cpu("FLIP", fparams)
+    del fst, dev_calls
+
+    # -- 9. path A: the bench dam without ghost fluid ----------------------
+    # scenes/flip01_simple.py's solve (no particle levelset): the transfer
+    # kernel alone, the CG on the plain system, no levelset layers
+    params_a = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=False,
+                               cg_accuracy=1e-3, ring_only_obstacles=True)
+    per_step_a = {"advect_bucket": 1, "rebin": 3, "p2g_mac": 1,
+                  "extrap_layer": 6, "cg_solve": 1}
+    a_numbers, a_state, a_launches = drive_flip("flip01", params_a,
+                                                per_step_a)
+    require(a_numbers["particles"] == flip_numbers["particles"],
+            "flip01: not the bench dam's particles")
+
+    # -- 10. path B: the dam with an obstacle and a wide particle radius ---
+    # the flip06_obstacle.py pattern at scenes/flip03_gen.py's radius: the
+    # advection on its flags-at-position probes, the transfer kernel, the
+    # levelset kernel at rw = 3, the ghost-fluid CG, then the blend kernel
+    params_b = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
+                               radius_factor=2.5, cg_accuracy=1e-3)
+    require(fb.levelset_radius(fdom, params_b.radius_factor)[1] == 3,
+            "path B: the levelset window is not 3 cells")
+    obstacle_b = Sphere(center=(FLIP_RES * 0.7, FLIP_RES * 0.28,
+                                FLIP_RES * 0.5), radius=FLIP_RES * 0.15)
+    per_step_b = {"advect_bucket": 1, "rebin": 3, "p2g_mac": 1,
+                  "union_levelset": 1, "extrap_layer": 10, "cg_solve": 1}
+    b_numbers, b_state, b_launches = drive_flip(
+        "obstacle", params_b, per_step_b, obstacle=obstacle_b, finalize=True)
+    n_obs = int(fl.is_obstacle(b_state.flags)[1:-1, 1:-1, 1:-1].sum())
+    require(n_obs > 0.01 * fdom.num_cells,
+            f"obstacle: {n_obs} interior obstacle cells")
+
+    # -- 11. the new kernels vs their plain versions on the card -----------
+    new_kinds = ("p2g_mac", "union_levelset", "flip_blend")
+    obstacle_err = 0.0
+    path_calls = {}
+    for name, params_, obstacle, developed in (
+            ("flip01", params_a, None, a_state),
+            ("obstacle", params_b, obstacle_b, b_state)):
+        cold = flip.make_dam_state_bucketed(fdom, params_, ppc=10,
+                                            obstacle=obstacle, device=dev)
+        for _ in range(3):
+            cold = flip.flip_step_bucketed(cold, fdom, params_)
+        for st_, what in ((cold, "cold"), (developed, "developed")):
+            calls = record_step(st_, params_)
+            (args, _), = calls["p2g_mac"]
+            bk_ = args[0]
+            errs["p2g_mac"] = max(errs["p2g_mac"],
+                                  check_call("p2g_mac", args, {}))
+            if params_.ghost_fluid:
+                require(len(calls["union_levelset"]) == 1
+                        and not calls["p2g_levelset"],
+                        f"{name}: levelset route")
+                for rf in (1.0, 1.5, 2.5):
+                    errs["union_levelset"] = max(
+                        errs["union_levelset"],
+                        check_call("union_levelset", (bk_, fdom, rf), {}))
+            else:
+                require(not calls["union_levelset"]
+                        and not calls["p2g_levelset"],
+                        f"{name}: a levelset kernel ran")
+            errs["flip_blend"] = max(errs["flip_blend"], check_call(
+                "flip_blend", (st_.buckets, st_.vel, st_.vel_old,
+                               fparams.flip_ratio, fdom), {}))
+            # the advection on this path's own inputs (path B: its
+            # flags-at-position obstacle probes at 128^3)
+            (args, kwargs), = calls["advect_bucket"]
+            e = check_call("advect_bucket", args, kwargs)
+            errs["advect_bucket"] = max(errs["advect_bucket"], e)
+            if obstacle is not None:
+                require(kwargs.get("ring_only") is False,
+                        "obstacle: the advection ran on the bounds test")
+                obstacle_err = max(obstacle_err, e)
+            for args, kwargs in calls["cg_solve"]:
+                rhs, stencil, dom_, acc, max_iter = args
+                errs["cg_solve"] = max(errs["cg_solve"], cg_check(
+                    rhs, stencil, kwargs["fluid"], acc, max_iter, dom_,
+                    units=(False,)))
+            print(f"{name} {FLIP_RES}^3 {what} step (PPC {bk_.ppc}), kernels "
+                  "vs plain: " + ", ".join(
+                      f"{k} {errs[k]:.3g}" for k in new_kinds
+                      + ("advect_bucket", "cg_solve")), flush=True)
+            path_calls[name] = (calls, st_)
+        del cold
+    # the 24^3 corner dam (cbk: made-up particle velocities)
+    errs["p2g_mac"] = max(errs["p2g_mac"],
+                          check_call("p2g_mac", (cbk, cdom), {}))
+    for rf in (1.0, 1.5, 2.5):
+        errs["union_levelset"] = max(
+            errs["union_levelset"],
+            check_call("union_levelset", (cbk, cdom, rf), {}))
+    errs["flip_blend"] = max(errs["flip_blend"], check_call(
+        "flip_blend", (cbk, cvel, cvel * 0.85, fparams.flip_ratio, cdom),
+        {}))
+    # finalize, then a step with nothing pending, moves the particles and
+    # sets their velocities as a step with the blend pending does
+    pend_step = flip.flip_step_bucketed(b_state, fdom, params_b)
+    fin_step = flip.flip_step_bucketed(
+        flip.finalize_buckets(b_state, fdom, params_b), fdom, params_b)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "valid"):
+        require(torch.equal(getattr(pend_step.buckets, f),
+                            getattr(fin_step.buckets, f)),
+                f"finalize then step vs pending step: {f} differs")
+    del pend_step, fin_step
+    print("new kernels vs plain, 128^3 steps and 24^3 corner dam: "
+          + ", ".join(f"{k} {errs[k]:.3g}" for k in new_kinds)
+          + f"; advect_bucket with the obstacle {obstacle_err:.3g}; "
+          "finalize+step equals the pending step bitwise", flush=True)
+
+    # times on the developed steps' inputs: the transfer on path A's, the
+    # levelset (rw = 3) and the blend on path B's. Least bytes: the valid
+    # byte of every slot and the needed fields of the live particles; the
+    # transfer writes six grids, the levelset one; the blend reads every
+    # slot's velocity and writes it (invalid slots pass through) and reads
+    # two MAC grids. Operations on the live particles: the transfer ~270
+    # (3 components x 18 taps x 5), the levelset ~10 per source cell of the
+    # (2 rw + 1)^3 window, the blend ~230 (two grids x three 8-corner
+    # interpolations and the mix).
+    T = fdom.num_cells
+    for name, kind in (("flip01", "p2g_mac"),
+                       ("obstacle", "p2g_mac_obstacle")):
+        calls, st_ = path_calls[name]
+        P, live = st_.buckets.ppc, int(st_.buckets.valid.sum())
+        time_kernel(kind, "p2g_mac_kernel", calls["p2g_mac"], p2gk.p2g_mac,
+                    fb.p2g_mac, P * T + 24 * live + 24 * T, 270 * live,
+                    f"{name} developed, P {P}, {live} live")
+    # calls, st_, P and live are the obstacle path's from here on
+    what = f"obstacle developed, P {P}, {live} live"
+    (ls_args, _), = calls["union_levelset"]
+    for rf in (1.0, 1.5, 2.5):
+        rw = fb.levelset_radius(fdom, rf)[1]
+        time_kernel("union_levelset" if rw == 3 else f"union_levelset_rw{rw}",
+                    "union_levelset_kernel", [((ls_args[0], fdom, rf), {})],
+                    lsk.union_levelset, fb.union_levelset_bucketed,
+                    P * T + 12 * live + 4 * T, 10 * (2 * rw + 1) ** 3 * live,
+                    f"rw {rw}, {what}")
+    time_kernel("flip_blend", "flip_blend_kernel",
+                [((st_.buckets, st_.vel, st_.vel_old, fparams.flip_ratio,
+                   fdom), {})], blk.flip_update, fb.flip_update_bucketed,
+                25 * P * T + 12 * live + 24 * T, 230 * live, what)
+    del path_calls, a_state, b_state
+
+    # -- 12. paths A and B on the card vs the port on the CPU ---------------
+    card_vs_cpu("flip01", params_a)
+    card_vs_cpu("obstacle", params_b, ppc=14, obstacle=Sphere(
+        center=(24 * 0.7, 24 * 0.28, 12.0), radius=24 * 0.15))
+
+    flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
+                  "obstacle_128": b_launches}
     kernels = [
         {"name": "window_advect", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
@@ -705,14 +953,17 @@ def main():
         {"name": "cg_solve", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/cg_solve.cu",
          "replaces": "mantaflow_tpu/ops/pressure_pallas.py:88",
-         "launches": launches["cg_solve"], "max_abs_err": k2_err,
+         "launches": launches["cg_solve"] + sum(
+             v["cg_solve"] for v in flip_paths.values()),
+         "max_abs_err": max(k2_err, errs["cg_solve"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": max(k2_bound_bytes, k2_bound_ops),
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
          else "operations", "library_ms": None,
          "call_ms": k2_call_ms, "iterations": k2_it,
          "launches_by_path": {"smoke_128": launches["cg_solve"],
-                              "flip_128": flip_launches["cg_solve"]},
+                              **{k: v["cg_solve"]
+                                 for k, v in flip_paths.items()}},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
          "iteration_stream_bound_ms": k2_iter_stream_ms},
     ]
@@ -723,13 +974,26 @@ def main():
         "rebin": [f"{fbp}:{n}" for n in (744, 301, 433, 482, 1079)],
         "p2g_levelset": ["mantaflow_tpu/ops/flip_bucket_pallas2.py:408"],
         "extrap_layer": ["mantaflow_tpu/ops/extrapolation_pallas.py:45"]}
+    fbp2 = "mantaflow_tpu/ops/flip_bucket_pallas2.py"
+    flip_replaces.update({"p2g_mac": [f"{fbp2}:75"],
+                          "union_levelset": [f"{fbp2}:197"],
+                          "flip_blend": [f"{fbp2}:299"]})
     for kind, (repl, *also) in flip_replaces.items():
-        kernels.append({
+        by_path = {k: v[kind] for k, v in flip_paths.items()}
+        entry = {
             "name": kind, "route": "cuda",
             "source": f"mantaflow_tpu_torch/csrc/{kind}.cu",
             "replaces": repl, "also_replaces": also,
-            "launches": flip_launches[kind], "max_abs_err": errs[kind],
-            "library_ms": None, **fk[kind]})
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": errs[kind], "library_ms": None, **fk[kind]}
+        if kind == "p2g_mac":
+            entry["obstacle_path"] = fk["p2g_mac_obstacle"]
+        if kind == "union_levelset":
+            entry["narrower_windows"] = {rw: fk[f"union_levelset_rw{rw}"]
+                                         for rw in (1, 2)}
+        if kind == "advect_bucket":
+            entry["max_abs_err_with_obstacle"] = obstacle_err
+        kernels.append(entry)
     print(card)
     print(json.dumps({
         "smoke_128": {"steps_per_s_cold": cold_sps,
@@ -737,15 +1001,8 @@ def main():
                       "cg_iters_per_step_cold": cold_it,
                       "cg_iters_per_step_developed": dev_it,
                       "density_max": dmax},
-        "flip_128": {"steps_per_s_cold": flip_cold_sps,
-                     "steps_per_s_developed": flip_dev_sps,
-                     "particles": n_parts, "ppc_cold": cold_ppc,
-                     "ppc_final": fst.buckets.ppc,
-                     "escalations": escalations,
-                     "steps_run": n_flip_steps, "steps_kept": flip_steps_kept,
-                     "cg_iters_per_step_cold": flip_cold_it,
-                     "cg_iters_per_step_developed": flip_dev_it,
-                     "setup_s": setup_s},
+        "flip_128": flip_numbers, "flip01_128": a_numbers,
+        "obstacle_128": b_numbers,
         "build_s": build_s, "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

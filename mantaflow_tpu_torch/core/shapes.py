@@ -1,9 +1,10 @@
-"""Geometric shapes: analytic SDFs evaluated on the grid.
+"""Geometric shapes: inside tests and analytic SDFs evaluated on the grid.
 
-Behavioral port of ``source/shapes.h/.cpp`` for Box (BoxSDF :178), the
-shape of the FLIP dam, and Sphere (:240, SphereSDF :309), the shape of the
-smoke plume's emitter. The other shapes of the JAX package (Cylinder, Slope,
-mesh shapes) and the inside tests and grid stamping are not ported yet
+Behavioral port of ``source/shapes.h/.cpp`` for Box (isInside :151, BoxSDF
+:178), the shape of the FLIP dam, and Sphere (:240, SphereSDF :309), the
+shape of the smoke plume's emitter and of the dam's obstacle. The other
+shapes of the JAX package (Cylinder, Slope, mesh shapes) and the grid
+stamping (``apply_to_grid`` and its variants) are not ported yet
 (ROADMAP.md).
 """
 
@@ -22,7 +23,19 @@ def _cell_centers(dom: Domain, device):
     return x.expand(dom.shape), y.expand(dom.shape), z.expand(dom.shape)
 
 
-class Box:
+class Shape:
+    """Base shape: subclasses implement is_inside(px, py, pz) and
+    sdf(px, py, pz) on tensors of positions."""
+
+    def inside_grid(self, dom: Domain, device):
+        """The inside test at the cell centres: bool [z,y,x]."""
+        return self.is_inside(*_cell_centers(dom, device))
+
+    def compute_levelset(self, dom: Domain, device):
+        return self.sdf(*_cell_centers(dom, device))
+
+
+class Box(Shape):
     def __init__(self, p0=None, p1=None, center=None, size=None, dim=3):
         if center is not None and size is not None:
             self.p0 = tuple(c - s for c, s in zip(center, size))
@@ -32,6 +45,13 @@ class Box:
         else:
             raise ValueError("Box: specify either p0,p1 or size,center")
         self.dim = dim
+
+    def is_inside(self, px, py, pz):
+        m = ((px >= self.p0[0]) & (px <= self.p1[0])
+             & (py >= self.p0[1]) & (py <= self.p1[1]))
+        if self.dim == 3:
+            m = m & (pz >= self.p0[2]) & (pz <= self.p1[2])
+        return m
 
     def sdf(self, px, py, pz):
         """BoxSDF (shapes.cpp:178-229), branch for branch: face distances
@@ -85,23 +105,22 @@ class Box:
         res = torch.where(in_y & in_z, mx, res)
         return torch.where(in_x & in_y & in_z, v_inside, res)
 
-    def compute_levelset(self, dom: Domain, device):
-        px, py, pz = _cell_centers(dom, device)
-        return self.sdf(px, py, pz)
 
-
-class Sphere:
+class Sphere(Shape):
     def __init__(self, center, radius, scale=(1.0, 1.0, 1.0)):
         self.center = tuple(center)
         self.radius = float(radius)
         self.scale = tuple(scale)
 
-    def sdf(self, px, py, pz):
-        dx = (px - self.center[0]) / self.scale[0]
-        dy = (py - self.center[1]) / self.scale[1]
-        dz = (pz - self.center[2]) / self.scale[2]
-        return torch.sqrt(dx * dx + dy * dy + dz * dz) - self.radius
+    def _scaled_offset(self, px, py, pz):
+        return ((px - self.center[0]) / self.scale[0],
+                (py - self.center[1]) / self.scale[1],
+                (pz - self.center[2]) / self.scale[2])
 
-    def compute_levelset(self, dom: Domain, device):
-        px, py, pz = _cell_centers(dom, device)
-        return self.sdf(px, py, pz)
+    def is_inside(self, px, py, pz):
+        dx, dy, dz = self._scaled_offset(px, py, pz)
+        return dx * dx + dy * dy + dz * dz <= self.radius ** 2
+
+    def sdf(self, px, py, pz):
+        dx, dy, dz = self._scaled_offset(px, py, pz)
+        return torch.sqrt(dx * dx + dy * dy + dz * dz) - self.radius

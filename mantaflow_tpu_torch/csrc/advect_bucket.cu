@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bucket_interp.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -72,47 +74,6 @@ struct AdvectArgs {
   int mode;  // 0 Euler, 1 RK2, 2 RK4
   int ring_only;
 };
-
-// interpol.h BUILD_INDEX: trunc, then the border clamp of flip_bucket._axw
-__device__ __forceinline__ void axw(float p, int n, int& idx, float& w) {
-  idx = static_cast<int>(p);
-  w = p - static_cast<float>(idx);
-  if (p < 0.f) {
-    idx = 0;
-    w = 0.f;
-  }
-  if (p >= static_cast<float>(n - 1)) {
-    idx = n - 2;
-    w = 1.f;
-  }
-}
-
-// Component c of MAC grid g at q, summed in _mac_eval's order: z taps
-// outer, y taps, x pairs inner, acc += (wz*wy) * (wx0 g0 + wx1 g1).
-__device__ __forceinline__ float mac_comp(const AdvectArgs& a, const float* g,
-                                          int c, float qx, float qy,
-                                          float qz) {
-  int bx, by, bz;
-  float wx, wy, wz;
-  axw(qx - (c == 0 ? 0.f : 0.5f), a.sx, bx, wx);
-  axw(qy - (c == 1 ? 0.f : 0.5f), a.sy, by, wy);
-  axw(qz - (c == 2 ? 0.f : 0.5f), a.sz, bz, wz);
-  const long long sxy = static_cast<long long>(a.sx) * a.sy;
-  const float* G = g + c * sxy * a.sz;
-  const float wxs[2] = {1.f - wx, wx};
-  const float wys[2] = {1.f - wy, wy};
-  const float wzs[2] = {1.f - wz, wz};
-  float acc = 0.f;
-  for (int iz = 0; iz < 2; ++iz) {
-    for (int iy = 0; iy < 2; ++iy) {
-      const float* row = G + (bz + iz) * sxy +
-                         static_cast<long long>(by + iy) * a.sx + bx;
-      const float inner = wxs[0] * row[0] + wxs[1] * row[1];
-      acc = acc + (wzs[iz] * wys[iy]) * inner;
-    }
-  }
-  return acc;
-}
 
 __device__ __forceinline__ bool in_bounds(const AdvectArgs& a, float qx,
                                           float qy, float qz) {
@@ -152,7 +113,8 @@ __device__ __forceinline__ void eval_u(const AdvectArgs& a, float dt,
                                        float qx, float qy, float qz,
                                        float u[3]) {
   float raw[3];
-  for (int c = 0; c < 3; ++c) raw[c] = mac_comp(a, a.vel, c, qx, qy, qz);
+  for (int c = 0; c < 3; ++c)
+    raw[c] = mac_comp(a.vel, c, a.sx, a.sy, a.sz, qx, qy, qz);
   to_step(a, dt, raw, qx, qy, qz, false, 0, u);
 }
 
@@ -177,12 +139,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 
   // stage 1 at the drift-0 positions, shared with the blend
   float raw[3];
-  for (int c = 0; c < 3; ++c) raw[c] = mac_comp(a, a.vel, c, x0, y0, z0);
+  for (int c = 0; c < 3; ++c)
+    raw[c] = mac_comp(a.vel, c, a.sx, a.sy, a.sz, x0, y0, z0);
   const float pv[3] = {a.vx[i], a.vy[i], a.vz[i]};
   float nv[3];
   const bool pend = *a.pending != 0;
   for (int c = 0; c < 3; ++c) {
-    const float vold = mac_comp(a, a.vel_old, c, x0, y0, z0);
+    const float vold =
+        mac_comp(a.vel_old, c, a.sx, a.sy, a.sz, x0, y0, z0);
     nv[c] = pend ? a.flip_ratio * (pv[c] + (raw[c] - vold)) +
                        a.pic_ratio * raw[c]
                  : pv[c];

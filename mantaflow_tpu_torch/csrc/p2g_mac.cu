@@ -1,0 +1,45 @@
+// Particle-to-grid transfer alone (mapPartsToMAC's velocity and weight
+// grids): the hand-written Hopper kernel behind ops/p2g_kernels.py:p2g_mac,
+// for the steps that build no levelset (no ghost fluid) or a wide one
+// (csrc/union_levelset.cu).
+//
+// Replaces the TPU kernel mantaflow_tpu/ops/flip_bucket_pallas2.py:
+// _p2g_kernel (p2g_mac_pallas), a source-plane scatter into a ring of VMEM
+// plane accumulators. On Hopper it is the gather of p2g_gather.cuh without
+// the levelset (the same device code as csrc/p2g_levelset.cu, compiled
+// with the flag off): one thread per destination cell over its 27 source
+// cells, deterministic, no atomics. It is bound by bytes: the valid byte of
+// every slot and the six fields of the live particles are read once from
+// device memory (each source cell is read again by its 26 neighbours, from
+// L1/L2) and six grids are written once.
+
+#include <cuda_runtime.h>
+
+#include "p2g_gather.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads) p2g_mac_kernel(P2gArgs a) {
+  p2g_gather<false>(a);
+}
+
+}  // namespace
+
+extern "C" int p2g_mac_launch(const float* px, const float* py,
+                              const float* pz, const float* vx,
+                              const float* vy, const float* vz,
+                              const unsigned char* valid, float* vel,
+                              float* weight, long long T, int P, int sx,
+                              int sy, int sz, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  P2gArgs a{px, py, pz, vx, vy, vz, valid, vel, weight, nullptr, T, P,
+            sx, sy, sz, 0.f};
+  const unsigned blocks = static_cast<unsigned>((T + kThreads - 1) / kThreads);
+  p2g_mac_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* p2g_mac_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

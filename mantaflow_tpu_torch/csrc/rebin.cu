@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(kThreads) rebin_pass_kernel(RebinArgs a) {
 
 // in/out: arrays of 6 device pointers (px py pz vx vy vz). *dropped is
 // incremented by the pass's overflow.
-extern "C" int rebin_pass_launch(const float* const* in,
+extern "C" int rebin_launch(const float* const* in,
                                  const unsigned char* valid,
                                  float* const* out, unsigned char* ovalid,
                                  int* dropped, long long T, int P, int sx,

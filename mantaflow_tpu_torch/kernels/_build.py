@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports plain C launch functions. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so`` at
-the repository root (the hash covers the source and the flags, so an edited
-source is rebuilt) and loaded with ``ctypes``. Nothing here runs at import:
+the repository root (the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is rebuilt) and loaded with
+``ctypes``. Nothing here runs at import:
 the first call of a kernel wrapper builds its library, and ``build()``
 compiles several sources in parallel, one ``nvcc`` process each.
 """
@@ -11,6 +12,7 @@ compiles several sources in parallel, one ``nvcc`` process each.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,13 +22,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("window_advect", "cg_solve", "extrap_layer", "rebin",
-           "advect_bucket", "p2g_levelset")
+           "advect_bucket", "p2g_levelset", "p2g_mac", "union_levelset",
+           "flip_blend")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the FLIP kernels keep their plain versions' rounding: no a*b+c contracted
 # into one fused multiply-add
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
-               ("extrap_layer", "advect_bucket", "p2g_levelset")}
+               ("extrap_layer", "advect_bucket", "p2g_levelset", "p2g_mac",
+                "union_levelset", "flip_blend")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -45,6 +49,8 @@ def _flags(name: str) -> tuple[str, ...]:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -81,3 +87,24 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+@functools.cache
+def launcher(name: str, argtypes: tuple):
+    """A function that launches ``csrc/<name>.cu``'s kernel through its
+    ``<name>_launch(*argtypes)`` export and raises if the launch was
+    refused (the export returns ``cudaGetLastError()``)."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err_str = getattr(lib, f"{name}_error_string")
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+
+    def launch(*args):
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: "
+                               + err_str(err).decode())
+    return launch

@@ -11,18 +11,19 @@ before particle velocities are read.
 On a GPU the particle stages run through the hand-written CUDA kernels, as
 the JAX package's TPU branch runs its Pallas kernels: advection with the
 blend (``advect_bucket_kernels``), the three rebin passes
-(``rebin_kernels``), the fused p2g and union levelset (``p2g_kernels``),
-the extrapolation layers (``extrapolation_kernels``) and the CG
-(``pressure_kernels``). On the CPU the same wrappers run their plain
-PyTorch versions, which are the JAX package's CPU forms. Nothing on the step
-path reads a value back to the host; ``flip_run_bucketed_auto`` reads
-``dropped`` once per chunk.
+(``rebin_kernels``), the particle-to-grid transfer (``p2g_kernels``: fused
+with the union levelset when there is ghost fluid and the particle radius
+spans one cell; else alone, followed with ghost fluid by
+``levelset_kernels`` for the wider radius), the extrapolation layers
+(``extrapolation_kernels``) and the CG (``pressure_kernels``);
+``finalize_buckets`` runs the standalone blend (``blend_kernels``). On the
+CPU the same wrappers run their plain PyTorch versions, which are the JAX
+package's CPU forms. Nothing on the step path reads a value back to the
+host; ``flip_run_bucketed_auto`` reads ``dropped`` once per chunk.
 
 Not ported yet (ROADMAP.md): the flat particle layout (``flip_step``,
-``flip_run``), APIC, the z-sharded multi-device branch, obstacle shapes in
-the dam set-up, and on a GPU the routes that reach the p2g kernel alone
-(no ghost fluid) or the wide levelset kernel (``radius_factor`` above
-~1.14): asking for them raises NotImplementedError.
+``flip_run``), APIC, the z-sharded multi-device branch and the
+preconditioned pressure solves.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ from ..core import solver as slv
 from ..core.domain import Domain
 from ..core.shapes import Box
 from ..ops import advect_bucket_kernels as advk
+from ..ops import blend_kernels as blk
 from ..ops import extforces as ext
 from ..ops import extrapolation as xtr
 from ..ops import flip_bucket as fb
+from ..ops import levelset_kernels as lsk
 from ..ops import p2g_kernels as p2gk
 from ..ops import pressure as prs
 from ..ops import rebin_kernels as rbk
@@ -97,7 +100,9 @@ def make_dam_state_bucketed(dom: Domain, params: FlipParams,
                             obstacle=None, ppc: int = 10,
                             device=None) -> FlipBucketState:
     """Breaking-dam set-up (flip01_simple.py:29-38) binned at ``ppc``
-    particles per cell. Sampling and binning run once on the host; the
+    particles per cell; the cells inside an ``obstacle`` shape become
+    obstacle cells before sampling (the flip06_obstacle.py pattern), so no
+    particle is born there. Sampling and binning run once on the host; the
     particle positions are the JAX package's bit for bit. Runs on CUDA
     unless ``device`` says otherwise."""
     device = resolve_device(device)
@@ -105,14 +110,15 @@ def make_dam_state_bucketed(dom: Domain, params: FlipParams,
         raise ValueError("ring_only_obstacles promises no interior "
                          "obstacles; stamping an obstacle shape breaks the "
                          "bounds-test shortcut (see ops/flip_bucket.py)")
-    if obstacle is not None:
-        raise prs._not_ported("an obstacle shape in the dam set-up")
     sx, sy, sz = dom.size
     box = Box(p0=(0, 0, 0), p1=(sx * dam_frac[0], sy * dam_frac[1],
                                 sz * dam_frac[2]), dim=dom.dim)
     flags = fl.update_from_levelset(
         fl.init_domain(dom, boundary_width, device=device),
         box.compute_levelset(dom, device), 1e10)
+    if obstacle is not None:
+        flags = torch.where(obstacle.inside_grid(dom, device),
+                            fl.TypeObstacle, flags)
     # the bucketed model never reseeds: tight capacity
     parts = cp.sample_flags_with_particles(flags.cpu().numpy(), dom,
                                            discretization, randomness,
@@ -137,8 +143,7 @@ def _fused_levelset(dom: Domain, params: FlipParams) -> bool:
         dom, params.radius_factor)[1] == 1
 
 
-def _check_supported(state: FlipBucketState, dom: Domain,
-                     params: FlipParams):
+def _check_supported(params: FlipParams):
     if params.apic:
         raise ValueError("flip_step_bucketed implements the FLIP blend "
                          "only; APIC (params.apic) is not ported")
@@ -146,11 +151,6 @@ def _check_supported(state: FlipBucketState, dom: Domain,
         raise ValueError(f"bucketed layout needs cfl <= 1 (got "
                          f"{params.cfl}): particles may only move one cell "
                          "per step (rebin window contract)")
-    if state.buckets.px.device.type != "cpu" and not _fused_levelset(
-            dom, params):
-        raise prs._not_ported(
-            "on a GPU, the p2g kernel alone (ghost_fluid=False) and the "
-            "union levelset kernel for radius_factor above ~1.14")
 
 
 def flip_step_bucketed(state: FlipBucketState, dom: Domain,
@@ -162,7 +162,7 @@ def flip_step_bucketed(state: FlipBucketState, dom: Domain,
     The layout relies on the CFL <= 1 contract: particles move at most one
     cell per step. A violation adds 10^6 to ``buckets.dropped``; a
     configuration that cannot honour it statically is refused."""
-    _check_supported(state, dom, params)
+    _check_supported(params)
     flags, vel, bk, ts = state.flags, state.vel, state.buckets, state.ts
 
     max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2))
@@ -183,9 +183,9 @@ def flip_step_bucketed(state: FlipBucketState, dom: Domain,
     if _fused_levelset(dom, params):
         vel, weight, phi = p2gk.p2g_union(bk, dom, params.radius_factor)
     else:
-        vel, weight = fb.p2g_mac(bk, dom)
+        vel, weight = p2gk.p2g_mac(bk, dom)
         if params.ghost_fluid:
-            phi = fb.union_levelset_bucketed(bk, dom, params.radius_factor)
+            phi = lsk.union_levelset(bk, dom, params.radius_factor)
     vel_old = vel
     vel, _ = xtr.extrapolate_mac_from_weight(vel, weight, dom,
                                              params.extrap_weight_dist)
@@ -220,8 +220,8 @@ def finalize_buckets(state: FlipBucketState, dom: Domain,
     pending). Call before reading particle velocities out of the buckets;
     grid fields never need it."""
     bk = state.buckets
-    blended = fb.flip_update_bucketed(bk, state.vel, state.vel_old,
-                                      params.flip_ratio, dom)
+    blended = blk.flip_update(bk, state.vel, state.vel_old,
+                              params.flip_ratio, dom)
     pend = state.blend_pending
     bk = dataclasses.replace(
         bk, vx=torch.where(pend, blended.vx, bk.vx),

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -44,17 +43,9 @@ def advect_blend_plain(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
                               ring_only)
 
 
-@functools.cache
-def _launcher():
-    lib = _build.load("advect_bucket")
-    fn = lib.advect_bucket_launch
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.advect_bucket_error_string.argtypes = [ctypes.c_int]
-    lib.advect_bucket_error_string.restype = ctypes.c_char_p
-    return fn, lib.advect_bucket_error_string
+_ARGS = ((ctypes.c_void_p,) * 18 + (ctypes.c_longlong,)
+         + (ctypes.c_int,) * 4 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 3
+         + (ctypes.c_void_p,))
 
 
 def _scalar(v, dtype, dev, name):
@@ -85,22 +76,18 @@ def _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio,
     pend_t = _scalar(pending, torch.bool, dev, "pending")
     fields = ("px", "py", "pz", "vx", "vy", "vz")
     out = {n: torch.empty_like(getattr(bk, n)) for n in fields}
-    launch, err_str = _launcher()
     sz, sy, sx = dom.shape
-    err = launch(*(getattr(bk, n).data_ptr() for n in fields[:3]),
-                 bk.valid.data_ptr(),
-                 *(getattr(bk, n).data_ptr() for n in fields[3:]),
-                 vel.data_ptr(), vel_old.data_ptr(),
-                 obs.data_ptr() if obs is not None else None,
-                 dt_t.data_ptr(), pend_t.data_ptr(),
-                 *(out[n].data_ptr() for n in fields),
-                 bk.ncells, bk.ppc, sx, sy, sz, float(flip_ratio),
-                 1.0 - float(flip_ratio), int(integration_mode),
-                 int(ring_only), dev.index,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("advect_bucket launch failed: "
-                           + err_str(err).decode())
+    _build.launcher("advect_bucket", _ARGS)(
+        *(getattr(bk, n).data_ptr() for n in fields[:3]),
+        bk.valid.data_ptr(),
+        *(getattr(bk, n).data_ptr() for n in fields[3:]),
+        vel.data_ptr(), vel_old.data_ptr(),
+        obs.data_ptr() if obs is not None else None,
+        dt_t.data_ptr(), pend_t.data_ptr(),
+        *(out[n].data_ptr() for n in fields),
+        bk.ncells, bk.ppc, sx, sy, sz, float(flip_ratio),
+        1.0 - float(flip_ratio), int(integration_mode), int(ring_only),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     advect_blend.launches += 1
     return dataclasses.replace(bk, **out)
 

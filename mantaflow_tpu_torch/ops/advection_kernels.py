@@ -13,7 +13,6 @@ clamp's corner min/max. On a CUDA tensor it launches
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -27,15 +26,7 @@ from .advection import (_axis_coord, _cell_centers, _maccormack_correct,
 from .advection_fast import window_interp
 
 
-@functools.cache
-def _launcher():
-    lib = _build.load("window_advect")
-    fn = lib.window_advect_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.window_advect_error_string.argtypes = [ctypes.c_int]
-    lib.window_advect_error_string.restype = ctypes.c_char_p
-    return fn, lib.window_advect_error_string
+_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def _window_pass_cuda(src, px, py, pz, dom: Domain, k: int, ok_mask,
@@ -51,23 +42,20 @@ def _window_pass_cuda(src, px, py, pz, dom: Domain, k: int, ok_mask,
                                 or ok_mask.device != src.device):
         raise ValueError("window_pass: ok_mask must be a contiguous bool "
                          f"{dom.shape} tensor on {src.device}")
-    launch, err_str = _launcher()
     out = torch.empty_like(src)
     if want_minmax:
         minv, maxv = torch.empty_like(src), torch.empty_like(src)
         have = torch.empty(dom.shape, dtype=torch.bool, device=src.device)
     sz, sy, sx = dom.shape
-    err = launch(src.data_ptr(), px.data_ptr(), py.data_ptr(), pz.data_ptr(),
-                 ok_mask.data_ptr() if ok_mask is not None else None,
-                 out.data_ptr(),
-                 minv.data_ptr() if want_minmax else None,
-                 maxv.data_ptr() if want_minmax else None,
-                 have.data_ptr() if want_minmax else None,
-                 sx, sy, sz, k, int(want_minmax), src.device.index,
-                 torch.cuda.current_stream(src.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("window_advect launch failed: "
-                           + err_str(err).decode())
+    _build.launcher("window_advect", _ARGS)(
+        src.data_ptr(), px.data_ptr(), py.data_ptr(), pz.data_ptr(),
+        ok_mask.data_ptr() if ok_mask is not None else None,
+        out.data_ptr(),
+        minv.data_ptr() if want_minmax else None,
+        maxv.data_ptr() if want_minmax else None,
+        have.data_ptr() if want_minmax else None,
+        sx, sy, sz, k, int(want_minmax), src.device.index,
+        torch.cuda.current_stream(src.device).cuda_stream)
     window_pass.launches += 1
     if want_minmax:
         return out, minv, maxv, have

@@ -14,7 +14,6 @@ direction offset.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -46,17 +45,8 @@ def extrap_layer_plain(ms, vs, dom: Domain, d: int, direction: float = 0.0,
     return out_m, out_v
 
 
-@functools.cache
-def _launcher():
-    lib = _build.load("extrap_layer")
-    fn = lib.extrap_layer_launch
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.extrap_layer_error_string.argtypes = [ctypes.c_int]
-    lib.extrap_layer_error_string.restype = ctypes.c_char_p
-    return fn, lib.extrap_layer_error_string
+_ARGS = ((ctypes.POINTER(ctypes.c_void_p),) * 4 + (ctypes.c_int,) * 5
+         + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
 def _extrap_layer_cuda(ms, vs, dom: Domain, d: int, direction: float,
@@ -74,14 +64,11 @@ def _extrap_layer_cuda(ms, vs, dom: Domain, d: int, direction: float,
     def ptrs(ts):
         return (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
 
-    launch, err_str = _launcher()
     sz, sy, sx = dom.shape
-    err = launch(ptrs(ms), ptrs(vs), ptrs(out_m), ptrs(out_v), n, sx, sy, sz,
-                 int(d), float(direction), int(update_values), dev.index,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("extrap_layer launch failed: "
-                           + err_str(err).decode())
+    _build.launcher("extrap_layer", _ARGS)(
+        ptrs(ms), ptrs(vs), ptrs(out_m), ptrs(out_v), n, sx, sy, sz, int(d),
+        float(direction), int(update_values), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     extrap_layer.launches += 1
     return out_m, out_v
 

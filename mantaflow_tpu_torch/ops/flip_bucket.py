@@ -12,7 +12,8 @@ with the same tap order, so that float sums agree to their order: the
 transfers are windowed stencils of rolled grids, the rebin a stable 3-way
 merge per axis. They are what the CPU runs, and they are the plain versions
 that the CUDA kernels are held against on the card
-(``advect_bucket_kernels``, ``rebin_kernels``, ``p2g_kernels``). Binning,
+(``advect_bucket_kernels``, ``rebin_kernels``, ``p2g_kernels``,
+``levelset_kernels``, ``blend_kernels``). Binning,
 ``rebin_to_ppc``, ``max_cell_occupancy`` and ``to_particles`` run on the
 host in numpy, as in the reference: set-up and overflow recovery only.
 """

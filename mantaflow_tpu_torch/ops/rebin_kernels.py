@@ -12,7 +12,6 @@ against it, ``dropped`` included.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,18 +22,9 @@ from .flip_bucket import Buckets, _rebin_axis
 _FIELDS = ("px", "py", "pz", "vx", "vy", "vz")
 
 
-@functools.cache
-def _launcher():
-    lib = _build.load("rebin")
-    fn = lib.rebin_pass_launch
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.rebin_error_string.argtypes = [ctypes.c_int]
-    lib.rebin_error_string.restype = ctypes.c_char_p
-    return fn, lib.rebin_error_string
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGS = ((ctypes.POINTER(_PTR), _PTR, ctypes.POINTER(_PTR), _PTR, _PTR,
+          ctypes.c_longlong) + (_INT,) * 6 + (_PTR,))
 
 
 def check_buckets(bk: Buckets, dom: Domain, who: str):
@@ -69,14 +59,12 @@ def _rebin_pass_cuda(bk: Buckets, dom: Domain, axis: int) -> Buckets:
     def ptrs(ts):
         return (ctypes.c_void_p * 6)(*[t.data_ptr() for t in ts])
 
-    launch, err_str = _launcher()
     sz, sy, sx = dom.shape
-    err = launch(ptrs([getattr(bk, n) for n in _FIELDS]), bk.valid.data_ptr(),
-                 ptrs([out[n] for n in _FIELDS]), valid.data_ptr(),
-                 dropped.data_ptr(), bk.ncells, bk.ppc, sx, sy, sz, axis,
-                 dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("rebin launch failed: " + err_str(err).decode())
+    _build.launcher("rebin", _ARGS)(
+        ptrs([getattr(bk, n) for n in _FIELDS]), bk.valid.data_ptr(),
+        ptrs([out[n] for n in _FIELDS]), valid.data_ptr(),
+        dropped.data_ptr(), bk.ncells, bk.ppc, sx, sy, sz, axis, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     rebin_pass.launches += 1
     return Buckets(**out, valid=valid, dropped=dropped)
 

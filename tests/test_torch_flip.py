@@ -20,7 +20,6 @@ from mantaflow_tpu.core.domain import Domain as JDomain
 from mantaflow_tpu.models import flip as jflip
 from mantaflow_tpu_torch.core.domain import Domain
 from mantaflow_tpu_torch.models import flip as tflip
-from mantaflow_tpu_torch.ops import flip_bucket as tfb
 
 RES = 16
 BENCH = dict(gravity=(0.0, -0.003, 0.0), ghost_fluid=True, cg_accuracy=1e-3,
@@ -184,31 +183,52 @@ def test_guards_match_reference():
         tflip.make_dam_state_bucketed(
             dom, tflip.FlipParams(ring_only_obstacles=True), obstacle=object(),
             device="cpu")
+    # what is still not ported says where it is queued
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tflip.make_dam_state_bucketed(dom, tflip.FlipParams(),
-                                      obstacle=object(), device="cpu")
+        tflip.flip_step_bucketed(st, dom, tflip.FlipParams(preconditioner=1))
 
 
-@pytest.mark.parametrize("params", [dict(ghost_fluid=False),
-                                    dict(ghost_fluid=True, radius_factor=1.5)])
-def test_unported_gpu_routes_raise(params):
-    """Where the TPU branch would reach the p2g kernel alone or the wide
-    levelset kernel, a state on an accelerator is refused, before any
-    work: the step never runs the plain versions there. (The meta device
-    stands in for the card; the CPU runs these routes.)"""
+@pytest.mark.parametrize("params,route", [
+    (dict(ghost_fluid=False), ["p2g_mac"]),
+    (dict(ghost_fluid=True, radius_factor=1.5), ["p2g_mac",
+                                                 "union_levelset"]),
+    (dict(ghost_fluid=True), ["p2g_union"]),
+])
+def test_step_routes_run_through_the_wrappers(monkeypatch, params, route):
+    """The step reaches the transfer and the levelset through the kernel
+    wrappers on every route (on the CPU they run the plain versions), as
+    the TPU branch routes: fused when there is ghost fluid and the radius
+    spans one cell, else the transfer alone and, with ghost fluid, the
+    levelset for the wider radius."""
     dom = Domain(size=(8,) * 3)
     st = tflip.make_dam_state_bucketed(dom, tflip.FlipParams(), device="cpu")
-    meta = dataclasses.replace(st, buckets=tfb.Buckets(
-        *(torch.empty(tuple(getattr(st.buckets, f).shape), device="meta")
-          for f in ("px", "py", "pz", "vx", "vy", "vz")),
-        valid=torch.empty(tuple(st.buckets.valid.shape), dtype=torch.bool,
-                          device="meta"),
-        dropped=torch.empty((), dtype=torch.int32, device="meta")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tflip.flip_step_bucketed(meta, dom, tflip.FlipParams(**params))
-    # the CPU takes both routes
+    seen = []
+    for mod, name in ((tflip.p2gk, "p2g_mac"), (tflip.p2gk, "p2g_union"),
+                      (tflip.lsk, "union_levelset")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(
+            mod, name, lambda *a, _o=orig, _n=name, **k: (seen.append(_n),
+                                                          _o(*a, **k))[1])
     out = tflip.flip_step_bucketed(st, dom, tflip.FlipParams(**params))
+    assert seen == route
     assert int(out.buckets.count()) == int(st.buckets.count())
+    if params["ghost_fluid"]:
+        assert not torch.equal(out.phi, st.phi)
+    else:
+        assert torch.equal(out.phi, st.phi)
+
+
+def test_finalize_runs_through_the_blend_wrapper(monkeypatch):
+    dom = Domain(size=(8,) * 3)
+    p = tflip.FlipParams()
+    st = tflip.flip_step_bucketed(
+        tflip.make_dam_state_bucketed(dom, p, device="cpu"), dom, p)
+    calls = []
+    orig = tflip.blk.flip_update
+    monkeypatch.setattr(tflip.blk, "flip_update",
+                        lambda *a: (calls.append(1), orig(*a))[1])
+    fin = tflip.finalize_buckets(st, dom, p)
+    assert calls == [1] and not bool(fin.blend_pending)
 
 
 def test_make_dam_state_needs_cuda_or_a_device(monkeypatch):

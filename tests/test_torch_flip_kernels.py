@@ -10,9 +10,10 @@ Fixture: the 24^3 corner dam of tests/test_flip_bucket.py, with made-up
 particle velocities and a random grid velocity. Tolerances: the rebin is a
 permutation and the extrapolation layer repeats the plain arithmetic in its
 order (the kernels are built without fused multiply-adds), so both are
-exact; the advection and blend to abs 1e-6 (the JAX tests' Pallas-vs-XLA
-tolerance); the gather p2g sums in another order than the plain rolls, so
-p2g to abs 1e-5 and the levelset (a min of the same expressions) to 1e-6.
+exact; the advection and both blends to abs 1e-6 (the JAX tests'
+Pallas-vs-XLA tolerance); the gather p2g sums in another order than the
+plain rolls, so p2g (fused or alone) to abs 1e-5 and the levelset (a min of
+the same expressions, for a window of one, two or three cells) to 1e-6.
 The unmarked cases run on the CPU: a wrapper refuses a tensor it cannot
 launch on rather than computing it on the CPU.
 """
@@ -26,10 +27,13 @@ import torch
 from mantaflow_tpu_torch.core import flags as fl
 from mantaflow_tpu_torch.core import particles as cp
 from mantaflow_tpu_torch.core.domain import Domain
+from mantaflow_tpu_torch.core.shapes import Sphere
 from mantaflow_tpu_torch.models import flip
 from mantaflow_tpu_torch.ops import advect_bucket_kernels as advk
+from mantaflow_tpu_torch.ops import blend_kernels as blk
 from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
 from mantaflow_tpu_torch.ops import flip_bucket as fb
+from mantaflow_tpu_torch.ops import levelset_kernels as lsk
 from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
 from mantaflow_tpu_torch.ops import rebin_kernels as rbk
 
@@ -171,13 +175,99 @@ def test_p2g_union_kernel_matches_plain(cuda):
         assert float((phi - rphi).abs().max()) < 1e-6
 
 
+def _moved(cuda):
+    dom, flags, bk, vel = corner24(cuda)
+    moved = fb.rebin(fb.advect_bucketed(bk, flags, vel,
+                                        torch.tensor(1.0, device=cuda), dom,
+                                        0), dom)
+    return dom, bk, moved, vel
+
+
 @pytest.mark.gpu
-def test_flip_steps_on_card_match_cpu(cuda):
+def test_p2g_mac_kernel_matches_plain(cuda):
+    dom, bk, moved, _ = _moved(cuda)
+    for b in (bk, moved):
+        before = p2gk.p2g_mac.launches
+        v, w = p2gk.p2g_mac(b, dom)
+        torch.cuda.synchronize()
+        assert p2gk.p2g_mac.launches == before + 1
+        rv, rw = fb.p2g_mac(b, dom)
+        assert float((v - rv).abs().max()) < 1e-5
+        assert float((w - rw).abs().max()) < 1e-5
+        # the fused kernel runs the same device code
+        fv, fw, _ = p2gk.p2g_union(b, dom, 1.0)
+        assert torch.equal(v, fv) and torch.equal(w, fw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius_factor,rw", [(1.0, 1), (1.5, 2), (2.5, 3)])
+def test_union_levelset_kernel_matches_plain(cuda, radius_factor, rw):
+    dom, bk, moved, _ = _moved(cuda)
+    assert fb.levelset_radius(dom, radius_factor)[1] == rw
+    for b in (bk, moved):
+        before = lsk.union_levelset.launches
+        phi = lsk.union_levelset(b, dom, radius_factor)
+        torch.cuda.synchronize()
+        assert lsk.union_levelset.launches == before + 1
+        ref = fb.union_levelset_bucketed(b, dom, radius_factor)
+        assert float((phi - ref).abs().max()) < 1e-6
+
+
+@pytest.mark.gpu
+def test_flip_update_kernel_matches_plain(cuda):
+    dom, bk, moved, vel = _moved(cuda)
+    for b in (bk, moved):
+        before = blk.flip_update.launches
+        got = blk.flip_update(b, vel, vel * 0.85, 0.97, dom)
+        torch.cuda.synchronize()
+        assert blk.flip_update.launches == before + 1
+        ref = fb.flip_update_bucketed(b, vel, vel * 0.85, 0.97, dom)
+        assert _max_err(got, ref, ("vx", "vy", "vz")) < 1e-6
+        for f in ("vx", "vy", "vz"):
+            assert torch.equal(getattr(got, f)[~b.valid],
+                               getattr(b, f)[~b.valid])
+
+
+@pytest.mark.gpu
+def test_finalize_then_step_equals_pending_step_on_card(cuda):
+    """The standalone blend kernel applies what the advection kernel's
+    fused blend applies."""
     dom = Domain(size=(16,) * 3)
-    p = flip.FlipParams(**BENCH)
+    p = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
+                        radius_factor=2.5, cg_accuracy=1e-3)
+    st = flip.make_dam_state_bucketed(
+        dom, p, ppc=14, device=cuda,
+        obstacle=Sphere(center=(11.2, 4.48, 8.0), radius=2.4))
+    for _ in range(3):
+        st = flip.flip_step_bucketed(st, dom, p)
+    a = flip.flip_step_bucketed(st, dom, p)
+    before = blk.flip_update.launches
+    b = flip.flip_step_bucketed(flip.finalize_buckets(st, dom, p), dom, p)
+    assert blk.flip_update.launches == before + 1
+    for f in FIELDS + ("valid",):
+        assert torch.equal(getattr(a.buckets, f), getattr(b.buckets, f)), f
+
+
+ROUTES = {
+    "bench": (BENCH, None, 10),
+    "no_ghost_fluid": (dict(BENCH, ghost_fluid=False), None, 10),
+    "obstacle_wide_radius": (dict(gravity=(0.0, -0.003, 0.0),
+                                  ghost_fluid=True, radius_factor=2.5,
+                                  cg_accuracy=1e-3),
+                             dict(center=(11.2, 4.48, 8.0), radius=2.4), 14),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_flip_steps_on_card_match_cpu(cuda, route):
+    dom = Domain(size=(16,) * 3)
+    kw, obs, ppc = ROUTES[route]
+    p = flip.FlipParams(**kw)
     states = []
     for d in (cuda, "cpu"):
-        st = flip.make_dam_state_bucketed(dom, p, ppc=10, device=d)
+        st = flip.make_dam_state_bucketed(
+            dom, p, ppc=ppc, device=d, obstacle=obs and Sphere(**obs))
         for _ in range(3):
             st = flip.flip_step_bucketed(st, dom, p)
         states.append(st)
@@ -196,6 +286,9 @@ def test_flip_kernels_refuse_what_they_cannot_take(cuda):
     bad = dataclasses.replace(bk, px=bk.px.double())
     for call in (lambda: rbk.rebin(bad, dom),
                  lambda: p2gk.p2g_union(bad, dom),
+                 lambda: p2gk.p2g_mac(bad, dom),
+                 lambda: lsk.union_levelset(bad, dom, 2.5),
+                 lambda: blk.flip_update(bad, vel, vel, 0.97, dom),
                  lambda: advk.advect_blend(bad, flags, vel, vel, 0.5, True,
                                            0.97, dom)):
         with pytest.raises(ValueError, match="contiguous float32"):
@@ -203,6 +296,8 @@ def test_flip_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous float32"):
         advk.advect_blend(bk, flags, vel[:, :, :, :8], vel, 0.5, True, 0.97,
                           dom)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        blk.flip_update(bk, vel, vel[:, :, :, :8], 0.97, dom)
     g = vel[0].transpose(0, 2)
     with pytest.raises(ValueError, match="contiguous float32"):
         xk.extrap_layer([g], [g], dom, 1)
@@ -218,7 +313,8 @@ def _meta_buckets(dom):
 
 
 @pytest.mark.parametrize("which", ["extrap_layer", "rebin_pass",
-                                   "advect_blend", "p2g_union"])
+                                   "advect_blend", "p2g_union", "p2g_mac",
+                                   "union_levelset", "flip_update"])
 def test_flip_wrappers_raise_off_cpu_and_cuda(which):
     """A tensor on another device is refused, not computed on the CPU."""
     dom = Domain(size=(4, 4, 4))
@@ -231,6 +327,9 @@ def test_flip_wrappers_raise_off_cpu_and_cuda(which):
         "advect_blend": lambda: advk.advect_blend(bk, g, vel, vel, 0.5, True,
                                                   0.97, dom),
         "p2g_union": lambda: p2gk.p2g_union(bk, dom),
+        "p2g_mac": lambda: p2gk.p2g_mac(bk, dom),
+        "union_levelset": lambda: lsk.union_levelset(bk, dom, 2.5),
+        "flip_update": lambda: blk.flip_update(bk, vel, vel, 0.97, dom),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[which]()

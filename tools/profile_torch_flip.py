@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the port's 128^3 bench FLIP step goes, on one GPU.
+"""Where the time of the port's 128^3 FLIP dam steps goes, on one GPU.
 
-    python3 tools/profile_torch_flip.py [--res 128] [--develop 40] [--steps 10]
-                                        [--chunks 3]
+    python3 tools/profile_torch_flip.py [--path bench|flip01|obstacle]
+                                        [--res 128] [--develop 40]
+                                        [--steps 10] [--chunks 3]
 
-Builds the bench's FLIP dam (bench.py:84-86, PPC 10), runs 1 warm step and
+Builds one of chip_smoke.py's FLIP dams at PPC 10: ``bench`` (bench.py:84-86,
+ghost fluid, the fused transfer and levelset), ``flip01`` (the same dam
+without ghost fluid, scenes/flip01_simple.py: the transfer alone) or
+``obstacle`` (a sphere obstacle and radius_factor 2.5, a levelset window of
+3 cells: the transfer, then the levelset kernel). It runs 1 warm step and
 ``--develop`` more through ``flip_run_bucketed_auto`` in chunks of
 ``--steps`` (the PPC escalation happens there), then, when developing, the
 bench's settle loop (bench.py:147-153: chunks until one ends at an
@@ -35,12 +40,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 GROUPS = {"advect_bucket_kernel": "advect_bucket",
           "rebin_pass_kernel": "rebin",
           "p2g_levelset_kernel": "p2g_levelset",
+          "p2g_mac_kernel": "p2g_mac",
+          "union_levelset_kernel": "union_levelset",
           "extrap_layer_kernel": "extrap_layer",
           "cg_kernel": "cg_solve"}
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("bench", "flip01", "obstacle"),
+                    default="bench")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--develop", type=int, default=40)
     ap.add_argument("--steps", type=int, default=10)
@@ -53,13 +62,24 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.core.shapes import Sphere
     from mantaflow_tpu_torch.models import flip
 
     res = args.res
     dom = Domain(size=(res, res, res), dim=3)
-    params = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
-                             cg_accuracy=1e-3, ring_only_obstacles=True)
-    state = flip.make_dam_state_bucketed(dom, params, ppc=10)
+    obstacle = None
+    if args.path == "obstacle":
+        params = flip.FlipParams(gravity=(0.0, -0.003, 0.0),
+                                 ghost_fluid=True, radius_factor=2.5,
+                                 cg_accuracy=1e-3)
+        obstacle = Sphere(center=(res * 0.7, res * 0.28, res * 0.5),
+                          radius=res * 0.15)
+    else:
+        params = flip.FlipParams(gravity=(0.0, -0.003, 0.0),
+                                 ghost_fluid=args.path == "bench",
+                                 cg_accuracy=1e-3, ring_only_obstacles=True)
+    state = flip.make_dam_state_bucketed(dom, params, ppc=10,
+                                         obstacle=obstacle)
     state = flip.flip_step_bucketed(state, dom, params)
     if args.develop:
         state = flip.flip_run_bucketed_auto(state, dom, params, args.develop,
@@ -125,7 +145,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({
-        "card": card, "res": res, "particles": particles,
+        "card": card, "path": args.path, "res": res, "particles": particles,
         "ppc": ppc, "steps_before": steps_before,
         "steps": args.steps,
         "wall_ms_per_step": wall_ms,
