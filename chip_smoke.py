@@ -43,7 +43,18 @@ Phases (any failed check raises, and the script exits non-zero):
    versions on the card, on the inputs of one cold and one developed 128^3
    step of paths A and B and on the 24^3 corner dam; then each kernel's
    time on the developed step's inputs;
-12. paths A and B on the card against the port on the CPU, 3 steps at 24^3.
+12. paths A and B on the card against the port on the CPU, 3 steps at 24^3;
+13. the z-sharded path: phase 6's developed state cut into 4 z-slabs over
+   every visible card (``parallel/sharding.py``; on one card all four share
+   it), 10 timed steps of ``flip_step_bucketed(..., zshard=mesh)`` against
+   10 one-device steps from the same state (grids, flags and buckets
+   equal, no particle lost, the launches per step counted: per shard one
+   advection, two x/y rebin passes, one z rebin over the halo-extended slab
+   and one transfer; on the lead the extrapolation layers and the CG);
+   every z-slab kernel call of a step against its plain version, the z
+   rebin also on the boundary-crossing fixture at 8 shards; their times and
+   the halo copies; 3 steps at 16^3 over 8 shards on the card against the
+   CPU.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device.
@@ -64,6 +75,7 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
 FLIP_RES = 128
 FLIP_CHUNK = 10  # bench.py's n_steps: timed window and runner chunk
+ZSHARDS = 4      # z-slabs of the sharded path
 
 
 def flip_bench_params(flip):
@@ -189,6 +201,7 @@ def main():
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
     from mantaflow_tpu_torch.ops.advection import _cell_centers
     from mantaflow_tpu_torch.ops.advection_fast import window_interp
+    from mantaflow_tpu_torch.parallel import sharding as shd
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -542,6 +555,7 @@ def main():
     per_step = {"advect_bucket": 1, "rebin": 3, "p2g_levelset": 1,
                 "extrap_layer": 10, "cg_solve": 1}
     flip_numbers, fst, flip_launches = drive_flip("flip", fparams, per_step)
+    zshard_start = fst  # phase 13 starts from the developed state
 
     # -- 7. FLIP kernels vs their plain versions on the card ----------------
     plain_of = {"advect_bucket": fadk.advect_blend_plain,
@@ -939,8 +953,225 @@ def main():
     card_vs_cpu("obstacle", params_b, ppc=14, obstacle=Sphere(
         center=(24 * 0.7, 24 * 0.28, 12.0), radius=24 * 0.15))
 
+    # -- 13. the z-sharded bench dam at 128^3 over ZSHARDS z-slabs ----------
+    mesh = shd.make_zmesh(ZSHARDS, devices=[
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    print(f"zshard mesh: {mesh.n} shards over {len(mesh.devices)} card(s): "
+          + ", ".join(f"shard {i} on {mesh.device(i)}" for i in range(mesh.n)),
+          flush=True)
+    zstart = zshard_start
+    del zshard_start
+
+    def one_device(st):
+        for _ in range(FLIP_CHUNK):
+            st = flip.flip_step_bucketed(st, fdom, fparams)
+        return st
+
+    ref = one_device(zstart)
+    rebinned = None
+    if int(ref.buckets.dropped) != int(zstart.buckets.dropped):
+        ppc = flip._next_ppc(zstart.buckets.ppc + 4,
+                             fb.max_cell_occupancy(zstart.buckets, fdom))
+        rebinned = ppc
+        print(f"zshard: the one-device steps drop particles at PPC "
+              f"{zstart.buckets.ppc}: both runs start rebinned at PPC {ppc}",
+              flush=True)
+        zstart = dataclasses.replace(
+            zstart, buckets=fb.rebin_to_ppc(zstart.buckets, fdom, ppc))
+        ref = one_device(zstart)
+    require(int(ref.buckets.dropped) == int(zstart.buckets.dropped),
+            "zshard: the one-device reference drops particles")
+    n_parts = int(zstart.buckets.count())
+    z_kernels = {**flip_kernels, "advect_bucket_zshard": fadk.advect_blend_slab,
+                 "rebin_zshard": rbk.rebin_zpass_halo,
+                 "p2g_levelset_zshard": p2gk.p2g_union_slab}
+    z_per_step = {"advect_bucket_zshard": mesh.n, "rebin": 2 * mesh.n,
+                  "rebin_zshard": mesh.n, "p2g_levelset_zshard": mesh.n,
+                  "extrap_layer": 10, "cg_solve": 1}
+    sh0 = shd.shard_flip_bucket_state(zstart, mesh)
+    flip.flip_step_bucketed(sh0, fdom, fparams, zshard=mesh)  # warm
+    torch.cuda.synchronize()
+    for fn in z_kernels.values():
+        fn.launches = 0
+    sh = sh0
+    z_iters = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(FLIP_CHUNK):
+        sh = flip.flip_step_bucketed(sh, fdom, fparams, zshard=mesh)
+        z_iters += sh.cg_iters
+    t1.record()
+    torch.cuda.synchronize()
+    z_sps = FLIP_CHUNK / (t0.elapsed_time(t1) / 1e3)
+    z_launches = {k: fn.launches for k, fn in z_kernels.items()}
+    for k in z_kernels:
+        want = z_per_step.get(k, 0) * FLIP_CHUNK
+        require(z_launches[k] == want,
+                f"zshard: {k} launched {z_launches[k]} times in "
+                f"{FLIP_CHUNK} steps (expected {want})")
+    require(int(sh.buckets.dropped) == 0 and int(ref.buckets.dropped) == 0,
+            f"zshard: {int(sh.buckets.dropped)} particles dropped")
+    require(int(sh.buckets.count()) == n_parts,
+            f"zshard: {int(sh.buckets.count())} particles, had {n_parts}")
+    # the same steps on one device: the same slots gathered in the same
+    # order, so equal; else within the JAX sharded test's 2e-5
+    whole = shd.unshard_buckets(sh.buckets)
+    z_diff, z_exact = 0.0, True
+    pairs = [(getattr(sh, k), getattr(ref, k), k)
+             for k in ("flags", "vel", "vel_old", "pressure", "phi")]
+    pairs += [(getattr(whole, f), getattr(ref.buckets, f), f)
+              for f in ("px", "py", "pz", "vx", "vy", "vz", "valid")]
+    for g, r, what in pairs:
+        if torch.equal(g, r):
+            continue
+        z_exact = False
+        require(g.dtype == torch.float32, f"zshard: {what} differs")
+        z_diff = max(z_diff, float((g - r).abs().max()))
+    require(z_diff <= 2e-5, f"zshard vs one device: max abs diff {z_diff}")
+    del whole, pairs
+    z_it = int(z_iters) / FLIP_CHUNK
+    print(f"flip_zshard {FLIP_RES}^3 over {mesh.n} shards: {z_sps:.2f} "
+          f"steps/s developed (PPC {zstart.buckets.ppc}, {n_parts} particles"
+          f", CG {z_it:.1f} it/step), equal to the one-device steps: "
+          f"{'exactly' if z_exact else f'max abs diff {z_diff:.3g}'}; "
+          f"launches {z_launches}", flush=True)
+
+    # every z-slab kernel call of one step against its plain version; the
+    # halo copies of the step (halo_z, and the lead's scatter_z/gather_z)
+    z_sites = {"advect_bucket_zshard": (fadk, "advect_blend_slab"),
+               "rebin": (rbk, "rebin_pass"),
+               "rebin_zshard": (rbk, "rebin_zpass_halo"),
+               "p2g_levelset_zshard": (p2gk, "p2g_union_slab"),
+               "halo_z": (shd, "halo_z"), "scatter_z": (shd, "scatter_z"),
+               "gather_z": (shd, "gather_z")}
+    z_plain = {"advect_bucket_zshard": fadk.advect_blend_slab_plain,
+               "rebin": fb._rebin_axis,
+               "rebin_zshard": fb.rebin_zpass_halo_plain,
+               "p2g_levelset_zshard": p2gk.p2g_union_slab_plain}
+    zcalls = {k: [] for k in z_sites}
+    with contextlib.ExitStack() as stack:
+        for k, (mod, name) in z_sites.items():
+            stack.enter_context(recording(mod, name, zcalls[k]))
+        flip.flip_step_bucketed(sh, fdom, fparams, zshard=mesh)
+    torch.cuda.synchronize()
+    for k in z_plain:
+        require(len(zcalls[k]) == z_per_step[k],
+                f"zshard: {len(zcalls[k])} {k} calls in one step")
+    for k, plain in z_plain.items():
+        kernel = getattr(*z_sites[k])
+        for args, kwargs in zcalls[k]:
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            if k == "p2g_levelset_zshard":
+                for g, r, tol in zip(got, want, (1e-5, 1e-5, 1e-6)):
+                    e = float((g - r).abs().max())
+                    require(e <= tol, f"{k}: max abs err {e}")
+                    errs[k] = max(errs.get(k, 0.0), e)
+                continue
+            e = bucket_err(got, want, exact=k != "advect_bucket_zshard")
+            require(e <= 1e-6, f"{k}: max abs err {e}")
+            errs[k] = max(errs.get(k, 0.0), e)
+    # the boundary-crossing fixture of tests/test_flip_sharded.py:145-162
+    # at 8 shards: particles displaced across the slab faces, overflow
+    xdom = Domain(size=(16,) * 3)
+    xbk = flip.make_dam_state_bucketed(
+        xdom, flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True),
+        ppc=12, device=dev).buckets
+    xd = np.random.default_rng(7).uniform(
+        -0.9, 0.9, size=(3,) + tuple(xbk.px.shape)).astype(np.float32)
+    xbk = dataclasses.replace(xbk, **{
+        f: torch.clamp(getattr(xbk, f) + torch.where(
+            xbk.valid, torch.tensor(xd[i], device=dev), 0.0), 1.01, 14.99)
+        for i, f in enumerate(("px", "py", "pz"))})
+    xmesh = shd.make_zmesh(8, devices=mesh.devices)
+    xlocal = Domain(size=(16, 16, 2))
+    xslabs = []
+    for i, b in enumerate(shd.shard_buckets(xbk, xmesh).slabs):
+        for axis in (0, 1):
+            b = rbk.rebin_pass(b, xlocal, axis, z_base=2 * i)
+        xslabs.append(b)
+    for i, e in enumerate(rbk.halo_buckets(xslabs, 1, xlocal)):
+        bucket_err(rbk.rebin_zpass_halo(e, xlocal, 2 * i, 16),
+                   fb.rebin_zpass_halo_plain(e, xlocal, 2 * i, 16), exact=True)
+    xgot = shd.unshard_buckets(rbk.rebin_zshard(shd.shard_buckets(xbk, xmesh),
+                                                xdom, xmesh))
+    bucket_err(xgot, fb.rebin(xbk, xdom), exact=True)
+    require(int(xgot.dropped) > 0, "crossing fixture: no overflow")
+    print(f"zshard kernels vs plain on the step's calls: "
+          + ", ".join(f"{k} {errs[k]:.3g}" for k in z_plain)
+          + f"; rebin_zshard on the 8-shard crossing fixture bitwise, "
+          f"{int(xgot.dropped)} dropped as fb.rebin", flush=True)
+    del xbk, xgot, xslabs
+
+    # times per launch on the step's inputs; the bound of the z rebin is
+    # counted as the rebin pass's: the mask of every input slot (the halo
+    # planes too), the six fields of the live particles, every output slot
+    zk = {}
+    zP = sh.buckets.ppc
+    t_slab = fdom.num_cells // mesh.n
+    t_ext = t_slab + 2 * FLIP_RES * FLIP_RES
+    z_live = sum(int(s.valid.sum()) for s in sh.buckets.slabs) / mesh.n
+    for k, kname, nbytes, nops in (
+            ("rebin_zshard", "rebin_zshard_kernel",
+             zP * t_ext + 25 * zP * t_slab + 24 * z_live, 10 * z_live),
+            ("advect_bucket_zshard", "advect_bucket_zshard_kernel",
+             (25 + 24) * zP * t_slab + 2 * 12 * (t_slab + 4 * FLIP_RES ** 2),
+             620 * z_live),
+            ("p2g_levelset_zshard", "p2g_levelset_zshard_kernel",
+             zP * t_ext + 24 * z_live + 28 * t_slab, 540 * z_live)):
+        calls = zcalls[k]
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        zk[k] = {"ms": kernel_device_ms(torch, replay(calls, getattr(
+                     *z_sites[k])), 5, kname, len(calls)),
+                 "call_ms": cuda_ms(torch, replay(calls, getattr(
+                     *z_sites[k])), 5) / len(calls),
+                 "plain_ms": cuda_ms(torch, replay(calls, z_plain[k]), 1)
+                 / len(calls),
+                 "bound_ms": max(b_ms, o_ms),
+                 "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        print(f"{k}: {zk[k]['ms'] * 1e3:.1f} us/launch at {mesh.n} shards "
+              f"(bound {zk[k]['bound_ms'] * 1e3:.1f} us, "
+              f"{zk[k]['bound_by']}), plain {zk[k]['plain_ms']:.2f} ms",
+              flush=True)
+    halo_ms = {k: cuda_ms(torch, replay(zcalls[k], getattr(*z_sites[k])), 5)
+               for k in ("halo_z", "scatter_z", "gather_z")}
+    print("zshard copies per step (ms): " + ", ".join(
+        f"{k} {v:.3f} ({len(zcalls[k])} calls)" for k, v in halo_ms.items()),
+        flush=True)
+    del zcalls, sh, sh0, ref, zstart
+
+    # 3 steps at 16^3 over 8 shards on the card against the CPU
+    xruns = []
+    for d_ in (dev, "cpu"):
+        s_ = flip.make_dam_state_bucketed(xdom, fparams, ppc=10, device=d_)
+        m_ = shd.make_zmesh(8, devices=mesh.devices if d_ is dev else [d_])
+        s_ = shd.shard_flip_bucket_state(s_, m_)
+        for _ in range(3):
+            s_ = flip.flip_step_bucketed(s_, xdom, fparams, zshard=m_)
+        xruns.append(s_)
+    x_gpu, x_cpu = xruns
+    require(torch.equal(x_gpu.flags.cpu(), x_cpu.flags),
+            "16^3 zshard card vs CPU: flags differ")
+    require(int(x_gpu.buckets.count()) == int(x_cpu.buckets.count()),
+            "16^3 zshard card vs CPU: particle counts differ")
+    require(int(x_gpu.buckets.dropped) == 0, "16^3 zshard: particles dropped")
+    xv = float((x_gpu.vel.cpu() - x_cpu.vel).abs().max())
+    xp = float((x_gpu.phi.cpu() - x_cpu.phi).abs().max())
+    require(xv < 2e-4 and xp < 2e-4,
+            f"16^3 zshard card vs CPU: vel {xv}, phi {xp}")
+    print(f"16^3 zshard x3 steps over 8 shards, card vs CPU: vel {xv:.3g}, "
+          f"phi {xp:.3g}", flush=True)
+    zshard_numbers = {
+        "steps_per_s_developed": z_sps, "cg_iters_per_step_developed": z_it,
+        "particles": n_parts, "ppc": zP, "rebinned_to_ppc": rebinned,
+        "shards": mesh.n, "devices": [str(d) for d in mesh.devices],
+        "equal_to_one_device": z_exact, "max_abs_diff_one_device": z_diff,
+        "launches_per_step": z_per_step, "copies_ms_per_step": halo_ms,
+        "card_vs_cpu_16": {"vel": xv, "phi": xp}}
+
     flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
-                  "obstacle_128": b_launches}
+                  "obstacle_128": b_launches, "flip_zshard_128": z_launches}
     kernels = [
         {"name": "window_advect", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
@@ -994,6 +1225,19 @@ def main():
         if kind == "advect_bucket":
             entry["max_abs_err_with_obstacle"] = obstacle_err
         kernels.append(entry)
+    # the z-slab kernels: K9, and the z-slab forms of K3 and K10, each its
+    # own __global__ function (in the one-domain kernel's source for K3/K10)
+    z_sources = {"advect_bucket_zshard": ("advect_bucket", f"{fbp}:80"),
+                 "rebin_zshard": ("rebin_zshard", f"{fbp}:1310"),
+                 "p2g_levelset_zshard": ("p2g_levelset", f"{fbp2}:408")}
+    for name, (src, repl) in z_sources.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mantaflow_tpu_torch/csrc/{src}.cu",
+            "replaces": repl, "launches": z_launches[name],
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in flip_paths.items()},
+            "max_abs_err": errs[name], "library_ms": None, **zk[name]})
     print(card)
     print(json.dumps({
         "smoke_128": {"steps_per_s_cold": cold_sps,
@@ -1002,7 +1246,7 @@ def main():
                       "cg_iters_per_step_developed": dev_it,
                       "density_max": dmax},
         "flip_128": flip_numbers, "flip01_128": a_numbers,
-        "obstacle_128": b_numbers,
+        "obstacle_128": b_numbers, "flip_zshard_128": zshard_numbers,
         "build_s": build_s, "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 // Bucketed particle advection with the deferred FLIP blend fused into the
 // first stage: the hand-written Hopper kernel behind
-// ops/advect_bucket_kernels.py:advect_blend.
+// ops/advect_bucket_kernels.py:advect_blend, and in its z-slab form
+// (advect_bucket_zshard_kernel) behind advect_blend_slab, one launch per
+// shard of the sharded step.
 //
 // Replaces the TPU kernel mantaflow_tpu/ops/flip_bucket_pallas.py:
 // _advect_kernel/_advect_tile (advect_blend_pallas, advect_pallas). The TPU
@@ -34,6 +36,16 @@
 // obs (unless ring_only) one byte per cell; dt and pending are device
 // scalars (float32, bool), read by the kernel so the step needs no host
 // sync.
+//
+// The z-slab form (the port of _advect_kernel with z_base and sz_global,
+// advect_blend_zshard_spmd): the slot fields are one shard's cells, the
+// grids and obs hold the shard's planes with two planes of each neighbour
+// (zero past the domain's ends), planes zlo .. zlo+nz-1 of the domain. The
+// positions stay global, and every clamp and bounds test uses the domain's
+// z extent sz: a stage moves at most one cell, so every corner read lies
+// within two planes of the slab. The one-domain kernel is the same body
+// with zlo = 0 and nz = sz fixed at compile time, so its code is what it
+// was.
 
 #include <cuda_runtime.h>
 
@@ -69,7 +81,9 @@ struct AdvectArgs {
   float* ovz;
   long long T;
   int P;
-  int sx, sy, sz;
+  int sx, sy, sz;  // sz: the domain's z extent
+  int zlo, nz;     // z-slab form: the grids' planes zlo .. zlo+nz-1
+  long long own_off;  // z-slab form: a slot's own cell in obs, less cell
   float flip_ratio, pic_ratio;  // r and (1 - r), rounded to float once
   int mode;  // 0 Euler, 1 RK2, 2 RK4
   int ring_only;
@@ -82,13 +96,25 @@ __device__ __forceinline__ bool in_bounds(const AdvectArgs& a, float qx,
          qz < static_cast<float>(a.sz - 1);
 }
 
+template <bool kSlab>
+__device__ __forceinline__ int grid_zlo(const AdvectArgs& a) {
+  return kSlab ? a.zlo : 0;
+}
+
+template <bool kSlab>
+__device__ __forceinline__ int grid_nz(const AdvectArgs& a) {
+  return kSlab ? a.nz : a.sz;
+}
+
 // flags at trunc(q), clamped into the grid (particle.h:485-492)
+template <bool kSlab>
 __device__ __forceinline__ bool obstacle_at(const AdvectArgs& a, float qx,
                                             float qy, float qz) {
   if (a.ring_only) return !in_bounds(a, qx, qy, qz);
   const int ix = min(max(static_cast<int>(qx), 0), a.sx - 1);
   const int iy = min(max(static_cast<int>(qy), 0), a.sy - 1);
-  const int iz = min(max(static_cast<int>(qz), 0), a.sz - 1);
+  const int iz = min(max(static_cast<int>(qz), 0), a.sz - 1) -
+                 grid_zlo<kSlab>(a);
   return a.obs[(static_cast<long long>(iz) * a.sy + iy) * a.sx + ix] != 0;
 }
 
@@ -98,6 +124,7 @@ __device__ __forceinline__ float clip1(float u) {
 
 // dt-scale, clamp and obstacle stage-zeroing of a raw evaluation.
 // own_cell: the stage-1 probe reads the bucket cell's own flag.
+template <bool kSlab>
 __device__ __forceinline__ void to_step(const AdvectArgs& a, float dt,
                                         const float raw[3], float qx, float qy,
                                         float qz, bool own_cell,
@@ -105,21 +132,29 @@ __device__ __forceinline__ void to_step(const AdvectArgs& a, float dt,
   for (int k = 0; k < 3; ++k) u[k] = clip1(raw[k] * dt);
   bool bad = !in_bounds(a, qx, qy, qz);
   if (!a.ring_only)
-    bad = bad || (own_cell ? a.obs[cell] != 0 : obstacle_at(a, qx, qy, qz));
+    bad = bad || (own_cell ? a.obs[cell + (kSlab ? a.own_off : 0)] != 0
+                           : obstacle_at<kSlab>(a, qx, qy, qz));
   if (bad) u[0] = u[1] = u[2] = 0.f;
 }
 
+template <bool kSlab>
+__device__ __forceinline__ float interp(const AdvectArgs& a, const float* g,
+                                        int c, float qx, float qy, float qz) {
+  return mac_comp(g, c, a.sx, a.sy, a.sz, grid_zlo<kSlab>(a),
+                  grid_nz<kSlab>(a), qx, qy, qz);
+}
+
+template <bool kSlab>
 __device__ __forceinline__ void eval_u(const AdvectArgs& a, float dt,
                                        float qx, float qy, float qz,
                                        float u[3]) {
   float raw[3];
-  for (int c = 0; c < 3; ++c)
-    raw[c] = mac_comp(a.vel, c, a.sx, a.sy, a.sz, qx, qy, qz);
-  to_step(a, dt, raw, qx, qy, qz, false, 0, u);
+  for (int c = 0; c < 3; ++c) raw[c] = interp<kSlab>(a, a.vel, c, qx, qy, qz);
+  to_step<kSlab>(a, dt, raw, qx, qy, qz, false, 0, u);
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-    advect_bucket_kernel(AdvectArgs a) {
+template <bool kSlab>
+__device__ __forceinline__ void advect_slot(const AdvectArgs& a) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   if (i >= a.T * a.P) return;
@@ -139,14 +174,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 
   // stage 1 at the drift-0 positions, shared with the blend
   float raw[3];
-  for (int c = 0; c < 3; ++c)
-    raw[c] = mac_comp(a.vel, c, a.sx, a.sy, a.sz, x0, y0, z0);
+  for (int c = 0; c < 3; ++c) raw[c] = interp<kSlab>(a, a.vel, c, x0, y0, z0);
   const float pv[3] = {a.vx[i], a.vy[i], a.vz[i]};
   float nv[3];
   const bool pend = *a.pending != 0;
   for (int c = 0; c < 3; ++c) {
-    const float vold =
-        mac_comp(a.vel_old, c, a.sx, a.sy, a.sz, x0, y0, z0);
+    const float vold = interp<kSlab>(a, a.vel_old, c, x0, y0, z0);
     nv[c] = pend ? a.flip_ratio * (pv[c] + (raw[c] - vold)) +
                        a.pic_ratio * raw[c]
                  : pv[c];
@@ -155,21 +188,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   a.ovy[i] = nv[1];
   a.ovz[i] = nv[2];
   float u0[3];
-  to_step(a, dt, raw, x0, y0, z0, true, cell, u0);
+  to_step<kSlab>(a, dt, raw, x0, y0, z0, true, cell, u0);
 
   float du[3];
   if (a.mode == 0) {
     for (int k = 0; k < 3; ++k) du[k] = u0[k];
   } else if (a.mode == 1) {
-    eval_u(a, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1], z0 + 0.5f * u0[2],
-           du);
+    eval_u<kSlab>(a, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1],
+                  z0 + 0.5f * u0[2], du);
   } else {
     float u1[3], u2[3], u3[3];
-    eval_u(a, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1], z0 + 0.5f * u0[2],
-           u1);
-    eval_u(a, dt, x0 + 0.5f * u1[0], y0 + 0.5f * u1[1], z0 + 0.5f * u1[2],
-           u2);
-    eval_u(a, dt, x0 + u2[0], y0 + u2[1], z0 + u2[2], u3);
+    eval_u<kSlab>(a, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1],
+                  z0 + 0.5f * u0[2], u1);
+    eval_u<kSlab>(a, dt, x0 + 0.5f * u1[0], y0 + 0.5f * u1[1],
+                  z0 + 0.5f * u1[2], u2);
+    eval_u<kSlab>(a, dt, x0 + u2[0], y0 + u2[1], z0 + u2[2], u3);
     for (int k = 0; k < 3; ++k)
       du[k] = (2.f * u0[k] + 2.f * u1[k] + 2.f * u2[k] + u3[k]) / 6.f;
   }
@@ -178,14 +211,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   float nx = fminf(fmaxf(x0 + clip1(du[0]), 0.f), static_cast<float>(a.sx - 1));
   float ny = fminf(fmaxf(y0 + clip1(du[1]), 0.f), static_cast<float>(a.sy - 1));
   float nz = fminf(fmaxf(z0 + clip1(du[2]), 0.f), static_cast<float>(a.sz - 1));
-  if (obstacle_at(a, nx, ny, nz)) {
+  if (obstacle_at<kSlab>(a, nx, ny, nz)) {
     // bisectBacktracePos (particle.h:494-505): 4 bisection probes
     float s = 0.f;
     for (int k = 1; k < 5; ++k) {
       const float t = s + 1.f / static_cast<float>(1 << k);
-      const bool obs = obstacle_at(a, x0 * (1.f - t) + nx * t,
-                                   y0 * (1.f - t) + ny * t,
-                                   z0 * (1.f - t) + nz * t);
+      const bool obs = obstacle_at<kSlab>(a, x0 * (1.f - t) + nx * t,
+                                          y0 * (1.f - t) + ny * t,
+                                          z0 * (1.f - t) + nz * t);
       s = obs ? s : t;
     }
     nx = x0 * (1.f - s) + nx * s;
@@ -197,6 +230,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   a.opz[i] = nz;
 }
 
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+    advect_bucket_kernel(AdvectArgs a) {
+  advect_slot<false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+    advect_bucket_zshard_kernel(AdvectArgs a) {
+  advect_slot<true>(a);
+}
+
 }  // namespace
 
 extern "C" int advect_bucket_launch(
@@ -205,16 +248,25 @@ extern "C" int advect_bucket_launch(
     const float* vz, const float* vel, const float* vel_old,
     const unsigned char* obs, const float* dt, const unsigned char* pending,
     float* opx, float* opy, float* opz, float* ovx, float* ovy, float* ovz,
-    long long T, int P, int sx, int sy, int sz, float flip_ratio,
-    float pic_ratio, int mode, int ring_only, int device, void* stream) {
+    long long T, int P, int sx, int sy, int sz, int zb, int zlo, int nz,
+    float flip_ratio, float pic_ratio, int mode, int ring_only, int slab,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // slab: T cells of planes zb.. of the domain's sz; the grids and obs hold
+  // planes zlo .. zlo+nz-1. Otherwise T is the whole domain's.
+  const long long own_off = static_cast<long long>(zb - zlo) * sx * sy;
   AdvectArgs a{px, py, pz, valid, vx, vy, vz, vel, vel_old, obs, dt, pending,
-               opx, opy, opz, ovx, ovy, ovz, T, P, sx, sy, sz, flip_ratio,
-               pic_ratio, mode, ring_only};
+               opx, opy, opz, ovx, ovy, ovz, T, P, sx, sy, sz, zlo, nz,
+               own_off, flip_ratio, pic_ratio, mode, ring_only};
   const long long n = T * P;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  advect_bucket_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (slab)
+    advect_bucket_zshard_kernel<<<blocks, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    advect_bucket_kernel<<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,8 +60,8 @@ __global__ void __launch_bounds__(kThreads) flip_blend_kernel(BlendArgs a) {
   if (a.valid[i]) {
     const float x0 = a.px[i], y0 = a.py[i], z0 = a.pz[i];
     for (int c = 0; c < 3; ++c) {
-      const float vnew = mac_comp(a.vel, c, a.sx, a.sy, a.sz, x0, y0, z0);
-      const float vold = mac_comp(a.vel_old, c, a.sx, a.sy, a.sz, x0, y0, z0);
+      const float vnew = mac_comp(a.vel, c, a.sx, a.sy, a.sz, 0, a.sz, x0, y0, z0);
+      const float vold = mac_comp(a.vel_old, c, a.sx, a.sy, a.sz, 0, a.sz, x0, y0, z0);
       nv[c] = a.flip_ratio * (nv[c] + (vnew - vold)) + a.pic_ratio * vnew;
     }
   }

@@ -5,7 +5,13 @@
 // for its own tap, and, with kLevelset, keeps the least squared distance.
 // The result is deterministic; it differs from the plain version only in
 // the order of the float sums. kLevelset is a compile-time flag, so each
-// source compiles the body it needs and nothing of the other.
+// source compiles the body it needs and nothing of the other. kSlab, also
+// at compile time, adds the z-slab form of the sharded step
+// (p2g_union_zshard_spmd): the destinations are one shard's planes (global
+// zb ..) and the sources its slab extended by one plane of each neighbour
+// (global zsrc = zb - 1 ..); z coordinates, the border tests and the
+// levelset's interior ring are global, so a shard's planes equal the same
+// planes of the one-domain result bit for bit.
 //
 // Semantics (flip_bucket.p2g_mac and union_levelset_bucketed):
 //   face (c, cell) += w, w*v_c for every particle of source cell s = cell-d
@@ -18,7 +24,8 @@
 //
 // Layout: slot fields are contiguous (P, T) arrays, T = sz*sy*sx with x
 // fastest, valid one byte per slot; vel and weight out are (3, sz, sy, sx),
-// phi (sz, sy, sx), all float32.
+// phi (sz, sy, sx), all float32. kSlab: the slot fields hold T_src cells,
+// the outputs T (the shard's planes).
 
 #pragma once
 
@@ -44,8 +51,10 @@ struct P2gArgs {
   float* phi;     // (T), with kLevelset
   long long T;
   int P;
-  int sx, sy, sz;
-  float radius;   // with kLevelset
+  int sx, sy, sz;  // sz: the domain's z extent
+  float radius;    // with kLevelset
+  long long T_src;  // kSlab: cells of the slot fields
+  int zb, zsrc;     // kSlab: global z of the outputs' and sources' plane 0
 };
 
 // Linear weight that a particle with axis base b (relative to its source
@@ -54,14 +63,17 @@ __device__ __forceinline__ float tap_weight(int b_rel, float w1, int d) {
   return b_rel == d ? 1.f - w1 : (b_rel == d - 1 ? w1 : 0.f);
 }
 
-template <bool kLevelset>
+template <bool kLevelset, bool kSlab>
 __device__ __forceinline__ void p2g_gather(const P2gArgs& a) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   if (t >= a.T) return;
+  const long long T_src = kSlab ? a.T_src : a.T;
+  const int zsrc = kSlab ? a.zsrc : 0;
   const int x = static_cast<int>(t % a.sx);
   const int y = static_cast<int>((t / a.sx) % a.sy);
-  const int z = static_cast<int>(t / (static_cast<long long>(a.sx) * a.sy));
+  const int z = static_cast<int>(t / (static_cast<long long>(a.sx) * a.sy)) +
+                (kSlab ? a.zb : 0);
   const int n[3] = {a.sx, a.sy, a.sz};
   const float* vel[3] = {a.vx, a.vy, a.vz};
 
@@ -77,12 +89,13 @@ __device__ __forceinline__ void p2g_gather(const P2gArgs& a) {
       for (int dx = -1; dx <= 1; ++dx) {
         const int xs = x - dx;
         if (xs < 0 || xs >= a.sx) continue;
-        const long long s = (static_cast<long long>(zs) * a.sy + ys) * a.sx + xs;
+        const long long s =
+            (static_cast<long long>(zs - zsrc) * a.sy + ys) * a.sx + xs;
         const int src[3] = {xs, ys, zs};
         const int d[3] = {dx, dy, dz};
         const float c2 = static_cast<float>(dx * dx + dy * dy + dz * dz);
         for (int p = 0; p < a.P; ++p) {
-          const long long idx = static_cast<long long>(p) * a.T + s;
+          const long long idx = static_cast<long long>(p) * T_src + s;
           if (!a.valid[idx]) continue;
           const float q[3] = {a.px[idx], a.py[idx], a.pz[idx]};
           if constexpr (kLevelset) {

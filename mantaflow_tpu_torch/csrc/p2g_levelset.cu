@@ -1,6 +1,10 @@
 // Fused particle-to-grid transfer and union particle levelset (radius
 // window 1): the hand-written Hopper kernel behind
-// ops/p2g_kernels.py:p2g_union.
+// ops/p2g_kernels.py:p2g_union, and in its z-slab form
+// (p2g_levelset_zshard_kernel) behind p2g_union_slab, one launch per shard
+// of the sharded step (the port of _p2g_ls_kernel as
+// p2g_union_zshard_spmd calls it: sources over a one-plane halo-extended
+// slab, a global z offset and z extent).
 //
 // Replaces the TPU kernel mantaflow_tpu/ops/flip_bucket_pallas2.py:
 // _p2g_ls_kernel (p2g_union_pallas), a source-centric streaming scatter:
@@ -20,7 +24,12 @@
 namespace {
 
 __global__ void __launch_bounds__(kThreads) p2g_levelset_kernel(P2gArgs a) {
-  p2g_gather<true>(a);
+  p2g_gather<true, false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    p2g_levelset_zshard_kernel(P2gArgs a) {
+  p2g_gather<true, true>(a);
 }
 
 }  // namespace
@@ -30,14 +39,24 @@ extern "C" int p2g_levelset_launch(const float* px, const float* py,
                                    const float* vy, const float* vz,
                                    const unsigned char* valid, float* vel,
                                    float* weight, float* phi, long long T,
-                                   int P, int sx, int sy, int sz, float radius,
+                                   long long T_src, int P, int sx, int sy,
+                                   int sz, int zb, float radius, int slab,
                                    int device, void* stream) {
+  // slab: the outputs are T cells of planes zb.. of the domain's sz, the
+  // slot fields T_src = T + 2*sx*sy cells from plane zb - 1
+  if (slab && T_src != T + 2LL * sx * sy)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   P2gArgs a{px, py, pz, vx, vy, vz, valid, vel, weight, phi, T, P,
-            sx, sy, sz, radius};
+            sx, sy, sz, radius, T_src, zb, zb - 1};
   const unsigned blocks = static_cast<unsigned>((T + kThreads - 1) / kThreads);
-  p2g_levelset_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (slab)
+    p2g_levelset_zshard_kernel<<<blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    p2g_levelset_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,7 @@
 namespace {
 
 __global__ void __launch_bounds__(kThreads) p2g_mac_kernel(P2gArgs a) {
-  p2g_gather<false>(a);
+  p2g_gather<false, false>(a);
 }
 
 }  // namespace
@@ -34,7 +34,7 @@ extern "C" int p2g_mac_launch(const float* px, const float* py,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   P2gArgs a{px, py, pz, vx, vy, vz, valid, vel, weight, nullptr, T, P,
-            sx, sy, sz, 0.f};
+            sx, sy, sz, 0.f, T, 0, 0};
   const unsigned blocks = static_cast<unsigned>((T + kThreads - 1) / kThreads);
   p2g_mac_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -11,6 +11,7 @@ compiles several sources in parallel, one ``nvcc`` process each.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,11 +20,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("window_advect", "cg_solve", "extrap_layer", "rebin",
            "advect_bucket", "p2g_levelset", "p2g_mac", "union_levelset",
-           "flip_blend")
+           "flip_blend", "rebin_zshard")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the FLIP kernels keep their plain versions' rounding: no a*b+c contracted
@@ -89,6 +92,18 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+@contextlib.contextmanager
+def caller_device():
+    """Gives the caller its current CUDA device back after a launch: each
+    export selects its tensors' device with ``cudaSetDevice``, which
+    PyTorch's current device follows."""
+    prev = torch.cuda.current_device()
+    try:
+        yield
+    finally:
+        torch.cuda.set_device(prev)
+
+
 @functools.cache
 def launcher(name: str, argtypes: tuple):
     """A function that launches ``csrc/<name>.cu``'s kernel through its
@@ -103,7 +118,8 @@ def launcher(name: str, argtypes: tuple):
     err_str.restype = ctypes.c_char_p
 
     def launch(*args):
-        err = fn(*args)
+        with caller_device():
+            err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: "
                                + err_str(err).decode())

@@ -21,9 +21,19 @@ CPU the same wrappers run their plain PyTorch versions, which are the JAX
 package's CPU forms. Nothing on the step path reads a value back to the
 host; ``flip_run_bucketed_auto`` reads ``dropped`` once per chunk.
 
+The z-sharded branch (``zshard=mesh``, a ``parallel.sharding.ZMesh``, on a
+state from ``shard_flip_bucket_state``) runs the particle stages per
+shard over z-slabs of the buckets, as the JAX package's branch does with
+``shard_map``: the advection and the rebin, and with ghost fluid and a
+one-cell levelset window the fused transfer. Their slabs of ``vel``,
+``weight`` and ``phi`` are joined on the lead, where the grid stages run
+as on one device, over whole grids. On the routes that are not fused the
+buckets are joined on the lead for the transfer and the levelset. The
+result equals the one-device step.
+
 Not ported yet (ROADMAP.md): the flat particle layout (``flip_step``,
-``flip_run``), APIC, the z-sharded multi-device branch and the
-preconditioned pressure solves.
+``flip_run``), APIC, the sharded grid stages and the preconditioned
+pressure solves.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from ..ops import levelset_kernels as lsk
 from ..ops import p2g_kernels as p2gk
 from ..ops import pressure as prs
 from ..ops import rebin_kernels as rbk
+from ..parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +94,7 @@ class FlipBucketState:
     vel_old: torch.Tensor   # float32 (3,z,y,x): the p2g grid, for the blend
     pressure: torch.Tensor  # float32 [z,y,x]
     phi: torch.Tensor       # float32 [z,y,x]
-    buckets: fb.Buckets
+    buckets: fb.Buckets     # or, sharded, a sharding.ShardedBuckets
     ts: slv.TimeState
     # True: the last step's FLIP blend is still pending (0-dim bool)
     blend_pending: torch.Tensor
@@ -153,16 +164,60 @@ def _check_supported(params: FlipParams):
                          "per step (rebin window contract)")
 
 
+def _check_sharding(bk, zshard):
+    sharded = isinstance(bk, shd.ShardedBuckets)
+    if zshard is None and sharded:
+        raise ValueError("the state's buckets are sharded: pass zshard=mesh")
+    if zshard is not None and not sharded:
+        raise ValueError("zshard needs a sharded state: "
+                         "sharding.shard_flip_bucket_state(state, mesh)")
+    if zshard is not None and bk.mesh != zshard:
+        raise ValueError("the state is sharded over another mesh")
+
+
+def _particle_stages(state: FlipBucketState, bk, dt, dom: Domain,
+                     params: FlipParams, zshard):
+    """Advection with the pending blend, rebin and transfer: (buckets,
+    vel, weight, phi), ``phi`` the state's unless ghost fluid builds it."""
+    phi = state.phi
+    args = (state.flags, state.vel, state.vel_old, dt, state.blend_pending,
+            params.flip_ratio, dom)
+    kw = dict(integration_mode=params.integration_mode,
+              ring_only=params.ring_only_obstacles)
+    if zshard is None:
+        bk = rbk.rebin(advk.advect_blend(bk, *args, **kw), dom)
+        whole = bk
+    else:
+        bk = advk.advect_blend_zshard(bk, *args, zshard, **kw)
+        bk = rbk.rebin_zshard(bk, dom, zshard)
+        if _fused_levelset(dom, params):
+            vel, weight, phi = (shd.gather_z(o, zshard, o[0].dim() - 3)
+                                for o in p2gk.p2g_union_zshard(
+                                    bk, dom, params.radius_factor, zshard))
+            return bk, vel, weight, phi
+        # the routes the JAX package leaves to GSPMD run on the lead
+        whole = bk.whole()
+    if _fused_levelset(dom, params):
+        vel, weight, phi = p2gk.p2g_union(whole, dom, params.radius_factor)
+    else:
+        vel, weight = p2gk.p2g_mac(whole, dom)
+        if params.ghost_fluid:
+            phi = lsk.union_levelset(whole, dom, params.radius_factor)
+    return bk, vel, weight, phi
+
+
 def flip_step_bucketed(state: FlipBucketState, dom: Domain,
-                       params: FlipParams) -> FlipBucketState:
+                       params: FlipParams, zshard=None) -> FlipBucketState:
     """One step on the bucket layout, following
     mantaflow_tpu/models/flip.py:flip_step_bucketed (its TPU branch on a
-    GPU, its CPU branch on the CPU; both compute the same function).
+    GPU, its CPU branch on the CPU; both compute the same function; with
+    ``zshard``, a ZMesh, its z-sharded branch on a sharded state).
 
     The layout relies on the CFL <= 1 contract: particles move at most one
     cell per step. A violation adds 10^6 to ``buckets.dropped``; a
     configuration that cannot honour it statically is refused."""
     _check_supported(params)
+    _check_sharding(state.buckets, zshard)
     flags, vel, bk, ts = state.flags, state.vel, state.buckets, state.ts
 
     max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2))
@@ -174,18 +229,8 @@ def flip_step_bucketed(state: FlipBucketState, dom: Domain,
     bk = dataclasses.replace(bk, dropped=bk.dropped + 1_000_000 * viol)
 
     # the previous step's deferred FLIP blend, fused into advection stage 1
-    bk = advk.advect_blend(bk, flags, vel, state.vel_old, dt,
-                           state.blend_pending, params.flip_ratio, dom,
-                           params.integration_mode,
-                           ring_only=params.ring_only_obstacles)
-    bk = rbk.rebin(bk, dom)
-    phi = state.phi
-    if _fused_levelset(dom, params):
-        vel, weight, phi = p2gk.p2g_union(bk, dom, params.radius_factor)
-    else:
-        vel, weight = p2gk.p2g_mac(bk, dom)
-        if params.ghost_fluid:
-            phi = lsk.union_levelset(bk, dom, params.radius_factor)
+    bk, vel, weight, phi = _particle_stages(state, bk, dt, dom, params,
+                                            zshard)
     vel_old = vel
     vel, _ = xtr.extrapolate_mac_from_weight(vel, weight, dom,
                                              params.extrap_weight_dist)
@@ -218,8 +263,9 @@ def finalize_buckets(state: FlipBucketState, dom: Domain,
                      params: FlipParams) -> FlipBucketState:
     """Apply the deferred FLIP blend of the last step (none when not
     pending). Call before reading particle velocities out of the buckets;
-    grid fields never need it."""
-    bk = state.buckets
+    grid fields never need it. Sharded buckets are joined on the lead for
+    the blend and cut into slabs again."""
+    bk = state.buckets.whole()
     blended = blk.flip_update(bk, state.vel, state.vel_old,
                               params.flip_ratio, dom)
     pend = state.blend_pending
@@ -227,7 +273,7 @@ def finalize_buckets(state: FlipBucketState, dom: Domain,
         bk, vx=torch.where(pend, blended.vx, bk.vx),
         vy=torch.where(pend, blended.vy, bk.vy),
         vz=torch.where(pend, blended.vz, bk.vz))
-    return dataclasses.replace(state, buckets=bk,
+    return dataclasses.replace(state, buckets=state.buckets.from_whole(bk),
                                blend_pending=torch.zeros_like(pend))
 
 
@@ -312,11 +358,13 @@ def state_from_numpy(d: dict, device=None) -> FlipBucketState:
 
 
 def state_to_numpy(state: FlipBucketState) -> dict:
-    """The inverse of ``state_from_numpy``: numpy copies of every field."""
+    """The inverse of ``state_from_numpy``: numpy copies of every field,
+    of a sharded state's buckets joined."""
     def n(v):
         return np.array(v.cpu())
+    bk = state.buckets.whole()
     out = {k: n(getattr(state, k)) for k in _GRIDS}
-    out["buckets"] = {k: n(getattr(state.buckets, k)) for k in _BUCKETS}
+    out["buckets"] = {k: n(getattr(bk, k)) for k in _BUCKETS}
     out["ts"] = {k: n(getattr(state.ts, k)) for k in _TS}
     out["blend_pending"] = n(state.blend_pending)
     return out

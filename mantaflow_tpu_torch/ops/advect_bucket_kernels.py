@@ -11,6 +11,16 @@ obstacles have no caller on the port's path and are not ported
 (ROADMAP.md). On a CPU tensor it runs the plain PyTorch
 version, ``advect_blend_plain``: ``flip_update_bucketed`` then
 ``advect_bucketed``.
+
+``advect_blend_zshard`` is the port of ``advect_blend_zshard_spmd``: the
+same step on a bucket set cut into z-slabs (``parallel/sharding.py``). Each
+shard gets its slab of ``vel``, ``vel_old`` and the obstacle mask with two
+planes of each neighbour (``sharding.halo_z``) and runs the kernel's z-slab
+form (``advect_blend_slab``): global positions, the domain's z extent in
+every clamp. Its plain version, ``advect_blend_slab_plain``, places the
+slab and its halo planes in an otherwise empty domain and runs
+``advect_blend_plain`` there. The result equals ``advect_blend`` of the
+whole set.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 from ..core import flags as fl
 from ..core.domain import Domain
 from ..kernels import _build
+from ..parallel import sharding as shd
 from . import flip_bucket as fb
 from .rebin_kernels import check_buckets
 
@@ -44,8 +55,9 @@ def advect_blend_plain(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
 
 
 _ARGS = ((ctypes.c_void_p,) * 18 + (ctypes.c_longlong,)
-         + (ctypes.c_int,) * 4 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 3
+         + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 4
          + (ctypes.c_void_p,))
+_HALO = 2  # grid planes each shard takes from each neighbour
 
 
 def _scalar(v, dtype, dev, name):
@@ -55,28 +67,26 @@ def _scalar(v, dtype, dev, name):
     return t.to(dtype).contiguous()
 
 
-def _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio,
-                       dom, integration_mode, ring_only):
-    check_buckets(bk, dom, "advect_blend")
+def _check_grid(g, shape, dev, who, name):
+    if (g.dtype != torch.float32 or tuple(g.shape) != shape
+            or not g.is_contiguous() or g.device != dev):
+        raise ValueError(f"{who}: {name} must be a contiguous float32 "
+                         f"{shape} tensor on {dev}")
+
+
+def _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom: Domain,
+            integration_mode, ring_only, slab=None):
+    """One launch over ``bk``; ``slab`` = (z_base, zlo): the z-slab form,
+    its cells from global plane z_base, its grids from plane zlo."""
     dev = bk.px.device
-    for name, g in (("vel", vel), ("vel_old", vel_old)):
-        if (g.dtype != torch.float32 or tuple(g.shape) != (3,) + dom.shape
-                or not g.is_contiguous() or g.device != dev):
-            raise ValueError(f"advect_blend: {name} must be a contiguous "
-                             f"float32 {(3,) + dom.shape} tensor on {dev}")
     if integration_mode not in (0, 1, 2):
         raise ValueError("unknown integration type")
-    obs = None
-    if not ring_only:
-        if tuple(flags.shape) != dom.shape or flags.device != dev:
-            raise ValueError(f"advect_blend: flags must be a {dom.shape} "
-                             f"tensor on {dev}")
-        obs = fl.is_obstacle(flags).contiguous()
     dt_t = _scalar(dt, torch.float32, dev, "dt")
     pend_t = _scalar(pending, torch.bool, dev, "pending")
     fields = ("px", "py", "pz", "vx", "vy", "vz")
     out = {n: torch.empty_like(getattr(bk, n)) for n in fields}
     sz, sy, sx = dom.shape
+    z_base, zlo = slab if slab is not None else (0, 0)
     _build.launcher("advect_bucket", _ARGS)(
         *(getattr(bk, n).data_ptr() for n in fields[:3]),
         bk.valid.data_ptr(),
@@ -85,11 +95,29 @@ def _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio,
         obs.data_ptr() if obs is not None else None,
         dt_t.data_ptr(), pend_t.data_ptr(),
         *(out[n].data_ptr() for n in fields),
-        bk.ncells, bk.ppc, sx, sy, sz, float(flip_ratio),
-        1.0 - float(flip_ratio), int(integration_mode), int(ring_only),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    advect_blend.launches += 1
+        bk.ncells, bk.ppc, sx, sy, sz, int(z_base), int(zlo), vel.shape[1],
+        float(flip_ratio), 1.0 - float(flip_ratio), int(integration_mode),
+        int(ring_only), int(slab is not None), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     return dataclasses.replace(bk, **out)
+
+
+def _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio,
+                       dom, integration_mode, ring_only):
+    check_buckets(bk, dom, "advect_blend")
+    dev = bk.px.device
+    for name, g in (("vel", vel), ("vel_old", vel_old)):
+        _check_grid(g, (3,) + dom.shape, dev, "advect_blend", name)
+    obs = None
+    if not ring_only:
+        if tuple(flags.shape) != dom.shape or flags.device != dev:
+            raise ValueError(f"advect_blend: flags must be a {dom.shape} "
+                             f"tensor on {dev}")
+        obs = fl.is_obstacle(flags).contiguous()
+    out = _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom,
+                  integration_mode, ring_only)
+    advect_blend.launches += 1
+    return out
 
 
 def advect_blend(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
@@ -112,3 +140,100 @@ def advect_blend(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
 
 
 advect_blend.launches = 0  # kernel launches (CUDA only)
+
+
+def advect_blend_slab_plain(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
+                            flip_ratio: float, dom: Domain, z_base: int,
+                            integration_mode: int = 2,
+                            ring_only: bool = False) -> fb.Buckets:
+    """The z-slab kernel's function in PyTorch: ``bk`` is a slab's buckets
+    (global planes from ``z_base``), ``vel``/``vel_old`` (3, lz+4, sy, sx)
+    and ``obs`` (lz+4, sy, sx) bool (None with ``ring_only``) its planes
+    with two of each neighbour, ``dom`` the whole domain. The slab and its
+    halo planes go into an otherwise empty domain, where
+    ``advect_blend_plain`` runs: no slot of the slab reads a plane further
+    than two away."""
+    sz = dom.shape[0]
+    lz = bk.ncells // (dom.shape[1] * dom.shape[2])
+    zlo = z_base - _HALO
+    whole = fb.embed_slab(bk, dom, z_base)
+    vel_w = fb.embed_z(vel, 1, zlo, sz)
+    old_w = fb.embed_z(vel_old, 1, zlo, sz)
+    flags = torch.zeros(dom.shape, dtype=torch.int32, device=bk.px.device)
+    if obs is not None:
+        flags = torch.where(fb.embed_z(obs, 0, zlo, sz), fl.TypeObstacle,
+                            flags)
+    out = advect_blend_plain(whole, flags, vel_w, old_w, dt, pending,
+                             flip_ratio, dom, integration_mode, ring_only)
+    cells = slice(z_base * dom.shape[1] * dom.shape[2],
+                  (z_base + lz) * dom.shape[1] * dom.shape[2])
+    return dataclasses.replace(bk, **{
+        f: getattr(out, f)[:, cells].contiguous()
+        for f in ("px", "py", "pz", "vx", "vy", "vz")})
+
+
+def _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending, flip_ratio,
+                            dom, z_base, integration_mode, ring_only):
+    sz, sy, sx = dom.shape
+    lz = bk.ncells // (sy * sx)
+    check_buckets(bk, Domain(size=(sx, sy, lz)), "advect_blend_slab")
+    dev = bk.px.device
+    grid = (3, lz + 2 * _HALO, sy, sx)
+    for name, g in (("vel", vel), ("vel_old", vel_old)):
+        _check_grid(g, grid, dev, "advect_blend_slab", name)
+    if not ring_only and (obs is None or obs.dtype != torch.bool
+                          or tuple(obs.shape) != grid[1:]
+                          or not obs.is_contiguous() or obs.device != dev):
+        raise ValueError(f"advect_blend_slab: obs must be a contiguous bool "
+                         f"{grid[1:]} tensor on {dev}")
+    out = _launch(bk, None if ring_only else obs, vel, vel_old, dt, pending,
+                  flip_ratio, dom, integration_mode, ring_only,
+                  slab=(z_base, z_base - _HALO))
+    advect_blend_slab.launches += 1
+    return out
+
+
+def advect_blend_slab(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
+                      flip_ratio: float, dom: Domain, z_base: int,
+                      integration_mode: int = 2,
+                      ring_only: bool = False) -> fb.Buckets:
+    """``advect_blend`` on one z-slab (arguments as
+    ``advect_blend_slab_plain``). CUDA tensors run the kernel's z-slab
+    form, CPU tensors ``advect_blend_slab_plain``."""
+    dev = bk.px.device
+    if dev.type == "cpu":
+        return advect_blend_slab_plain(bk, obs, vel, vel_old, dt, pending,
+                                       flip_ratio, dom, z_base,
+                                       integration_mode, ring_only)
+    if dev.type != "cuda":
+        raise ValueError(f"advect_blend_slab: unsupported device {dev}")
+    return _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending,
+                                   flip_ratio, dom, z_base, integration_mode,
+                                   ring_only)
+
+
+advect_blend_slab.launches = 0  # kernel launches (CUDA only)
+
+
+def advect_blend_zshard(sbk: shd.ShardedBuckets, flags, vel, vel_old, dt,
+                        pending, flip_ratio: float, dom: Domain,
+                        mesh: shd.ZMesh, integration_mode: int = 2,
+                        ring_only: bool = False) -> shd.ShardedBuckets:
+    """``advect_blend`` of a z-sharded bucket set, the grids whole on the
+    lead: each shard takes its slab of ``vel``, ``vel_old`` and (unless
+    ``ring_only``) the obstacle mask with two planes of each neighbour and
+    advects its buckets (flip_bucket_pallas.py:advect_blend_zshard_spmd)."""
+    lz = mesh.planes(dom.shape[0])
+    vel_h = shd.halo_z(shd.scatter_z(vel, mesh, 1), _HALO, 1)
+    old_h = shd.halo_z(shd.scatter_z(vel_old, mesh, 1), _HALO, 1)
+    obs_h = ([None] * mesh.n if ring_only else
+             shd.halo_z(shd.scatter_z(fl.is_obstacle(flags), mesh, 0),
+                        _HALO, 0))
+    slabs = []
+    for i, b in enumerate(sbk.slabs):
+        dev = mesh.device(i)
+        slabs.append(advect_blend_slab(
+            b, obs_h[i], vel_h[i], old_h[i], torch.as_tensor(dt).to(dev),
+            torch.as_tensor(pending).to(dev), flip_ratio, dom, i * lz,
+            integration_mode, ring_only))
+    return dataclasses.replace(sbk, slabs=slabs)

@@ -16,6 +16,15 @@ that the CUDA kernels are held against on the card
 ``levelset_kernels``, ``blend_kernels``). Binning,
 ``rebin_to_ppc``, ``max_cell_occupancy`` and ``to_particles`` run on the
 host in numpy, as in the reference: set-up and overflow recovery only.
+
+For the z-sharded step (``parallel/sharding.py``) the rebin takes a slab's
+global z offset (``_rebin_axis``'s ``z_base``) and a slab's z pass reads
+the slab extended by one plane of each neighbour
+(``rebin_zpass_halo_plain``); ``embed_slab`` places a slab in an otherwise
+empty domain, where the slab forms' plain versions run the whole-domain
+functions. ``counts_bucketed``, ``mark_fluid_cells_bucketed``,
+``max_cell_occupancy`` and ``to_particles`` read a bucket set only through
+``whole()`` and ``cell_counts()``, which a sharded one answers too.
 """
 
 from __future__ import annotations
@@ -57,6 +66,18 @@ class Buckets:
     def count(self):
         return self.valid.sum(dtype=torch.int32)
 
+    def cell_counts(self):
+        """Per-cell particle counts, (T,) int32."""
+        return self.valid.sum(dim=0, dtype=torch.int32)
+
+    def whole(self):
+        """The bucket set of the whole domain: this one."""
+        return self
+
+    def from_whole(self, bk):
+        """``bk``, a whole bucket set, in this set's layout: unchanged."""
+        return bk
+
 
 def _cell_coords(dom: Domain, device):
     """Flat-index cell coordinates (T,) int32: x fastest (grid.h:77-79)."""
@@ -65,10 +86,12 @@ def _cell_coords(dom: Domain, device):
     return t % sx, (t // sx) % sy, t // (sx * sy)
 
 
-def _cell_centers(dom: Domain, device):
+def _cell_centers(dom: Domain, device, z_base: int = 0):
+    """Cell centres; ``z_base`` is the global z of a slab's first plane
+    (the centres stay global coordinates)."""
     cx, cy, cz = _cell_coords(dom, device)
     return (cx.to(torch.float32) + 0.5, cy.to(torch.float32) + 0.5,
-            cz.to(torch.float32) + 0.5)
+            (cz + z_base).to(torch.float32) + 0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +150,8 @@ def bin_from_particles(parts: Particles, pvel, dom: Domain,
                                         device=device))
 
 
-def _valid_particles(bk: Buckets):
+def _valid_particles(bk):
+    bk = bk.whole()
     valid = bk.valid.reshape(-1).cpu().numpy()
     pos = np.stack([a.reshape(-1).cpu().numpy()[valid]
                     for a in (bk.px, bk.py, bk.pz)], axis=-1)
@@ -148,9 +172,10 @@ def rebin_to_ppc(bk: Buckets, dom: Domain, ppc: int) -> Buckets:
     return dataclasses.replace(out, dropped=bk.dropped.clone())
 
 
-def max_cell_occupancy(bk: Buckets, dom: Domain) -> int:
+def max_cell_occupancy(bk, dom: Domain) -> int:
     """Host-side max per-cell particle count by POSITION (not by stored
-    bucket): the least PPC a rebin of this state needs."""
+    bucket): the least PPC a rebin of this state needs. A sharded bucket
+    set is assembled on the lead first."""
     sz, sy, sx = dom.shape
     pos, _ = _valid_particles(bk)
     if len(pos) == 0:
@@ -162,13 +187,16 @@ def max_cell_occupancy(bk: Buckets, dom: Domain) -> int:
                            minlength=sx * sy * sz).max())
 
 
-def to_particles(bk: Buckets, dom: Domain, capacity: int | None = None):
-    """Flatten buckets back to flat Particles + pvel (host/test path)."""
+def to_particles(bk, dom: Domain, capacity: int | None = None):
+    """Flatten buckets back to flat Particles + pvel (host/test path); a
+    sharded bucket set gives them on the lead."""
+    bk = bk.whole()
+    device = bk.px.device
     pos, vel = _valid_particles(bk)
-    parts = make_particles(pos, capacity, device=bk.px.device)
+    parts = make_particles(pos, capacity, device=device)
     pvel = np.zeros((parts.capacity, 3), np.float32)
     pvel[:len(vel)] = vel
-    return parts, torch.tensor(pvel, device=bk.px.device)
+    return parts, torch.tensor(pvel, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -358,17 +386,15 @@ def advect_bucketed(bk: Buckets, flags, vel, dt, dom: Domain,
 # rebinning: three 1-D axis passes
 
 
-def _rebin_axis(bk: Buckets, dom: Domain, axis: int) -> Buckets:
-    """Move particles whose position along `axis` left the bucket cell to
-    the +-1 neighbour. Arrival order per destination is (from c+1, stay,
-    from c-1), source slot order kept inside each group, first P kept: a
-    stable 3-way merge, here one stable sort of the 3P candidates per cell
-    by group key (invalid keyed last). axis: 0=x, 1=y, 2=z."""
+def _rebin_merge(bk: Buckets, dom: Domain, axis: int, z_base: int = 0,
+                 sz_global: int | None = None):
+    """The merge of ``_rebin_axis``: (six parked fields, new valid, the
+    sorted candidate keys, < 3 for an arrival)."""
     sz, sy, sx = dom.shape
     P = bk.ppc
     cx, cy, cz = _cell_coords(dom, bk.px.device)
-    caxis = (cx, cy, cz)[axis]
-    n_axis = (sx, sy, sz)[axis]
+    caxis = (cx, cy, cz + z_base)[axis]
+    n_axis = (sx, sy, sz if sz_global is None else sz_global)[axis]
     stride = (1, sx, sx * sy)[axis]
     p_axis = (bk.px, bk.py, bk.pz)[axis]
 
@@ -379,7 +405,6 @@ def _rebin_axis(bk: Buckets, dom: Domain, axis: int) -> Buckets:
     e = torch.where((tgt < 0) | (tgt >= n_axis), 0, e)
     e = torch.where(bk.valid, e, 2)  # invalid slots belong to no group
 
-    total = bk.valid.sum(dtype=torch.int32)
     fields = (bk.px, bk.py, bk.pz, bk.vx, bk.vy, bk.vz)
     keys = []
     cand = [[] for _ in range(6)]
@@ -393,15 +418,80 @@ def _rebin_axis(bk: Buckets, dom: Domain, axis: int) -> Buckets:
     order = order[:P]
     new_valid = skey[:P] < 3
     outs = [torch.gather(torch.cat(c, dim=0), 0, order) for c in cand]
-    dropped = bk.dropped + (total - new_valid.sum(dtype=torch.int32))
 
     # park invalid slots at the cell centre with zero velocity
-    centers = _cell_centers(dom, bk.px.device)
+    centers = _cell_centers(dom, bk.px.device, z_base)
     for fi in range(3):
         outs[fi] = torch.where(new_valid, outs[fi], centers[fi][None, :])
     for fi in range(3, 6):
         outs[fi] = torch.where(new_valid, outs[fi], 0.0)
+    return outs, new_valid, skey
+
+
+def _rebin_axis(bk: Buckets, dom: Domain, axis: int,
+                z_base: int = 0) -> Buckets:
+    """Move particles whose position along `axis` left the bucket cell to
+    the +-1 neighbour. Arrival order per destination is (from c+1, stay,
+    from c-1), source slot order kept inside each group, first P kept: a
+    stable 3-way merge, here one stable sort of the 3P candidates per cell
+    by group key (invalid keyed last). axis: 0=x, 1=y, 2=z. On a z-slab
+    (an x or y pass) ``z_base`` is the slab's global z offset, and invalid
+    slots are parked at global centres (flip_bucket_pallas._park_invalid)."""
+    total = bk.valid.sum(dtype=torch.int32)
+    outs, new_valid, _ = _rebin_merge(bk, dom, axis, z_base)
+    dropped = bk.dropped + (total - new_valid.sum(dtype=torch.int32))
     return Buckets(*outs, valid=new_valid, dropped=dropped)
+
+
+def rebin_zpass_halo_plain(ext: Buckets, dom: Domain, z_base: int,
+                           sz_global: int) -> Buckets:
+    """The z pass of one shard's slab (flip_bucket_pallas.py:
+    _rebin_zpass_kernel_sh): ``ext`` holds the slab's ``dom.shape[0]``
+    planes with one neighbour plane on each side (global planes
+    ``z_base - 1 ..``; zero planes past the domain's ends), ``dom`` is the
+    slab's domain. Returns the slab's buckets; ``dropped`` is ``ext``'s
+    plus this slab's overflow (arrivals past P), so the shards' sum is the
+    whole domain's. The rolls wrap only into the two halo planes, which
+    are cut off."""
+    lz, sy, sx = dom.shape
+    P, tl = ext.ppc, dom.num_cells
+    if ext.ncells != tl + 2 * sy * sx:
+        raise ValueError(f"rebin_zpass_halo: ext must hold {lz + 2} planes")
+    ext_dom = Domain(size=(sx, sy, lz + 2))
+    outs, new_valid, skey = _rebin_merge(ext, ext_dom, 2, z_base - 1,
+                                         sz_global)
+    inner = slice(sy * sx, sy * sx + tl)
+    arrivals = (skey[:, inner] < 3).sum(dim=0, dtype=torch.int32)
+    over = torch.clamp(arrivals - P, min=0).sum(dtype=torch.int32)
+    return Buckets(*(o[:, inner].contiguous() for o in outs),
+                   valid=new_valid[:, inner].contiguous(),
+                   dropped=ext.dropped + over)
+
+
+def embed_z(a, dim: int, z0: int, sz: int):
+    """``a``, whose index 0 along ``dim`` is global z plane ``z0``, placed
+    in a zero tensor of ``sz`` planes along ``dim``; planes outside
+    ``[0, sz)`` are cut off."""
+    shape = list(a.shape)
+    n = shape[dim]
+    shape[dim] = sz
+    out = a.new_zeros(shape)
+    lo, hi = max(z0, 0), min(z0 + n, sz)
+    out.narrow(dim, lo, hi - lo).copy_(a.narrow(dim, lo - z0, hi - lo))
+    return out
+
+
+def embed_slab(bk: Buckets, dom: Domain, z0: int) -> Buckets:
+    """A slab's buckets (global planes ``z0 ..``) inside a bucket set of
+    the whole domain ``dom``, with empty slots elsewhere: the frame in
+    which the slab forms' plain versions run the whole-domain ones."""
+    sz, sy, sx = dom.shape
+    fields = {}
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "valid"):
+        a = getattr(bk, f)
+        e = embed_z(a.reshape(a.shape[0], -1, sy * sx), 1, z0, sz)
+        fields[f] = e.reshape(a.shape[0], sz * sy * sx)
+    return Buckets(**fields, dropped=bk.dropped)
 
 
 def rebin(bk: Buckets, dom: Domain) -> Buckets:
@@ -478,12 +568,14 @@ def flip_update_bucketed(bk: Buckets, vel, vel_old, flip_ratio: float,
     return dataclasses.replace(bk, vx=news[0], vy=news[1], vz=news[2])
 
 
-def counts_bucketed(bk: Buckets, dom: Domain):
-    """Per-cell particle counts (gridParticleIndex counter, flip.cpp:274)."""
-    return bk.valid.sum(dim=0, dtype=torch.int32).reshape(dom.shape)
+def counts_bucketed(bk, dom: Domain):
+    """Per-cell particle counts (gridParticleIndex counter, flip.cpp:274);
+    of a sharded bucket set, counted on each shard and joined on the
+    lead."""
+    return bk.cell_counts().reshape(dom.shape)
 
 
-def mark_fluid_cells_bucketed(bk: Buckets, flags, dom: Domain):
+def mark_fluid_cells_bucketed(bk, flags, dom: Domain):
     """markFluidCells (flip.cpp:166-190) from bucket counts."""
     cleared = torch.where(fl.is_fluid(flags),
                           (flags | fl.TypeEmpty) & ~fl.TypeFluid, flags)

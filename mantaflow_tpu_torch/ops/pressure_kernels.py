@@ -66,7 +66,8 @@ def _lib():
 def _grid_blocks(unit: bool, device: int) -> int:
     lib = _lib()
     n = ctypes.c_int(0)
-    err = lib.cg_solve_grid_blocks(int(unit), device, ctypes.byref(n))
+    with _build.caller_device():
+        err = lib.cg_solve_grid_blocks(int(unit), device, ctypes.byref(n))
     if err != 0:
         raise RuntimeError("cg_solve: no cooperative grid: "
                            + lib.cg_solve_error_string(err).decode())
@@ -100,13 +101,14 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
     off = (None, None, None) if unit_stencil else \
         (ai.data_ptr(), aj.data_ptr(), ak.data_ptr())
     sz, sy, sx = dom.shape
-    err = lib.cg_solve_launch(
-        rhs.data_ptr(), a0.data_ptr(), *off,
-        fluid.data_ptr() if unit_stencil else None,
-        p.data_ptr(), r.data_ptr(), s.data_ptr(), tmp.data_ptr(),
-        part.data_ptr(), nblk, iters.data_ptr(), rn.data_ptr(),
-        sx, sy, sz, float(accuracy), int(max_iter), int(unit_stencil), dev,
-        torch.cuda.current_stream(rhs.device).cuda_stream)
+    with _build.caller_device():
+        err = lib.cg_solve_launch(
+            rhs.data_ptr(), a0.data_ptr(), *off,
+            fluid.data_ptr() if unit_stencil else None,
+            p.data_ptr(), r.data_ptr(), s.data_ptr(), tmp.data_ptr(),
+            part.data_ptr(), nblk, iters.data_ptr(), rn.data_ptr(),
+            sx, sy, sz, float(accuracy), int(max_iter), int(unit_stencil),
+            dev, torch.cuda.current_stream(rhs.device).cuda_stream)
     if err != 0:
         raise RuntimeError("cg_solve launch failed: "
                            + lib.cg_solve_error_string(err).decode())

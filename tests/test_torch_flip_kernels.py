@@ -7,15 +7,20 @@ machine with a GPU (the JAX package is not needed there, hence no conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flip_kernels.py -m gpu
 
 Fixture: the 24^3 corner dam of tests/test_flip_bucket.py, with made-up
-particle velocities and a random grid velocity. Tolerances: the rebin is a
+particle velocities and a random grid velocity; for the z-slab forms of
+the sharded step, the 16^3 dam of tests/test_flip_sharded.py:145-162 with
+particles displaced across the slab faces. Tolerances: the rebin is a
 permutation and the extrapolation layer repeats the plain arithmetic in its
 order (the kernels are built without fused multiply-adds), so both are
 exact; the advection and both blends to abs 1e-6 (the JAX tests'
 Pallas-vs-XLA tolerance); the gather p2g sums in another order than the
 plain rolls, so p2g (fused or alone) to abs 1e-5 and the levelset (a min of
 the same expressions, for a window of one, two or three cells) to 1e-6.
-The unmarked cases run on the CPU: a wrapper refuses a tensor it cannot
-launch on rather than computing it on the CPU.
+The z-slab forms equal the one-domain kernels on the slab's cells bit for
+bit (the same device code reads the same corners and sources), and the
+z rebin of a slab (K9) its plain version. The unmarked cases run on the
+CPU: a wrapper refuses a tensor it cannot launch on rather than computing
+it on the CPU.
 """
 
 import dataclasses
@@ -28,6 +33,7 @@ from mantaflow_tpu_torch.core import flags as fl
 from mantaflow_tpu_torch.core import particles as cp
 from mantaflow_tpu_torch.core.domain import Domain
 from mantaflow_tpu_torch.core.shapes import Sphere
+from mantaflow_tpu_torch.kernels import _build
 from mantaflow_tpu_torch.models import flip
 from mantaflow_tpu_torch.ops import advect_bucket_kernels as advk
 from mantaflow_tpu_torch.ops import blend_kernels as blk
@@ -36,6 +42,7 @@ from mantaflow_tpu_torch.ops import flip_bucket as fb
 from mantaflow_tpu_torch.ops import levelset_kernels as lsk
 from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
 from mantaflow_tpu_torch.ops import rebin_kernels as rbk
+from mantaflow_tpu_torch.parallel import sharding as shd
 
 FIELDS = ("px", "py", "pz", "vx", "vy", "vz")
 BENCH = dict(gravity=(0.0, -0.003, 0.0), ghost_fluid=True, cg_accuracy=1e-3,
@@ -303,6 +310,192 @@ def test_flip_kernels_refuse_what_they_cannot_take(cuda):
         xk.extrap_layer([g], [g], dom, 1)
 
 
+def dam16_crossing(device):
+    """tests/test_flip_sharded.py:145-162: the 16^3 dam at PPC 12, every
+    particle displaced by up to 0.9 cells (seed 7), many across slab
+    faces; a few cells overflow."""
+    res = 16
+    dom = Domain(size=(res,) * 3)
+    bk = flip.make_dam_state_bucketed(
+        dom, flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True),
+        ppc=12, device=device).buckets
+    d = np.random.default_rng(7).uniform(
+        -0.9, 0.9, size=(3,) + tuple(bk.px.shape)).astype(np.float32)
+    return dom, dataclasses.replace(bk, **{
+        f: torch.clamp(getattr(bk, f) + torch.where(
+            bk.valid, torch.tensor(d[i], device=device), 0.0), 1.01,
+            res - 1.01) for i, f in enumerate(("px", "py", "pz"))})
+
+
+def _slabs(whole, n):
+    t = whole.shape[-1] // n
+    return [whole[..., i * t:(i + 1) * t] for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_rebin_zshard_kernel_matches_plain_bitwise(cuda, n):
+    dom, bk = dam16_crossing(cuda)
+    mesh = shd.make_zmesh(n, devices=[cuda])
+    lz = 16 // n
+    local = Domain(size=(16, 16, lz))
+    sbk = shd.shard_buckets(bk, mesh)
+    xy = []
+    for i, b in enumerate(sbk.slabs):
+        for axis in (0, 1):
+            b = rbk.rebin_pass(b, local, axis, z_base=i * lz)
+        xy.append(b)
+    for i, e in enumerate(rbk.halo_buckets(xy, 1, local)):
+        before = rbk.rebin_zpass_halo.launches
+        got = rbk.rebin_zpass_halo(e, local, i * lz, 16)
+        torch.cuda.synchronize()
+        assert rbk.rebin_zpass_halo.launches == before + 1
+        ref = fb.rebin_zpass_halo_plain(e, local, i * lz, 16)
+        assert int(got.dropped) == int(ref.dropped)
+        for f in FIELDS + ("valid",):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), (i, f)
+    got = shd.unshard_buckets(rbk.rebin_zshard(sbk, dom, mesh))
+    ref = fb.rebin(bk, dom)
+    assert int(got.dropped) == int(ref.dropped) > 0
+    for f in FIELDS + ("valid",):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("ring_only", [True, False])
+def test_advect_blend_slab_kernel_matches_plain(cuda, n, ring_only):
+    """The z-slab form against its plain version (abs 1e-6) and, on the
+    slab's cells, against the one-domain kernel (exact); one shard (zero
+    halos) included."""
+    dom, bk = dam16_crossing(cuda)
+    bk = rbk.rebin(bk, dom)
+    vel = torch.tensor(np.random.RandomState(7).randn(3, 16, 16, 16)
+                       .astype(np.float32) * 0.25, device=cuda)
+    flags = torch.where(Sphere(center=(11.2, 4.8, 8.0), radius=3.2)
+                        .inside_grid(dom, cuda), fl.TypeObstacle,
+                        fl.init_domain(dom, 0, device=cuda))
+    mesh = shd.make_zmesh(n, devices=[cuda])
+    lz = 16 // n
+    vh = shd.halo_z(shd.scatter_z(vel, mesh, 1), 2, 1)
+    oh = shd.halo_z(shd.scatter_z(vel * 0.85, mesh, 1), 2, 1)
+    obh = shd.halo_z(shd.scatter_z(fl.is_obstacle(flags), mesh, 0), 2, 0)
+    for mode in (0, 2):
+        dt, pend = torch.tensor(2.5, device=cuda), torch.tensor(True,
+                                                                device=cuda)
+        whole = advk.advect_blend(bk, flags, vel, vel * 0.85, dt, pend, 0.97,
+                                  dom, mode, ring_only)
+        for i, b in enumerate(shd.shard_buckets(bk, mesh).slabs):
+            args = (b, None if ring_only else obh[i], vh[i], oh[i], dt, pend,
+                    0.97, dom, i * lz, mode, ring_only)
+            before = advk.advect_blend_slab.launches
+            got = advk.advect_blend_slab(*args)
+            torch.cuda.synchronize()
+            assert advk.advect_blend_slab.launches == before + 1
+            ref = advk.advect_blend_slab_plain(*args)
+            assert _max_err(got, ref) < 1e-6
+            for f in FIELDS:
+                assert torch.equal(getattr(got, f),
+                                   _slabs(getattr(whole, f), n)[i]), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 8])
+def test_p2g_union_slab_kernel_matches_plain(cuda, n):
+    dom, bk = dam16_crossing(cuda)
+    bk = rbk.rebin(bk, dom)
+    mesh = shd.make_zmesh(n, devices=[cuda])
+    lz = 16 // n
+    whole = p2gk.p2g_union(bk, dom, 1.0)
+    before = p2gk.p2g_union_slab.launches
+    outs = p2gk.p2g_union_zshard(shd.shard_buckets(bk, mesh), dom, 1.0, mesh)
+    torch.cuda.synchronize()
+    assert p2gk.p2g_union_slab.launches == before + n
+    for got, ref in zip(outs, whole):
+        assert torch.equal(shd.gather_z(got, mesh, ref.dim() - 3), ref)
+    ext = rbk.halo_buckets(shd.shard_buckets(bk, mesh).slabs, 1,
+                           Domain(size=(16, 16, lz)))
+    for i, e in enumerate(ext):
+        got = p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
+        ref = p2gk.p2g_union_slab_plain(e, dom, i * lz, 1.0)
+        for g, r, tol in zip(got, ref, (1e-5, 1e-5, 1e-6)):
+            assert float((g - r).abs().max()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["bench", "no_ghost_fluid"])
+def test_zshard_steps_on_card_match_cpu(cuda, route):
+    """Three z-sharded steps over 8 shards on the card: equal to the card's
+    one-device steps, and to the same sharded steps on the CPU within the
+    card-vs-CPU tolerance."""
+    dom = Domain(size=(16,) * 3)
+    kw, _, ppc = ROUTES[route]
+    p = flip.FlipParams(**kw)
+    runs = {}
+    for d, sharded in ((cuda, True), (cuda, False), ("cpu", True)):
+        st = flip.make_dam_state_bucketed(dom, p, ppc=ppc, device=d)
+        mesh = shd.make_zmesh(8, devices=[d]) if sharded else None
+        if sharded:
+            st = shd.shard_flip_bucket_state(st, mesh)
+        for _ in range(3):
+            st = flip.flip_step_bucketed(st, dom, p, zshard=mesh)
+        runs[(str(d), sharded)] = flip.state_to_numpy(st)
+    g, one, c = (runs[("cuda", True)], runs[("cuda", False)],
+                 runs[("cpu", True)])
+    for k in ("flags", "vel", "phi", "pressure"):
+        np.testing.assert_array_equal(g[k], one[k], err_msg=k)
+    for k in FIELDS + ("valid", "dropped"):
+        np.testing.assert_array_equal(g["buckets"][k], one["buckets"][k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(g["flags"], c["flags"])
+    assert g["buckets"]["valid"].sum() == c["buckets"]["valid"].sum()
+    assert int(g["buckets"]["dropped"]) == 0
+    for k in ("vel", "phi", "pressure"):
+        assert float(np.abs(g[k] - c[k]).max()) < 2e-4, k
+
+
+@pytest.mark.gpu
+def test_zshard_steps_across_cards_match_one_card(cuda):
+    """Four shards, one on each visible card (round robin), step as four
+    shards on one card do, and the caller's current device is left as it
+    was."""
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if len(cards) < 2:
+        pytest.skip("needs two CUDA devices")
+    dom = Domain(size=(16,) * 3)
+    p = flip.FlipParams(**BENCH)
+    caller = torch.cuda.current_device()
+    runs = []
+    for devs in ([cards[0]], cards):
+        mesh = shd.make_zmesh(4, devices=devs)
+        st = shd.shard_flip_bucket_state(flip.make_dam_state_bucketed(
+            dom, p, ppc=10, device=cards[0]), mesh)
+        assert [s.valid.device for s in st.buckets.slabs] == [
+            mesh.device(i) for i in range(4)]
+        for _ in range(3):
+            st = flip.flip_step_bucketed(st, dom, p, zshard=mesh)
+        assert torch.cuda.current_device() == caller
+        runs.append(flip.state_to_numpy(st))
+    one, many = runs
+    for k in ("flags", "vel", "phi", "pressure"):
+        np.testing.assert_array_equal(many[k], one[k], err_msg=k)
+    for k in FIELDS + ("valid", "dropped"):
+        np.testing.assert_array_equal(many["buckets"][k], one["buckets"][k],
+                                      err_msg=k)
+
+
+def test_launch_gives_the_caller_its_device_back(monkeypatch):
+    """An export selects its tensors' card with cudaSetDevice; the launch
+    then restores the caller's current device."""
+    current = {"dev": 1}
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current["dev"])
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: current.update(dev=d))
+    with _build.caller_device():
+        current["dev"] = 3
+    assert current["dev"] == 1
+
+
 def _meta_buckets(dom):
     shape = (4, dom.num_cells)
     return fb.Buckets(*(torch.empty(shape, device="meta") for _ in FIELDS),
@@ -314,7 +507,9 @@ def _meta_buckets(dom):
 
 @pytest.mark.parametrize("which", ["extrap_layer", "rebin_pass",
                                    "advect_blend", "p2g_union", "p2g_mac",
-                                   "union_levelset", "flip_update"])
+                                   "union_levelset", "flip_update",
+                                   "rebin_zpass_halo", "advect_blend_slab",
+                                   "p2g_union_slab"])
 def test_flip_wrappers_raise_off_cpu_and_cuda(which):
     """A tensor on another device is refused, not computed on the CPU."""
     dom = Domain(size=(4, 4, 4))
@@ -330,6 +525,10 @@ def test_flip_wrappers_raise_off_cpu_and_cuda(which):
         "p2g_mac": lambda: p2gk.p2g_mac(bk, dom),
         "union_levelset": lambda: lsk.union_levelset(bk, dom, 2.5),
         "flip_update": lambda: blk.flip_update(bk, vel, vel, 0.97, dom),
+        "rebin_zpass_halo": lambda: rbk.rebin_zpass_halo(bk, dom, 0, 4),
+        "advect_blend_slab": lambda: advk.advect_blend_slab(
+            bk, g, vel, vel, 0.5, True, 0.97, dom, 0),
+        "p2g_union_slab": lambda: p2gk.p2g_union_slab(bk, dom, 0),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[which]()

@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of the port's 128^3 FLIP dam steps goes, on one GPU.
 
-    python3 tools/profile_torch_flip.py [--path bench|flip01|obstacle]
-                                        [--res 128] [--develop 40]
-                                        [--steps 10] [--chunks 3]
+    python3 tools/profile_torch_flip.py [--path bench|flip01|obstacle|zshard]
+                                        [--shards 4] [--res 128]
+                                        [--develop 40] [--steps 10]
+                                        [--chunks 3]
 
 Builds one of chip_smoke.py's FLIP dams at PPC 10: ``bench`` (bench.py:84-86,
 ghost fluid, the fused transfer and levelset), ``flip01`` (the same dam
 without ghost fluid, scenes/flip01_simple.py: the transfer alone) or
 ``obstacle`` (a sphere obstacle and radius_factor 2.5, a levelset window of
-3 cells: the transfer, then the levelset kernel). It runs 1 warm step and
+3 cells: the transfer, then the levelset kernel). ``zshard`` is the bench
+dam developed on one device, then cut into ``--shards`` z-slabs over every
+visible card (``parallel/sharding.py``) and stepped with
+``flip_step_bucketed(..., zshard=mesh)``: per shard the z-slab forms of the
+advection and the transfer, the x/y rebin passes and the z rebin over the
+halo-extended slab, the grid stages on the lead; its halo copies
+(``halo_z``, ``scatter_z``, ``gather_z``) of one step are recorded and
+timed on their own (CUDA events over 10 replays), and it has no runner
+chunks (the runner takes no mesh). It runs 1 warm step and
 ``--develop`` more through ``flip_run_bucketed_auto`` in chunks of
 ``--steps`` (the PPC escalation happens there), then, when developing, the
 bench's settle loop (bench.py:147-153: chunks until one ends at an
@@ -38,8 +47,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 # kernel name in the trace -> group
 GROUPS = {"advect_bucket_kernel": "advect_bucket",
+          "advect_bucket_zshard_kernel": "advect_bucket_zshard",
           "rebin_pass_kernel": "rebin",
+          "rebin_zshard_kernel": "rebin_zshard",
           "p2g_levelset_kernel": "p2g_levelset",
+          "p2g_levelset_zshard_kernel": "p2g_levelset_zshard",
           "p2g_mac_kernel": "p2g_mac",
           "union_levelset_kernel": "union_levelset",
           "extrap_layer_kernel": "extrap_layer",
@@ -48,8 +60,9 @@ GROUPS = {"advect_bucket_kernel": "advect_bucket",
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("bench", "flip01", "obstacle"),
-                    default="bench")
+    ap.add_argument("--path", choices=("bench", "flip01", "obstacle",
+                                       "zshard"), default="bench")
+    ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--develop", type=int, default=40)
     ap.add_argument("--steps", type=int, default=10)
@@ -64,6 +77,7 @@ def main():
     from mantaflow_tpu_torch.core.domain import Domain
     from mantaflow_tpu_torch.core.shapes import Sphere
     from mantaflow_tpu_torch.models import flip
+    from mantaflow_tpu_torch.parallel import sharding as shd
 
     res = args.res
     dom = Domain(size=(res, res, res), dim=3)
@@ -76,7 +90,7 @@ def main():
                           radius=res * 0.15)
     else:
         params = flip.FlipParams(gravity=(0.0, -0.003, 0.0),
-                                 ghost_fluid=args.path == "bench",
+                                 ghost_fluid=args.path != "flip01",
                                  cg_accuracy=1e-3, ring_only_obstacles=True)
     state = flip.make_dam_state_bucketed(dom, params, ppc=10,
                                          obstacle=obstacle)
@@ -91,6 +105,23 @@ def main():
                                                 check_every=args.steps)
             if state.buckets.ppc == ppc_pre:
                 break
+    mesh = None
+    copies = {}
+    if args.path == "zshard":
+        mesh = shd.make_zmesh(args.shards)
+        state = shd.shard_flip_bucket_state(state, mesh)
+        state = flip.flip_step_bucketed(state, dom, params, zshard=mesh)
+        # the halo copies of one step, recorded, then replayed alone
+        for name in ("halo_z", "scatter_z", "gather_z"):
+            orig = getattr(shd, name)
+            copies[name] = (orig, [])
+            setattr(shd, name, lambda *a, _o=orig, _c=copies[name][1]:
+                    (_c.append(a), _o(*a))[1])
+        try:
+            flip.flip_step_bucketed(state, dom, params, zshard=mesh)
+        finally:
+            for name, (orig, _) in copies.items():
+                setattr(shd, name, orig)
     steps_before = int(state.ts.count)
     dropped_before = int(state.buckets.dropped)
 
@@ -100,7 +131,7 @@ def main():
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
         for _ in range(args.steps):
-            state = flip.flip_step_bucketed(state, dom, params)
+            state = flip.flip_step_bucketed(state, dom, params, zshard=mesh)
             iters += state.cg_iters
         t1.record()
         torch.cuda.synchronize()
@@ -115,8 +146,21 @@ def main():
         sys.exit(f"profile_torch_flip: {dropped} particles dropped at PPC "
                  f"{state.buckets.ppc} in the timed windows")
     ppc, particles = state.buckets.ppc, int(state.buckets.count())
+    copies_ms = {}
+    for name, (fn, calls) in copies.items():
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(10):
+            for a in calls:
+                fn(*a)
+        t1.record()
+        torch.cuda.synchronize()
+        copies_ms[name] = {"calls_per_step": len(calls),
+                           "ms_per_step": t0.elapsed_time(t1) / 10}
     chunk_ms = []
-    for _ in range(args.chunks):
+    for _ in range(args.chunks if mesh is None else 0):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -147,6 +191,9 @@ def main():
     print(json.dumps({
         "card": card, "path": args.path, "res": res, "particles": particles,
         "ppc": ppc, "steps_before": steps_before,
+        "shards": mesh.n if mesh else None,
+        "devices": [str(d) for d in mesh.devices] if mesh else None,
+        "copies": copies_ms,
         "steps": args.steps,
         "wall_ms_per_step": wall_ms,
         "cg_iters_per_step": iters,
