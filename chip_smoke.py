@@ -13,8 +13,10 @@ Phases (any failed check raises, and the script exits non-zero):
    card: a 12x16x24 fixture with displacements beyond the window, and the
    eight passes of one 128^3 bench step, in all three variants;
 4. hold the CG kernel against the plain CG on the card: the 128^3 smoke
-   system after a few steps in full and unit mode, and a 128^3 system with
-   an obstacle sphere and an empty (Dirichlet) slab;
+   system after a few steps in full and unit mode, a 128^3 system with an
+   obstacle sphere and an empty (Dirichlet) slab, the same system at 192^3
+   (more cells than the kernel's blocks keep on chip); two solves of the
+   smoke and the 192^3 system bitwise equal;
 5. the port on the card against the port on the CPU, 3 steps at 32^3;
 6. the FLIP main path: the bench's FLIP dam at 128^3 (bench.py:60-175;
    ~3.8M particles, PPC 10), 1 warm step, then through
@@ -41,7 +43,8 @@ Phases (any failed check raises, and the script exits non-zero):
 11. hold the transfer, levelset (windows of 1, 2 and 3 cells) and blend
    kernels, and the advection with the obstacle, against their plain
    versions on the card, on the inputs of one cold and one developed 128^3
-   step of paths A and B and on the 24^3 corner dam; then each kernel's
+   step of paths A and B and on the 24^3 corner dam (the levelset also on
+   made-up buckets over 19x23x29 at 1, 24 and 40 slots); then each kernel's
    time on the developed step's inputs;
 12. paths A and B on the card against the port on the CPU, 3 steps at 24^3;
 13. the z-sharded path: phase 6's developed state cut into 4 z-slabs over
@@ -67,7 +70,10 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 RES = 128
+CG_BIG_RES = 192  # a CG system larger than the kernel keeps on chip
 K = 3  # window: the bench's CFL bound
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -97,6 +103,29 @@ def bench_state(smoke, Domain, Sphere, res, device):
     src = Sphere(center=(res / 2.0, res * 0.1, res / 2.0), radius=res * 0.14)
     return dom, smoke.make_smoke_state(dom, bench_params(smoke),
                                        source_shape=src, device=device)
+
+
+def synthetic_buckets(dom, ppc, rng, device):
+    """Gap-free buckets with 0..ppc particles in half the cells (the rest
+    empty), at random positions in the cell; free slots at the centre."""
+    import torch
+
+    from mantaflow_tpu_torch.ops import flip_bucket as fb
+    sz, sy, sx = dom.shape
+    T = sx * sy * sz
+    n = rng.integers(0, ppc + 1, T)
+    n[rng.random(T) < 0.5] = 0
+    valid = np.arange(ppc)[:, None] < n[None, :]
+    flat = np.arange(T)
+    centre = (flat % sx + 0.5, (flat // sx) % sy + 0.5,
+              flat // (sx * sy) + 0.5)
+    pos = [torch.tensor(np.where(valid, c + rng.uniform(-0.5, 0.5, (ppc, T)),
+                                 c).astype(np.float32), device=device)
+           for c in centre]
+    zero = torch.zeros((ppc, T), dtype=torch.float32, device=device)
+    return fb.Buckets(*pos, zero, zero, zero,
+                      torch.tensor(valid, device=device),
+                      torch.zeros((), dtype=torch.int32, device=device))
 
 
 def require(cond, what):
@@ -179,7 +208,6 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
-    import numpy as np
 
     from mantaflow_tpu_torch.core import flags as fl
     from mantaflow_tpu_torch.core import mac as macops
@@ -371,18 +399,51 @@ def main():
     max_iter = int(params.cg_max_iter_fac * RES)
     k2_err = cg_check(rhs, stencil, fluid, params.cg_accuracy, max_iter, dom)
 
-    ob_flags = fl.fill_grid(fl.init_domain(dom, 1, device=dev))
-    sphere = ((xx - 0.3 * RES) ** 2 + (yy - 0.2 * RES) ** 2
-              + (zz - 0.5 * RES) ** 2).sqrt() < 0.12 * RES
-    ob_flags = torch.where(sphere, fl.TypeObstacle, ob_flags)
-    slab = (yy > 0.8 * RES) & fl.is_fluid(ob_flags)
-    ob_flags = torch.where(slab, fl.TypeEmpty, ob_flags)
-    g = torch.Generator(device="cpu").manual_seed(7)
-    ob_vel = (torch.randn((3,) + dom.shape, generator=g) * 0.1).to(dev)
-    k2_err = max(k2_err, cg_check(
-        prs.make_rhs(ob_flags, ob_vel, dom),
-        prs.make_laplace_stencil(ob_flags, dom), fl.is_fluid(ob_flags),
-        1e-4, max_iter * 12, dom))
+    def obstacle_slab_system(n):
+        """A walled n^3 system with an obstacle sphere and an empty slab."""
+        dom_ = Domain(size=(n,) * 3)
+        x_, y_, z_ = _cell_centers(dom_, dev)
+        ob_flags = fl.fill_grid(fl.init_domain(dom_, 1, device=dev))
+        sphere = ((x_ - 0.3 * n) ** 2 + (y_ - 0.2 * n) ** 2
+                  + (z_ - 0.5 * n) ** 2).sqrt() < 0.12 * n
+        ob_flags = torch.where(sphere, fl.TypeObstacle, ob_flags)
+        slab = (y_ > 0.8 * n) & fl.is_fluid(ob_flags)
+        ob_flags = torch.where(slab, fl.TypeEmpty, ob_flags)
+        g = torch.Generator(device="cpu").manual_seed(7)
+        ob_vel = (torch.randn((3,) + dom_.shape, generator=g) * 0.1).to(dev)
+        return (prs.make_rhs(ob_flags, ob_vel, dom_),
+                prs.make_laplace_stencil(ob_flags, dom_),
+                fl.is_fluid(ob_flags), dom_)
+
+    rhs_o, stencil_o, fluid_o, _ = obstacle_slab_system(RES)
+    k2_err = max(k2_err, cg_check(rhs_o, stencil_o, fluid_o, 1e-4,
+                                  max_iter * 12, dom))
+    del rhs_o, stencil_o, fluid_o
+    # more cells than the kernel keeps on chip: its blocks' further cells
+    # go through the device-memory scratch (ops/pressure_kernels.cg_plan)
+    big = obstacle_slab_system(CG_BIG_RES)
+    big_plan = prk.cg_plan(big[3].shape, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    require(big_plan.overflow > 0,
+            f"{CG_BIG_RES}^3 fits on chip: {big_plan}")
+    k2_err = max(k2_err, cg_check(*big[:3], 1e-4,
+                                  int(1.5 * CG_BIG_RES) * 12, big[3]))
+    # a solve is deterministic: every block reduces in the same fixed order
+    for sys_, acc_, mi_ in (((rhs, stencil, fluid, dom), params.cg_accuracy,
+                             max_iter),
+                            (big, 1e-4, int(1.5 * CG_BIG_RES) * 12)):
+        for unit in (False, True):
+            a_, b_ = (prk.cg_solve(sys_[0], sys_[1], sys_[3], acc_, mi_,
+                                   fluid=sys_[2], unit_stencil=unit)
+                      for _ in range(2))
+            require(all(torch.equal(u, v) for u, v in zip(a_, b_)),
+                    f"cg_solve {sys_[3].shape} unit={unit}: two solves of "
+                    "the same system differ")
+    print(f"cg_solve {CG_BIG_RES}^3: {big_plan.overflow} of "
+          f"{big_plan.onchip + big_plan.overflow} cells per block off chip; "
+          "two solves bitwise equal (128^3 smoke, "
+          f"{CG_BIG_RES}^3, both modes)", flush=True)
+    del big
 
     cg_iters = {}
 
@@ -400,10 +461,15 @@ def main():
     k2_it = int(cg_iters["k"])
     k2_bound_bytes = 6 * 4 * n / HBM_BYTES_PER_S * 1e3  # rhs, A0-Ak in; p out
     k2_bound_ops = k2_it * 24 * n / FP32_OPS_PER_S * 1e3  # 24 flops/cell/it
-    # what one iteration of this three-phase design streams when no field
-    # stays in L2: stencil (s, A0-Ak in, tmp out), update (p, s, r, tmp in;
-    # p, r out), direction (r, s in; s out): 15 fields
-    k2_iter_stream_ms = 15 * 4 * n / HBM_BYTES_PER_S * 1e3
+    # this design's floor per iteration: r, s and tmp stay in the blocks'
+    # shared memory, p in registers; s (read by the neighbouring blocks)
+    # and A0-Ak are read once and s written once, 24 bytes a cell, between
+    # the SMs and the L2. They cross device memory only as far as the L2
+    # (50 MB) fails to hold the 20 bytes a cell read (42 MB at 128^3): then
+    # at most the 24 bytes, at the device memory's rate
+    k2_iter_floor = {"l2_bytes": 24 * n, "dram_bytes_if_l2_holds": 0,
+                     "dram_bytes_if_l2_misses": 24 * n,
+                     "dram_ms_if_l2_misses": 24 * n / HBM_BYTES_PER_S * 1e3}
 
     # -- 5. port on the card vs port on the CPU ----------------------------
     sdom, s_gpu = bench_state(smoke, Domain, Sphere, 32, dev)
@@ -777,6 +843,16 @@ def main():
         time_kernel(kind, kname, dev_calls[kind], getattr(*sites[kind]),
                     plain_of[kind], fbytes[kind], fops[kind],
                     f"P {P}, {live} live")
+    # the developed bench dam's full-mode (ghost-fluid) solve: rhs and A0-Ak
+    # in, p out, against its iterations x 24 flops per cell
+    (cg_args, cg_kw), = dev_calls["cg_solve"]
+    bench_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+    time_kernel("cg_solve_bench", "cg_kernel", dev_calls["cg_solve"],
+                prk.cg_solve, prs.cg_plain, 6 * 4 * T, bench_it * 24 * T,
+                f"bench dam developed solve, {bench_it} it")
+    fk["cg_solve_bench"]["iterations"] = bench_it
+    fk["cg_solve_bench"]["ms_per_iteration"] = (
+        fk["cg_solve_bench"]["ms"] / max(bench_it, 1))
 
     # -- 8. FLIP port on the card vs the port on the CPU -------------------
     sdom = Domain(size=(24,) * 3)
@@ -897,6 +973,16 @@ def main():
         errs["union_levelset"] = max(
             errs["union_levelset"],
             check_call("union_levelset", (cbk, cdom, rf), {}))
+    # made-up gap-free buckets over 19x23x29, which no brick of the levelset
+    # kernel divides: 1 slot, 24, and 40 (five staged chunks of 8)
+    odom = Domain(size=(19, 23, 29))
+    for ppc in (1, 24, 40):
+        obk_ = synthetic_buckets(odom, ppc, np.random.default_rng(ppc), dev)
+        for rf in (1.0, 1.5, 2.5):
+            errs["union_levelset"] = max(
+                errs["union_levelset"],
+                check_call("union_levelset", (obk_, odom, rf), {}))
+    del obk_
     errs["flip_blend"] = max(errs["flip_blend"], check_call(
         "flip_blend", (cbk, cvel, cvel * 0.85, fparams.flip_ratio, cdom),
         {}))
@@ -1196,7 +1282,8 @@ def main():
                               **{k: v["cg_solve"]
                                  for k, v in flip_paths.items()}},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
-         "iteration_stream_bound_ms": k2_iter_stream_ms},
+         "iteration_floor": k2_iter_floor,
+         "bench_dam_solve": fk["cg_solve_bench"]},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function

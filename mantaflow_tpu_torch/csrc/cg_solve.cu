@@ -3,12 +3,38 @@
 // kernel behind ops/pressure_kernels.py:cg_solve.
 //
 // Replaces the TPU kernel mantaflow_tpu/ops/pressure_pallas.py:_cg_kernel,
-// which keeps the whole solve resident in VMEM. Here the fields (10 of
-// 8.4 MB at 128^3 in full mode) do not fit the 50 MB L2, so every iteration
-// streams them from device memory: the kernel is bound by bytes per
-// iteration. What it keeps off the host is the loop itself: one launch runs
-// every iteration, with grid.sync() between the phases, so there is no host
-// round trip per iteration.
+// which keeps the whole solve resident in VMEM. An H100 has no such store:
+// 128^3 in full mode is ten fields of 8.4 MB, more than the 50 MB L2, and a
+// grid-stride design that sweeps them three times per iteration is bound by
+// device memory. This kernel keeps on chip what no other block reads:
+//
+// - Persistent grid, one block per SM. Block b owns the contiguous (z, y)
+//   rows [nrows b / nb, nrows (b + 1) / nb) for the whole solve; its thread
+//   t takes the block's local cells t, t + kThreads, ... , so every phase
+//   sees the same thread-to-cell map, and x, y, z come from counters
+//   stepped by kThreads (no division in the loop).
+// - r, s and tmp of the first `onchip` local cells live in the block's
+//   dynamic shared memory (12 bytes a cell: at 128^3 and 132 SMs a block
+//   owns at most 125 rows = 16,000 cells, 192,000 bytes); p lives in
+//   registers (kRegCells per thread), touched only by the update phase.
+//   The stencil reads a neighbour's s from shared memory when the block
+//   owns it (x +- 1, and y +- 1 inside the block's rows).
+// - Per iteration only s crosses device memory between blocks: the other
+//   blocks' neighbours (z +- 1, the rows at the block's ends) are read from
+//   it, and the direction update writes it once; A0-Ak are read once. That
+//   is s, A0, Ai, Aj, Ak in (42 MB at 128^3, which the L2 can hold) and s
+//   out.
+// - Cells beyond a block's on-chip capacity (kThreads * kRegCells, e.g. at
+//   192^3) keep r, p and tmp in the device-memory scratch the wrapper
+//   allocates, in the same kernel: one code path, slower there.
+// - Reductions: one partial per block; sum(r^2) and max|r| reduced
+//   together. Every block reduces the partials in the same fixed order, so
+//   all blocks see bit-identical scalars, leave the loop together, and a
+//   solve is deterministic run to run.
+//
+// What bounds it then: the stencil phase's reads through the L2 (A0-Ak and
+// the neighbouring blocks' s) and the three grid barriers per iteration,
+// with their reductions (PERF.md).
 //
 // Per iteration (same update order and exit test as _cg_kernel):
 //   A: tmp = A s, per-block partial of dot(tmp, s)            grid.sync
@@ -16,9 +42,6 @@
 //      r -= alpha tmp, per-block partials of sum(r^2), max|r| grid.sync
 //   C: done = max|r| < accuracy; beta = done ? 0 : sigma'/sigma;
 //      s = r + beta s                                          grid.sync
-// Every block reduces the per-block partials itself, in the same fixed
-// order, so all blocks see bit-identical scalars (and leave the loop
-// together) and the result is deterministic run to run.
 //
 // Stencil modes (pressure_pallas.py:116-137): full mode reads A0/Ai/Aj/Ak;
 // unit mode reads only A0 and rebuilds the off-diagonals from the fluid mask
@@ -35,66 +58,102 @@ namespace cgr = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRegCells = 16;  // cells per thread with p in registers
+constexpr int kOnChip = kThreads * kRegCells;  // on-chip cells of a block
 
 struct CgArgs {
-  const float* rhs;
-  const float* a0;
-  const float* ai;
-  const float* aj;
-  const float* ak;
-  const unsigned char* fluid;
+  const float* __restrict__ rhs;
+  const float* __restrict__ a0;
+  const float* __restrict__ ai;
+  const float* __restrict__ aj;
+  const float* __restrict__ ak;
+  const unsigned char* __restrict__ fluid;
   float* p;
-  float* r;
-  float* s;
-  float* tmp;
+  float* r;    // scratch of the off-chip cells
+  float* s;    // read across blocks: device memory (and shared on chip)
+  float* tmp;  // scratch of the off-chip cells
   double* part;  // 3 * gridDim.x: dot, sum(r^2), max|r|
   int* iters;
   float* resnorm;
   int sx, sy, sz;
+  int onchip;  // local cells per block kept on chip (<= kOnChip)
   float accuracy;
   int max_iter;
 };
 
-__device__ __forceinline__ double block_sum(double v, double* sh) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+// Block-wide sum and max of (s, m), in a fixed order; every thread gets
+// the totals. sh holds 2 * kWarps + 2 doubles.
+__device__ __forceinline__ void block_sum_max(double& s, double& m,
+                                              double* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, o);
+    m = fmax(m, __shfl_down_sync(0xffffffffu, m, o));
+  }
+  if (lane == 0) { sh[warp] = s; sh[kWarps + warp] = m; }
   __syncthreads();
-  if (lane == 0) sh[warp] = v;
+  if (warp == 0) {
+    s = lane < kWarps ? sh[lane] : 0.0;
+    m = lane < kWarps ? sh[kWarps + lane] : 0.0;
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, o);
+      m = fmax(m, __shfl_down_sync(0xffffffffu, m, o));
+    }
+    if (lane == 0) { sh[2 * kWarps] = s; sh[2 * kWarps + 1] = m; }
+  }
   __syncthreads();
-  double t = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) t += sh[w];
-  return t;  // valid in thread 0
+  s = sh[2 * kWarps];
+  m = sh[2 * kWarps + 1];
 }
 
-__device__ __forceinline__ double block_max(double v, double* sh) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmax(v, __shfl_down_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  double t = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) t = fmax(t, sh[w]);
+// The totals over the blocks' partials, the same in every block.
+__device__ __forceinline__ void grid_sum_max(const double* psum,
+                                             const double* pmax, int nb,
+                                             double& s, double& m,
+                                             double* sh) {
+  s = 0.0;
+  m = 0.0;
+  for (int b = threadIdx.x; b < nb; b += kThreads) {
+    s += psum[b];
+    if (pmax) m = fmax(m, pmax[b]);
+  }
+  block_sum_max(s, m, sh);
+}
+
+// t, hidden from the compiler: each phase computes its cells' addresses
+// anew rather than keeping kRegCells sets of them live across the solve
+// (which spills: with 196 KB of shared memory the L1 is small, and spills
+// go to the L2)
+__device__ __forceinline__ int opaque(int t) {
+  asm volatile("" : "+r"(t));
   return t;
 }
 
-// Reduce the per-block partials part[0..nb) the same way in every block;
-// the result is broadcast to all threads of the block.
-template <bool kMax>
-__device__ __forceinline__ double grid_total(const double* part, int nb,
-                                             double* sh, double* bcast) {
-  double v = 0.0;
-  for (int b = threadIdx.x; b < nb; b += kThreads)
-    v = kMax ? fmax(v, part[b]) : v + part[b];
-  v = kMax ? block_max(v, sh) : block_sum(v, sh);
-  if (threadIdx.x == 0) *bcast = v;
-  __syncthreads();
-  return *bcast;
-}
+// The position (x, y, z) of a block's local cell, stepped by kThreads cells.
+struct Walk {
+  int x, y, z, stx, sty, stz;
+  __device__ Walk(long long row0, int t, int sx, int sy) {
+    const long long row = row0 + t / sx;
+    x = t % sx;
+    y = static_cast<int>(row % sy);
+    z = static_cast<int>(row / sy);
+    const int strow = kThreads / sx;
+    stx = kThreads % sx;
+    sty = strow % sy;
+    stz = strow / sy;
+  }
+  __device__ __forceinline__ void step(int sx, int sy) {
+    x += stx;
+    const int cx = x >= sx;
+    x -= cx ? sx : 0;
+    y += sty + cx;
+    const int cy = y >= sy;
+    y -= cy ? sy : 0;
+    z += stz + cy;
+  }
+};
 
 // fluid & inside the one-cell ring (inter2d * zin_mask of _cg_kernel)
 __device__ __forceinline__ bool unit_row(const CgArgs& a, int x, int y, int z,
@@ -103,13 +162,21 @@ __device__ __forceinline__ bool unit_row(const CgArgs& a, int x, int y, int z,
          z <= a.sz - 2 && a.fluid[i] != 0;
 }
 
+// s at local cell L + off of a block (global cell i + off): from shared
+// memory when the block keeps it on chip, else from device memory
+__device__ __forceinline__ float s_at(const CgArgs& a, const float* ss,
+                                      int nchip, int L, long long i,
+                                      int off) {
+  const int Ln = L + off;
+  return Ln >= 0 && Ln < nchip ? ss[Ln] : a.s[i + off];
+}
+
+// (A s)[i] of local cell L (on chip when L < nchip)
 template <bool kUnit>
-__device__ __forceinline__ float apply_row(const CgArgs& a, long long i) {
-  const long long sxy = static_cast<long long>(a.sx) * a.sy;
-  const int x = static_cast<int>(i % a.sx);
-  const int y = static_cast<int>((i / a.sx) % a.sy);
-  const int z = static_cast<int>(i / sxy);
-  const float* s = a.s;
+__device__ __forceinline__ float apply_cell(const CgArgs& a, const float* ss,
+                                            int nchip, int L, long long i,
+                                            int x, int y, int z) {
+  const int sxy = a.sx * a.sy;
   float ci_p = 0.f, ci_m = 0.f, cj_p = 0.f, cj_m = 0.f, ck_p = 0.f, ck_m = 0.f;
   if (kUnit) {
     const bool mc = unit_row(a, x, y, z, i);
@@ -128,32 +195,56 @@ __device__ __forceinline__ float apply_row(const CgArgs& a, long long i) {
     if (y > 0) cj_m = a.aj[i - a.sx];
     if (z > 0) ck_m = a.ak[i - sxy];
   }
-  const float s_xp = x + 1 < a.sx ? s[i + 1] : 0.f;
-  const float s_xm = x > 0 ? s[i - 1] : 0.f;
-  const float s_yp = y + 1 < a.sy ? s[i + a.sx] : 0.f;
-  const float s_ym = y > 0 ? s[i - a.sx] : 0.f;
-  const float s_zp = z + 1 < a.sz ? s[i + sxy] : 0.f;
-  const float s_zm = z > 0 ? s[i - sxy] : 0.f;
-  return a.a0[i] * s[i] + ci_p * s_xp + ci_m * s_xm + cj_p * s_yp +
+  const float s_c = s_at(a, ss, nchip, L, i, 0);
+  const float s_xp = x + 1 < a.sx ? s_at(a, ss, nchip, L, i, 1) : 0.f;
+  const float s_xm = x > 0 ? s_at(a, ss, nchip, L, i, -1) : 0.f;
+  const float s_yp = y + 1 < a.sy ? s_at(a, ss, nchip, L, i, a.sx) : 0.f;
+  const float s_ym = y > 0 ? s_at(a, ss, nchip, L, i, -a.sx) : 0.f;
+  const float s_zp = z + 1 < a.sz ? s_at(a, ss, nchip, L, i, sxy) : 0.f;
+  const float s_zm = z > 0 ? s_at(a, ss, nchip, L, i, -sxy) : 0.f;
+  return a.a0[i] * s_c + ci_p * s_xp + ci_m * s_xm + cj_p * s_yp +
          cj_m * s_ym + ck_p * s_zp + ck_m * s_zm;
 }
 
 template <bool kUnit>
-__global__ void __launch_bounds__(kThreads) cg_kernel(CgArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) cg_kernel(CgArgs a) {
   cgr::grid_group grid = cgr::this_grid();
-  __shared__ double sh[kWarps];
-  __shared__ double bcast;
-  const long long n = static_cast<long long>(a.sx) * a.sy * a.sz;
-  const long long start = static_cast<long long>(blockIdx.x) * kThreads
-                          + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const int nb = gridDim.x;
+  extern __shared__ float onchip[];  // r | s | tmp, a.onchip cells each
+  __shared__ double sh[2 * kWarps + 2];
+  const int nb = gridDim.x, t = threadIdx.x;
+  const long long nrows = static_cast<long long>(a.sy) * a.sz;
+  const long long row0 = nrows * blockIdx.x / nb;
+  const long long row1 = nrows * (blockIdx.x + 1) / nb;
+  const long long base = row0 * a.sx;  // first cell of the block
+  const int nloc = static_cast<int>((row1 - row0) * a.sx);
+  const int nchip = min(nloc, a.onchip);
+  float* sr = onchip;
+  float* ss = onchip + a.onchip;
+  float* st = onchip + 2 * a.onchip;
   double* part_dot = a.part;
   double* part_sum = a.part + nb;
   double* part_max = a.part + 2 * nb;
 
+  // p of the on-chip cells: only the update phase touches it, whose loop
+  // is unrolled (the stencil's loop is not, and keeps few registers)
+  float p_c[kRegCells];
+
   double ls = 0.0, lm = 0.0;
-  for (long long i = start; i < n; i += stride) {
+#pragma unroll
+  for (int k = 0; k < kRegCells; ++k) {
+    const int L = k * kThreads + t;
+    p_c[k] = 0.f;
+    if (L < nchip) {
+      const float v = a.rhs[base + L];
+      sr[L] = v;
+      ss[L] = v;
+      a.s[base + L] = v;
+      ls += static_cast<double>(v) * v;
+      lm = fmax(lm, static_cast<double>(fabsf(v)));
+    }
+  }
+  for (int L = kOnChip + t; L < nloc; L += kThreads) {
+    const long long i = base + L;
     const float v = a.rhs[i];
     a.r[i] = v;
     a.s[i] = v;
@@ -161,102 +252,140 @@ __global__ void __launch_bounds__(kThreads) cg_kernel(CgArgs a) {
     ls += static_cast<double>(v) * v;
     lm = fmax(lm, static_cast<double>(fabsf(v)));
   }
-  ls = block_sum(ls, sh);
-  lm = block_max(lm, sh);
-  if (threadIdx.x == 0) { part_sum[blockIdx.x] = ls; part_max[blockIdx.x] = lm; }
+  block_sum_max(ls, lm, sh);
+  if (t == 0) { part_sum[blockIdx.x] = ls; part_max[blockIdx.x] = lm; }
   grid.sync();
-  float sigma = static_cast<float>(grid_total<false>(part_sum, nb, sh, &bcast));
-  float rn = static_cast<float>(grid_total<true>(part_max, nb, sh, &bcast));
+  double tot_s, tot_m;
+  grid_sum_max(part_sum, part_max, nb, tot_s, tot_m, sh);
+  float sigma = static_cast<float>(tot_s);
+  float rn = static_cast<float>(tot_m);
   bool done = rn < a.accuracy;
   int it = 0;
 
+  const Walk w0(row0, t, a.sx, a.sy);
   while (it < a.max_iter && !done) {
+    // A: tmp = A s
     double ld = 0.0;
-    for (long long i = start; i < n; i += stride) {
-      const float t = apply_row<kUnit>(a, i);
-      a.tmp[i] = t;
-      ld += static_cast<double>(t) * a.s[i];
+    Walk w = w0;
+    for (int L = opaque(t); L < nloc; L += kThreads) {
+      const long long i = base + L;
+      const float tv = apply_cell<kUnit>(a, ss, nchip, L, i, w.x, w.y, w.z);
+      if (L < nchip) {
+        st[L] = tv;
+        ld += static_cast<double>(tv) * ss[L];
+      } else {
+        a.tmp[i] = tv;
+        ld += static_cast<double>(tv) * a.s[i];
+      }
+      w.step(a.sx, a.sy);
     }
-    ld = block_sum(ld, sh);
-    if (threadIdx.x == 0) part_dot[blockIdx.x] = ld;
+    double unused = 0.0;
+    block_sum_max(ld, unused, sh);
+    if (t == 0) part_dot[blockIdx.x] = ld;
     grid.sync();
 
-    const float dp = static_cast<float>(grid_total<false>(part_dot, nb, sh, &bcast));
+    // B: p += alpha s; r -= alpha tmp
+    grid_sum_max(part_dot, nullptr, nb, tot_s, tot_m, sh);
+    const float dp = static_cast<float>(tot_s);
     const float alpha = fabsf(dp) > 0.f ? sigma / dp : 0.f;
     ls = 0.0;
     lm = 0.0;
-    for (long long i = start; i < n; i += stride) {
+    const int tb = opaque(t);
+#pragma unroll
+    for (int k = 0; k < kRegCells; ++k) {
+      const int L = k * kThreads + tb;
+      if (L < nchip) {
+        p_c[k] = p_c[k] + alpha * ss[L];
+        const float rv = sr[L] - alpha * st[L];
+        sr[L] = rv;
+        ls += static_cast<double>(rv) * rv;
+        lm = fmax(lm, static_cast<double>(fabsf(rv)));
+      }
+    }
+    for (int L = kOnChip + t; L < nloc; L += kThreads) {
+      const long long i = base + L;
       a.p[i] = a.p[i] + alpha * a.s[i];
       const float rv = a.r[i] - alpha * a.tmp[i];
       a.r[i] = rv;
       ls += static_cast<double>(rv) * rv;
       lm = fmax(lm, static_cast<double>(fabsf(rv)));
     }
-    ls = block_sum(ls, sh);
-    lm = block_max(lm, sh);
-    if (threadIdx.x == 0) { part_sum[blockIdx.x] = ls; part_max[blockIdx.x] = lm; }
+    block_sum_max(ls, lm, sh);
+    if (t == 0) { part_sum[blockIdx.x] = ls; part_max[blockIdx.x] = lm; }
     grid.sync();
 
-    const float sigma_new = static_cast<float>(grid_total<false>(part_sum, nb, sh, &bcast));
-    rn = static_cast<float>(grid_total<true>(part_max, nb, sh, &bcast));
+    // C: s = r + beta s
+    grid_sum_max(part_sum, part_max, nb, tot_s, tot_m, sh);
+    const float sigma_new = static_cast<float>(tot_s);
+    rn = static_cast<float>(tot_m);
     done = rn < a.accuracy;
     // s and sigma freeze on the converging iteration (beta = 0 there)
     const float beta = done ? 0.f : sigma_new / sigma;
-    for (long long i = start; i < n; i += stride) a.s[i] = a.r[i] + beta * a.s[i];
+    for (int L = opaque(t); L < nchip; L += kThreads) {
+      const float sn = sr[L] + beta * ss[L];
+      ss[L] = sn;
+      a.s[base + L] = sn;
+    }
+    for (int L = kOnChip + t; L < nloc; L += kThreads) {
+      const long long i = base + L;
+      a.s[i] = a.r[i] + beta * a.s[i];
+    }
     if (!done) sigma = sigma_new;
     ++it;
     grid.sync();
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+#pragma unroll
+  for (int k = 0; k < kRegCells; ++k) {
+    const int L = k * kThreads + t;
+    if (L < nchip) a.p[base + L] = p_c[k];
+  }
+  if (blockIdx.x == 0 && t == 0) {
     *a.iters = it;
     *a.resnorm = rn;
   }
 }
 
-template <bool kUnit>
-cudaError_t grid_blocks(int device, int* blocks) {
-  int sms = 0, per_sm = 0, coop = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                           device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cg_kernel<kUnit>,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return err;
-  *blocks = sms * per_sm;
-  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
 }  // namespace
 
-// Number of blocks of the cooperative grid: the part buffer holds 3 doubles
-// per block.
-extern "C" int cg_solve_grid_blocks(int unit, int device, int* blocks) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(unit ? grid_blocks<true>(device, blocks)
-                               : grid_blocks<false>(device, blocks));
-}
-
+// One block per SM, `onchip` cells of each kept in 12 * onchip bytes of
+// shared memory: the wrapper's plan (ops/pressure_kernels.py:cg_plan). A
+// block that owns more cells than kOnChip needs onchip == kOnChip, so that
+// its off-chip cells start at local cell kOnChip.
 extern "C" int cg_solve_launch(const float* rhs, const float* a0,
                                const float* ai, const float* aj,
                                const float* ak, const unsigned char* fluid,
                                float* p, float* r, float* s, float* tmp,
-                               double* part, int nblocks, int* iters,
-                               float* resnorm, int sx, int sy, int sz,
-                               float accuracy, int max_iter, int unit,
+                               double* part, int nblocks, int onchip,
+                               int* iters, float* resnorm, int sx, int sy,
+                               int sz, float accuracy, int max_iter, int unit,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  CgArgs a{rhs, a0, ai, aj, ak, fluid, p, r, s, tmp, part, iters, resnorm,
-           sx, sy, sz, accuracy, max_iter};
-  void* params[] = {&a};
+  const long long nrows = static_cast<long long>(sy) * sz;
+  const long long max_cells = (nrows + nblocks - 1) / nblocks * sx;
+  if (onchip < 1 || onchip > kOnChip ||
+      (onchip < kOnChip && onchip < max_cells) ||
+      static_cast<long long>(sx) * sy + kOnChip >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = unit ? reinterpret_cast<const void*>(cg_kernel<true>)
                         : reinterpret_cast<const void*>(cg_kernel<false>);
+  const int smem = 3 * static_cast<int>(sizeof(float)) * onchip;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int coop = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  CgArgs a{rhs, a0, ai, aj, ak, fluid, p, r, s, tmp, part, iters, resnorm,
+           sx, sy, sz, onchip, accuracy, max_iter};
+  void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(kThreads), params,
-                                    0, static_cast<cudaStream_t>(stream));
+                                    smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

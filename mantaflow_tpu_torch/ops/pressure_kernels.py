@@ -3,8 +3,10 @@
 ``cg_solve`` is the port of ``mantaflow_tpu/ops/pressure_pallas.py:
 cg_solve_pallas``: the complete unpreconditioned CG on the 7-point
 Laplacian, max-norm early exit, in one launch (``csrc/cg_solve.cu``, a
-persistent cooperative kernel with no host round trip per iteration). On a
-CPU tensor it runs the plain PyTorch version, ``pressure.cg_plain``.
+persistent cooperative kernel with no host round trip per iteration: one
+block per SM, each owning a contiguous range of (z, y) rows whose r, s and
+tmp stay in its shared memory and p in registers, ``cg_plan``). On a CPU
+tensor it runs the plain PyTorch version, ``pressure.cg_plain``.
 
 Two stencil modes, as in the TPU kernel: full mode reads A0/Ai/Aj/Ak; unit
 mode reads only A0 and derives the off-diagonals from the fluid mask (valid
@@ -15,6 +17,7 @@ rhs == 0 outside fluid, which ``pressure.make_rhs`` guarantees.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -46,14 +49,43 @@ def unit_offdiagonals(fluid, dom: Domain):
     return -(mf * f_xp), -(mf * f_yp), -(mf * f_zp)
 
 
+# csrc/cg_solve.cu: threads per block and cells per thread whose p stays in
+# registers; a block keeps at most CG_THREADS * CG_REG_CELLS cells on chip
+# (r, s and tmp in shared memory, 12 bytes a cell)
+CG_THREADS = 1024
+CG_REG_CELLS = 16
+CG_ONCHIP_CELLS = CG_THREADS * CG_REG_CELLS
+
+
+@dataclasses.dataclass(frozen=True)
+class CgPlan:
+    """How the kernel lays a grid over ``blocks`` blocks (one per SM)."""
+    blocks: int
+    max_rows: int       # (z, y) rows of the largest block
+    onchip: int         # local cells per block kept on chip
+    overflow: int       # cells of the largest block kept in device memory
+
+
+def row_range(block: int, nrows: int, blocks: int) -> tuple[int, int]:
+    """The contiguous (z, y) rows [first, end) that ``block`` owns, as the
+    kernel computes them."""
+    return nrows * block // blocks, nrows * (block + 1) // blocks
+
+
+def cg_plan(shape, blocks: int) -> CgPlan:
+    """The kernel's layout of a (sz, sy, sx) grid over ``blocks`` blocks."""
+    sz, sy, sx = shape
+    max_rows = -(-(sz * sy) // blocks)
+    cells = max_rows * sx
+    onchip = min(cells, CG_ONCHIP_CELLS)
+    return CgPlan(blocks, max_rows, onchip, cells - onchip)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("cg_solve")
-    lib.cg_solve_grid_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         ctypes.POINTER(ctypes.c_int)]
-    lib.cg_solve_grid_blocks.restype = ctypes.c_int
     lib.cg_solve_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.cg_solve_launch.restype = ctypes.c_int
@@ -63,15 +95,8 @@ def _lib():
 
 
 @functools.cache
-def _grid_blocks(unit: bool, device: int) -> int:
-    lib = _lib()
-    n = ctypes.c_int(0)
-    with _build.caller_device():
-        err = lib.cg_solve_grid_blocks(int(unit), device, ctypes.byref(n))
-    if err != 0:
-        raise RuntimeError("cg_solve: no cooperative grid: "
-                           + lib.cg_solve_error_string(err).decode())
-    return n.value
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
@@ -93,9 +118,10 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
                          f"{dom.shape} tensor on {rhs.device}")
     lib = _lib()
     dev = rhs.device.index
-    nblk = _grid_blocks(unit_stencil, dev)
+    plan = cg_plan(dom.shape, _sm_count(dev))
     p, r, s, tmp = (torch.empty_like(rhs) for _ in range(4))
-    part = torch.empty(3 * nblk, dtype=torch.float64, device=rhs.device)
+    part = torch.empty(3 * plan.blocks, dtype=torch.float64,
+                       device=rhs.device)
     iters = torch.empty((), dtype=torch.int32, device=rhs.device)
     rn = torch.empty((), dtype=torch.float32, device=rhs.device)
     off = (None, None, None) if unit_stencil else \
@@ -106,7 +132,8 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
             rhs.data_ptr(), a0.data_ptr(), *off,
             fluid.data_ptr() if unit_stencil else None,
             p.data_ptr(), r.data_ptr(), s.data_ptr(), tmp.data_ptr(),
-            part.data_ptr(), nblk, iters.data_ptr(), rn.data_ptr(),
+            part.data_ptr(), plan.blocks, plan.onchip, iters.data_ptr(),
+            rn.data_ptr(),
             sx, sy, sz, float(accuracy), int(max_iter), int(unit_stencil),
             dev, torch.cuda.current_stream(rhs.device).cuda_stream)
     if err != 0:

@@ -15,7 +15,9 @@ order (the kernels are built without fused multiply-adds), so both are
 exact; the advection and both blends to abs 1e-6 (the JAX tests'
 Pallas-vs-XLA tolerance); the gather p2g sums in another order than the
 plain rolls, so p2g (fused or alone) to abs 1e-5 and the levelset (a min of
-the same expressions, for a window of one, two or three cells) to 1e-6.
+the same expressions, for a window of one, two or three cells; also on
+made-up gap-free buckets of 1 to 40 slots, empty and full, over 19x23x29)
+to 1e-6.
 The z-slab forms equal the one-domain kernels on the slab's cells bit for
 bit (the same device code reads the same corners and sources), and the
 z rebin of a slab (K9) its plain version. The unmarked cases run on the
@@ -218,6 +220,67 @@ def test_union_levelset_kernel_matches_plain(cuda, radius_factor, rw):
         assert lsk.union_levelset.launches == before + 1
         ref = fb.union_levelset_bucketed(b, dom, radius_factor)
         assert float((phi - ref).abs().max()) < 1e-6
+
+
+def _synthetic_buckets(size, ppc, fill, device, seed=5):
+    """Gap-free buckets over a domain of ``size`` (x, y, z): each cell holds
+    ``fill`` particles ("random": 0..ppc, "full": ppc, "empty": 0), at
+    random positions in the cell; free slots parked at the centre."""
+    sx, sy, sz = size
+    rng = np.random.default_rng(seed)
+    T = sx * sy * sz
+    n = {"random": rng.integers(0, ppc + 1, T), "full": np.full(T, ppc),
+         "empty": np.zeros(T, np.int64)}[fill]
+    # random cells left empty, so that some bricks' windows are empty too
+    if fill == "random":
+        n[rng.random(T) < 0.5] = 0
+    valid = np.arange(ppc)[:, None] < n[None, :]
+    flat = np.arange(T)
+    centre = [(flat % sx) + 0.5, (flat // sx) % sy + 0.5, flat // (sx * sy)
+              + 0.5]
+    pos = [np.where(valid, c[None, :] + rng.uniform(-0.5, 0.5, (ppc, T)),
+                    c[None, :]).astype(np.float32) for c in centre]
+    zero = torch.zeros((ppc, T), dtype=torch.float32, device=device)
+    return Domain(size=size), fb.Buckets(
+        *(torch.tensor(p_, device=device) for p_ in pos), zero, zero, zero,
+        torch.tensor(valid, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ppc,fill", [(1, "random"), (24, "random"),
+                                      (40, "random"), (24, "empty"),
+                                      (9, "full")])
+@pytest.mark.parametrize("radius_factor", [1.0, 1.5, 2.5, 4.0])
+def test_union_levelset_kernel_synthetic_buckets(cuda, ppc, fill,
+                                                 radius_factor):
+    """Slot counts below, at and above one staged chunk (40: five), empty
+    and full buckets, a domain (19x23x29) no brick divides; windows of 1-3
+    cells (compiled in) and of 4 (read at run time)."""
+    dom, bk = _synthetic_buckets((19, 23, 29), ppc, fill, cuda)
+    before = lsk.union_levelset.launches
+    phi = lsk.union_levelset(bk, dom, radius_factor)
+    torch.cuda.synchronize()
+    assert lsk.union_levelset.launches == before + 1
+    ref = fb.union_levelset_bucketed(bk, dom, radius_factor)
+    assert float((phi - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("rw,pc", [(1, 8), (2, 8), (3, 8), (10, 8), (30, 2)])
+def test_levelset_plan_covers_the_domain(rw, pc):
+    plan = lsk.levelset_plan((29, 23, 19), rw)
+    bx, by, bz = lsk.LS_BRICK
+    gx, gy, gz = plan.grid
+    assert (gx - 1) * bx < 19 <= gx * bx
+    assert (gy - 1) * by < 23 <= gy * by
+    assert (gz - 1) * bz < 29 <= gz * bz
+    assert plan.tile == (bx + 2 * rw) * (by + 2 * rw)
+    assert plan.pc == pc and plan.smem_bytes <= lsk.SMEM_OPTIN_BYTES
+
+
+def test_levelset_plan_refuses_a_window_too_wide():
+    with pytest.raises(ValueError, match="does not fit"):
+        lsk.levelset_plan((128, 128, 128), 60)
 
 
 @pytest.mark.gpu

@@ -9,8 +9,11 @@ machine with a GPU (the JAX package is not needed there, hence no conftest):
 Tolerances: the window kernel blends the same 8 corners in the same order as
 ``window_interp``, so abs 1e-6; the CG kernel reduces in another order than
 the plain CG, so iterations within +-10 and max|dp|/max|p| < 5e-3
-(tests/test_pressure_pallas.py's tolerances). The unmarked cases run on the
-CPU: a wrapper never hands a tensor it cannot launch on to the plain version.
+(tests/test_pressure_pallas.py's tolerances), on a 37x29x23 system, a 2D
+one, a grid larger than the kernel keeps on chip, at max_iter, and two
+solves bitwise equal. The unmarked cases run on the CPU: a wrapper never
+hands a tensor it cannot launch on to the plain version; the CG's launch
+plan (rows per block, what stays on chip) is host code.
 """
 
 import numpy as np
@@ -52,21 +55,42 @@ def _window_fixture(device):
             torch.tensor(ok, device=device), pos)
 
 
-def _obstacle_slab_system(n, device):
-    """A walled n^3 system with an obstacle sphere and an empty slab."""
-    dom = Domain(size=(n, n, n))
+def _obstacle_slab_system(n, device, size=None):
+    """A walled n^3 system (or of ``size`` (x, y, z)) with an obstacle
+    sphere and an empty slab."""
+    nx, ny, nz = size or (n, n, n)
+    dom = Domain(size=(nx, ny, nz))
     flags = fl.fill_grid(fl.init_domain(dom, 1, device=device), fl.TypeFluid)
-    zc, yc, xc = torch.meshgrid(*(torch.arange(n, device=device) + 0.5,) * 3,
-                                indexing="ij")
-    obs = ((xc - 0.3 * n) ** 2 + (yc - 0.2 * n) ** 2
-           + (zc - 0.5 * n) ** 2).sqrt() < 0.12 * n
+    zc, yc, xc = torch.meshgrid(
+        *(torch.arange(m, device=device) + 0.5 for m in (nz, ny, nx)),
+        indexing="ij")
+    obs = ((xc - 0.3 * nx) ** 2 + (yc - 0.2 * ny) ** 2
+           + (zc - 0.5 * nz) ** 2).sqrt() < 0.12 * min(nx, ny, nz)
     flags = torch.where(obs, fl.TypeObstacle, flags)
-    flags = torch.where((yc > 0.8 * n) & fl.is_fluid(flags), fl.TypeEmpty,
+    flags = torch.where((yc > 0.8 * ny) & fl.is_fluid(flags), fl.TypeEmpty,
                         flags)
-    vel = torch.tensor(np.random.RandomState(7).randn(3, n, n, n)
+    vel = torch.tensor(np.random.RandomState(7).randn(3, nz, ny, nx)
                        .astype(np.float32) * 0.1, device=device)
     return (dom, prs.make_rhs(flags, vel, dom),
             prs.make_laplace_stencil(flags, dom), fl.is_fluid(flags))
+
+
+def _check_cg(dom, rhs, stencil, fluid, acc, max_iter, unit=False):
+    """The kernel against the plain CG: iterations within +-10, max|dp| /
+    max|p| < 5e-3, exit below the accuracy or at max_iter; returns the
+    kernel's (p, iterations)."""
+    p_ref, it_ref, _ = prs.cg_plain(rhs, stencil, dom, acc, max_iter, fluid)
+    before = prk.cg_solve.launches
+    p, it, rn = prk.cg_solve(rhs, stencil, dom, acc, max_iter, fluid=fluid,
+                             unit_stencil=unit)
+    torch.cuda.synchronize()
+    assert prk.cg_solve.launches == before + 1
+    assert p.device.type == "cuda" and it.dtype == torch.int32
+    assert int(it) == max_iter or float(rn) < acc
+    assert abs(int(it) - int(it_ref)) <= 10
+    scale = float(p_ref.abs().max())
+    assert float((p - p_ref).abs().max()) <= 5e-3 * scale
+    return p, int(it)
 
 
 @pytest.mark.gpu
@@ -128,6 +152,90 @@ def test_cg_kernel_matches_plain(cuda, unit):
     assert abs(int(it) - int(it_ref)) <= 10
     scale = float(p_ref.abs().max())
     assert float((p - p_ref).abs().max()) / scale < 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unit", [False, True])
+def test_cg_kernel_odd_shape_matches_plain(cuda, unit):
+    """37x29x23: rows that neither the warps nor the blocks divide."""
+    dom, rhs, stencil, fluid = _obstacle_slab_system(0, cuda, (37, 29, 23))
+    _, it = _check_cg(dom, rhs, stencil, fluid, 1e-4, 500, unit)
+    assert it > 0
+
+
+@pytest.mark.gpu
+def test_cg_kernel_2d_matches_plain(cuda):
+    dom = Domain(size=(40, 28, 1), dim=2)
+    flags = fl.fill_grid(fl.init_domain(dom, 1, device=cuda), fl.TypeFluid)
+    yc = torch.arange(28, device=cuda).reshape(1, 28, 1) + 0.5
+    flags = torch.where((yc > 20) & fl.is_fluid(flags), fl.TypeEmpty, flags)
+    vel = torch.tensor(np.random.RandomState(3).randn(3, 1, 28, 40)
+                       .astype(np.float32) * 0.1, device=cuda)
+    vel[2] = 0.0
+    _check_cg(dom, prs.make_rhs(flags, vel, dom),
+              prs.make_laplace_stencil(flags, dom), fl.is_fluid(flags),
+              1e-4, 400)
+
+
+@pytest.mark.gpu
+def test_cg_kernel_zero_rhs_takes_no_iteration(cuda):
+    dom, rhs, stencil, fluid = _obstacle_slab_system(16, cuda)
+    p, it, rn = prk.cg_solve(torch.zeros_like(rhs), stencil, dom, 1e-3, 50,
+                             fluid=fluid)
+    assert int(it) == 0 and float(rn) == 0.0
+    assert not bool(p.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unit", [False, True])
+def test_cg_kernel_stops_at_max_iter(cuda, unit):
+    dom, rhs, stencil, fluid = _obstacle_slab_system(24, cuda)
+    _, it = _check_cg(dom, rhs, stencil, fluid, 1e-9, 7, unit)
+    assert it == 7
+
+
+@pytest.mark.gpu
+def test_cg_kernel_over_capacity_matches_plain(cuda):
+    """A grid whose blocks own more cells than they keep on chip: the rest
+    go through the device-memory scratch."""
+    size = (256, 96, 96)
+    plan = prk.cg_plan((96, 96, 256), prk._sm_count(cuda.index or 0))
+    assert plan.overflow > 0
+    dom, rhs, stencil, fluid = _obstacle_slab_system(0, cuda, size)
+    _check_cg(dom, rhs, stencil, fluid, 1e-4, 2000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unit", [False, True])
+def test_cg_kernel_is_deterministic(cuda, unit):
+    dom, rhs, stencil, fluid = _obstacle_slab_system(0, cuda, (37, 29, 23))
+    runs = [prk.cg_solve(rhs, stencil, dom, 1e-4, 500, fluid=fluid,
+                         unit_stencil=unit) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nrows,blocks", [(16384, 132), (667, 132),
+                                          (5, 132), (36864, 7)])
+def test_cg_row_partition_covers_every_row_once(nrows, blocks):
+    ranges = [prk.row_range(b, nrows, blocks) for b in range(blocks)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == nrows
+    assert all(ranges[b][1] == ranges[b + 1][0] for b in range(blocks - 1))
+    sizes = [e - f for f, e in ranges]
+    assert max(sizes) - min(sizes) <= 1
+    assert max(sizes) == prk.cg_plan((1, nrows, 3), blocks).max_rows
+
+
+@pytest.mark.parametrize("shape,onchip,overflow", [
+    ((128, 128, 128), 16000, 0),        # the 128^3 paths: all on chip
+    ((192, 192, 192), 16384, 37376),    # over capacity
+    ((23, 29, 37), 222, 0),
+    ((1, 28, 40), 40, 0)])              # 2D: fewer rows than blocks
+def test_cg_plan_keeps_what_fits_on_chip(shape, onchip, overflow):
+    plan = prk.cg_plan(shape, 132)
+    assert (plan.onchip, plan.overflow) == (onchip, overflow)
+    # r, s and tmp: 12 bytes a cell of an H100 block's 227 KB
+    assert plan.onchip <= prk.CG_ONCHIP_CELLS and 12 * plan.onchip <= 232448
 
 
 @pytest.mark.gpu
