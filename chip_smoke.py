@@ -60,12 +60,16 @@ Phases (any failed check raises, and the script exits non-zero):
    CPU.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
-last line ``{"ok": true, "device": {...}}``. Needs one CUDA device.
+last line ``{"ok": true, "device": {...}}``. Needs one CUDA device. A
+kernel's time is its device time from a torch.profiler trace that holds
+exactly its launches, else from CUDA events around its wrapper calls; each
+entry says which (``timed_by``).
 """
 
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,6 +132,13 @@ def synthetic_buckets(dom, ppc, rng, device):
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
+def valid_bytes_read(bk):
+    """The valid bytes a function over gap-free buckets (ops/flip_bucket.py)
+    must read: each cell's up to its first invalid slot, min(count + 1, P);
+    the slots after it are invalid."""
+    return int((bk.valid.sum(dim=0) + 1).clamp(max=bk.ppc).sum())
+
+
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -171,37 +182,79 @@ def replay(calls, fn):
     return go
 
 
-def kernel_device_ms(torch, fn, reps, kernel, launches):
-    """Mean device milliseconds per launch of the CUDA kernel whose name
-    contains ``kernel``, from a torch.profiler trace of reps runs of fn()
-    (``launches`` of the kernel each): the kernel's own time, without the
-    host's launch gaps. A trace can come back without the kernel's records;
-    it is then taken again, and after three empty traces the launches are
-    timed with CUDA events instead (which adds the host's gaps; the line
-    printed says so)."""
+def kernel_key_matches(key, names):
+    """Whether a profiler key, the demangled name of a kernel (e.g. ``void
+    (anonymous namespace)::union_levelset_kernel<3>((anonymous
+    namespace)::LevelsetArgs)``), is one of the instances ``names``: a
+    function name whole, with its template arguments where it has them
+    (``union_levelset_kernel<3>``, ``window_advect_kernel<true,false,true>``),
+    so that no other kernel and no other instance of a template matches."""
+    key = key.replace(", ", ",")
+    return any(re.search(r"(?:^|[\s:])" + re.escape(n.replace(" ", ""))
+                         + r"\(", key) for n in names)
+
+
+def kernel_device_ms(torch, fn, reps, names, launches):
+    """Mean device milliseconds per launch of the CUDA kernel instances
+    ``names`` (kernel_key_matches), from a torch.profiler trace of reps runs
+    of fn() (``launches`` of them each): the kernel's own time, without the
+    host's launch gaps. A trace is accepted only when the records matched
+    number reps x launches: a trace can come back without some of the
+    kernel's records, or with records of launches made outside it (an
+    earlier trace's, flushed late). The instances matched are printed, and
+    a trace refused is taken again; after three, returns None."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    want = reps * launches
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        us, count = 0.0, 0
+        us, count, keys = 0.0, 0, []
         for e in events:
-            if kernel in e.key:
-                us += getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0.0))
+            if kernel_key_matches(e.key, names):
+                t = getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                us += t
                 count += e.count
-        if count > 0 and us > 0:
+                keys.append(f"{e.key[:90]} x{e.count} {t / 1e3:.3f} ms")
+        ok = count == want and us > 0
+        print(f"profiler trace {attempt + 1} of {'/'.join(names)}: {count} "
+              f"records (want {want}), {us / 1e3:.3f} ms, "
+              f"{'accepted' if ok else 'refused'}; matched: {keys}",
+              flush=True)
+        if ok:
             return us / 1e3 / count
-        print(f"profiler trace {attempt + 1} holds {len(events)} kernels "
-              f"and no device time of {kernel}", flush=True)
-    ms = cuda_ms(torch, fn, reps) / launches
-    print(f"{kernel}: timed with CUDA events, {ms * 1e3:.1f} us/launch",
-          flush=True)
-    return ms
+    return None
+
+
+def timed_launches(torch, fn, reps, names, launches):
+    """(ms, call_ms, timed_by) per launch of the kernel instances ``names``:
+    ``ms`` the profiler's device time (kernel_device_ms), ``call_ms`` CUDA
+    events around the wrapper calls (host gaps included). ``ms`` is the
+    events time, ``timed_by`` says which and the line printed says so,
+    where no trace was accepted, where the profiler reads more than 1.05 of
+    the events time (records that are not these launches'), or where a
+    kernel of more than 0.2 ms reads under 0.8 of it (host gaps cannot
+    explain that much)."""
+    if isinstance(names, str):
+        names = (names,)
+    what = "/".join(names)
+    dev = kernel_device_ms(torch, fn, reps, names, launches)
+    call = cuda_ms(torch, fn, reps) / launches
+    if dev is None:
+        print(f"{what}: no profiler trace accepted; timed with CUDA "
+              f"events, {call * 1e3:.1f} us/launch", flush=True)
+        return call, call, "events"
+    if dev > 1.05 * call or (call > 0.2 and dev < 0.8 * call):
+        print(f"{what}: the profiler reads {dev * 1e3:.1f} us/launch, "
+              f"CUDA events {call * 1e3:.1f}; timed with CUDA events",
+              flush=True)
+        return call, call, "events"
+    return dev, call, "profiler"
 
 
 def main():
@@ -355,9 +408,12 @@ def main():
                 fn(s_, px, py, pz, dom, K, ok_mask=o, want_minmax=mm)
         return go
 
-    k1_ms = kernel_device_ms(torch, run_passes(advk.window_pass), 20,
-                             "window_advect_kernel", len(passes))
-    k1_call_ms = cuda_ms(torch, run_passes(advk.window_pass), 20) / len(passes)
+    # the template instances the passes launch: <kMinMax, kWithOk, k3d>
+    k1_names = sorted({"window_advect_kernel<%s,%s,true>" % (
+        str(mm).lower(), str(mm and o is not None).lower())
+        for *_, o, mm in passes})
+    k1_ms, k1_call_ms, k1_timed_by = timed_launches(
+        torch, run_passes(advk.window_pass), 20, k1_names, len(passes))
     k1_plain_ms = cuda_ms(torch, run_passes(window_interp), 1) / len(passes)
     n = dom.num_cells
     k1_bytes = sum(n * (16 + (1 if o is not None else 0)
@@ -455,8 +511,8 @@ def main():
         cg_iters["p"] = prs.cg_plain(rhs, stencil, dom, params.cg_accuracy,
                                      max_iter, fluid)[1]
 
-    k2_ms = kernel_device_ms(torch, cg_kernel_run, 5, "cg_kernel", 1)
-    k2_call_ms = cuda_ms(torch, cg_kernel_run, 5)
+    k2_ms, k2_call_ms, k2_timed_by = timed_launches(
+        torch, cg_kernel_run, 5, "cg_kernel<false>", 1)
     k2_plain_ms = cuda_ms(torch, cg_plain_run, 1)
     k2_it = int(cg_iters["k"])
     k2_bound_bytes = 6 * 4 * n / HBM_BYTES_PER_S * 1e3  # rhs, A0-Ak in; p out
@@ -798,10 +854,10 @@ def main():
         the function needs for these inputs."""
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = nops / FP32_OPS_PER_S * 1e3
+        ms, call_ms, timed_by = timed_launches(torch, replay(calls, fn), 5,
+                                               kname, len(calls))
         fk[kind] = {
-            "ms": kernel_device_ms(torch, replay(calls, fn), 5, kname,
-                                   len(calls)),
-            "call_ms": cuda_ms(torch, replay(calls, fn), 5) / len(calls),
+            "ms": ms, "call_ms": call_ms, "timed_by": timed_by,
             "plain_ms": cuda_ms(torch, replay(calls, plain), 1) / len(calls),
             "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations"}
@@ -811,18 +867,24 @@ def main():
               f"plain {fk[kind]['plain_ms']:.2f} ms", flush=True)
 
     # least bytes per launch, for what each function must read and write:
-    # slot fields are 4 bytes, valid 1 byte. The advection passes invalid
-    # slots through, so it reads the seven slot fields of every slot and
-    # writes six, plus the vel and vel_old grids. The rebin and p2g skip an
-    # invalid slot on its valid byte: they read the mask of every slot and
-    # the six fields of the live particles only; the rebin writes all seven
-    # output fields of every slot, p2g its seven grids (vel and weight 3
-    # each, phi).
+    # slot fields are 4 bytes, valid 1 byte, of which each function reads
+    # valid_bytes_read (the buckets are gap-free; the mean over the
+    # recorded calls' inputs). The advection passes invalid slots through,
+    # so it reads the six slot fields of every slot and writes them, plus
+    # the vel and vel_old grids. The rebin and p2g read the six fields of
+    # the live particles only; the rebin writes all seven output fields of
+    # every slot, p2g its seven grids (vel and weight 3 each, phi).
+    def mean_valid_bytes(calls):
+        return sum(valid_bytes_read(a[0]) for a, _ in calls) / len(calls)
+
     layer_bytes = [len(a[0]) * 16 * T for a, _ in dev_calls["extrap_layer"]]
     fbytes = {
-        "advect_bucket": (25 + 24) * P * T + 2 * 12 * T,
-        "rebin": (1 + 25) * P * T + 24 * live,
-        "p2g_levelset": P * T + 24 * live + 28 * T,
+        "advect_bucket": (24 + 24) * P * T + 2 * 12 * T
+        + mean_valid_bytes(dev_calls["advect_bucket"]),
+        "rebin": 25 * P * T + 24 * live
+        + mean_valid_bytes(dev_calls["rebin"]),
+        "p2g_levelset": 24 * live + 28 * T
+        + mean_valid_bytes(dev_calls["p2g_levelset"]),
         "extrap_layer": sum(layer_bytes) / len(layer_bytes),
     }
     # float operations per launch, counted on the live particles: RK4 with
@@ -847,7 +909,8 @@ def main():
     # in, p out, against its iterations x 24 flops per cell
     (cg_args, cg_kw), = dev_calls["cg_solve"]
     bench_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
-    time_kernel("cg_solve_bench", "cg_kernel", dev_calls["cg_solve"],
+    unit = str(bool(cg_kw.get("unit_stencil", False))).lower()
+    time_kernel("cg_solve_bench", f"cg_kernel<{unit}>", dev_calls["cg_solve"],
                 prk.cg_solve, prs.cg_plain, 6 * 4 * T, bench_it * 24 * T,
                 f"bench dam developed solve, {bench_it} it")
     fk["cg_solve_bench"]["iterations"] = bench_it
@@ -1003,10 +1066,10 @@ def main():
 
     # times on the developed steps' inputs: the transfer on path A's, the
     # levelset (rw = 3) and the blend on path B's. Least bytes: the valid
-    # byte of every slot and the needed fields of the live particles; the
-    # transfer writes six grids, the levelset one; the blend reads every
-    # slot's velocity and writes it (invalid slots pass through) and reads
-    # two MAC grids. Operations on the live particles: the transfer ~270
+    # bytes valid_bytes_read counts and the needed fields of the live
+    # particles; the transfer writes six grids, the levelset one; the blend
+    # reads every slot's velocity and writes it (invalid slots pass
+    # through) and reads two MAC grids. Operations on the live particles: the transfer ~270
     # (3 components x 18 taps x 5), the levelset ~10 per source cell of the
     # (2 rw + 1)^3 window, the blend ~230 (two grids x three 8-corner
     # interpolations and the mix).
@@ -1016,7 +1079,8 @@ def main():
         calls, st_ = path_calls[name]
         P, live = st_.buckets.ppc, int(st_.buckets.valid.sum())
         time_kernel(kind, "p2g_mac_kernel", calls["p2g_mac"], p2gk.p2g_mac,
-                    fb.p2g_mac, P * T + 24 * live + 24 * T, 270 * live,
+                    fb.p2g_mac, valid_bytes_read(calls["p2g_mac"][0][0][0])
+                    + 24 * live + 24 * T, 270 * live,
                     f"{name} developed, P {P}, {live} live")
     # calls, st_, P and live are the obstacle path's from here on
     what = f"obstacle developed, P {P}, {live} live"
@@ -1024,14 +1088,17 @@ def main():
     for rf in (1.0, 1.5, 2.5):
         rw = fb.levelset_radius(fdom, rf)[1]
         time_kernel("union_levelset" if rw == 3 else f"union_levelset_rw{rw}",
-                    "union_levelset_kernel", [((ls_args[0], fdom, rf), {})],
+                    f"union_levelset_kernel<{rw}>",
+                    [((ls_args[0], fdom, rf), {})],
                     lsk.union_levelset, fb.union_levelset_bucketed,
-                    P * T + 12 * live + 4 * T, 10 * (2 * rw + 1) ** 3 * live,
+                    valid_bytes_read(ls_args[0]) + 12 * live + 4 * T,
+                    10 * (2 * rw + 1) ** 3 * live,
                     f"rw {rw}, {what}")
     time_kernel("flip_blend", "flip_blend_kernel",
                 [((st_.buckets, st_.vel, st_.vel_old, fparams.flip_ratio,
                    fdom), {})], blk.flip_update, fb.flip_update_bucketed,
-                25 * P * T + 12 * live + 24 * T, 230 * live, what)
+                24 * P * T + valid_bytes_read(st_.buckets) + 12 * live
+                + 24 * T, 230 * live, what)
     del path_calls, a_state, b_state
 
     # -- 12. paths A and B on the card vs the port on the CPU ---------------
@@ -1190,28 +1257,30 @@ def main():
     del xbk, xgot, xslabs
 
     # times per launch on the step's inputs; the bound of the z rebin is
-    # counted as the rebin pass's: the mask of every input slot (the halo
-    # planes too), the six fields of the live particles, every output slot
+    # counted as the rebin pass's: the valid bytes valid_bytes_read counts
+    # in its input (the halo planes too), the six fields of the live
+    # particles, every output slot
     zk = {}
     zP = sh.buckets.ppc
     t_slab = fdom.num_cells // mesh.n
-    t_ext = t_slab + 2 * FLIP_RES * FLIP_RES
     z_live = sum(int(s.valid.sum()) for s in sh.buckets.slabs) / mesh.n
     for k, kname, nbytes, nops in (
             ("rebin_zshard", "rebin_zshard_kernel",
-             zP * t_ext + 25 * zP * t_slab + 24 * z_live, 10 * z_live),
+             mean_valid_bytes(zcalls["rebin_zshard"]) + 25 * zP * t_slab
+             + 24 * z_live, 10 * z_live),
             ("advect_bucket_zshard", "advect_bucket_zshard_kernel",
-             (25 + 24) * zP * t_slab + 2 * 12 * (t_slab + 4 * FLIP_RES ** 2),
-             620 * z_live),
+             (24 + 24) * zP * t_slab
+             + mean_valid_bytes(zcalls["advect_bucket_zshard"])
+             + 2 * 12 * (t_slab + 4 * FLIP_RES ** 2), 620 * z_live),
             ("p2g_levelset_zshard", "p2g_levelset_zshard_kernel",
-             zP * t_ext + 24 * z_live + 28 * t_slab, 540 * z_live)):
+             mean_valid_bytes(zcalls["p2g_levelset_zshard"]) + 24 * z_live
+             + 28 * t_slab, 540 * z_live)):
         calls = zcalls[k]
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = nops / FP32_OPS_PER_S * 1e3
-        zk[k] = {"ms": kernel_device_ms(torch, replay(calls, getattr(
-                     *z_sites[k])), 5, kname, len(calls)),
-                 "call_ms": cuda_ms(torch, replay(calls, getattr(
-                     *z_sites[k])), 5) / len(calls),
+        ms, call_ms, timed_by = timed_launches(
+            torch, replay(calls, getattr(*z_sites[k])), 5, kname, len(calls))
+        zk[k] = {"ms": ms, "call_ms": call_ms, "timed_by": timed_by,
                  "plain_ms": cuda_ms(torch, replay(calls, z_plain[k]), 1)
                  / len(calls),
                  "bound_ms": max(b_ms, o_ms),
@@ -1266,7 +1335,8 @@ def main():
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": max(k1_bound_bytes, k1_bound_ops),
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops
-         else "operations", "library_ms": None, "call_ms": k1_call_ms},
+         else "operations", "library_ms": None, "call_ms": k1_call_ms,
+         "timed_by": k1_timed_by},
         {"name": "cg_solve", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/cg_solve.cu",
          "replaces": "mantaflow_tpu/ops/pressure_pallas.py:88",
@@ -1277,7 +1347,7 @@ def main():
          "bound_ms": max(k2_bound_bytes, k2_bound_ops),
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
          else "operations", "library_ms": None,
-         "call_ms": k2_call_ms, "iterations": k2_it,
+         "call_ms": k2_call_ms, "timed_by": k2_timed_by, "iterations": k2_it,
          "launches_by_path": {"smoke_128": launches["cg_solve"],
                               **{k: v["cg_solve"]
                                  for k, v in flip_paths.items()}},

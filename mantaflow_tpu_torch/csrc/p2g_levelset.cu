@@ -11,17 +11,18 @@
 // each grid step takes one z plane of source buckets and adds its tap
 // contributions into a ring of three VMEM plane accumulators. Blocks on
 // Hopper run in no order, so a scatter would need atomics, whose order of
-// sums changes from run to run. This kernel gathers instead (the body,
-// its semantics and layout are in p2g_gather.cuh, shared with
-// p2g_mac.cu). It is bound by bytes: the seven (P, T) slot fields are
-// read once from device memory (each source cell is read again by its 26
-// neighbours, from L1/L2) and seven grids are written once.
+// sums changes from run to run. This kernel gathers instead, one block per
+// brick of destination cells over source planes staged in shared memory
+// (the body, its order of sums, semantics and layout are in
+// p2g_gather.cuh, shared with p2g_mac.cu).
 
 #include <cuda_runtime.h>
 
 #include "p2g_gather.cuh"
 
 namespace {
+
+constexpr int kThreads = P2gShape<true>::kThreads;
 
 __global__ void __launch_bounds__(kThreads) p2g_levelset_kernel(P2gArgs a) {
   p2g_gather<true, false>(a);
@@ -34,6 +35,7 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// grid from ops/p2g_kernels.py:p2g_plan
 extern "C" int p2g_levelset_launch(const float* px, const float* py,
                                    const float* pz, const float* vx,
                                    const float* vy, const float* vz,
@@ -41,22 +43,25 @@ extern "C" int p2g_levelset_launch(const float* px, const float* py,
                                    float* weight, float* phi, long long T,
                                    long long T_src, int P, int sx, int sy,
                                    int sz, int zb, float radius, int slab,
-                                   int device, void* stream) {
+                                   int gx, int gy, int gz, int device,
+                                   void* stream) {
   // slab: the outputs are T cells of planes zb.. of the domain's sz, the
   // slot fields T_src = T + 2*sx*sy cells from plane zb - 1
-  if (slab && T_src != T + 2LL * sx * sy)
+  const long long sxy = static_cast<long long>(sx) * sy;
+  if ((slab && T_src != T + 2 * sxy) || (!slab && T_src != T) ||
+      T % sxy != 0 || gx != (sx + kBx - 1) / kBx ||
+      gy != (sy + kBy - 1) / kBy || gz != (T / sxy + kBz - 1) / kBz)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  void (*fn)(P2gArgs) = slab ? p2g_levelset_zshard_kernel : p2g_levelset_kernel;
+  constexpr int smem = P2gShape<true>::kSmem;
+  err = p2g_smem_attributes(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   P2gArgs a{px, py, pz, vx, vy, vz, valid, vel, weight, phi, T, P,
             sx, sy, sz, radius, T_src, zb, zb - 1};
-  const unsigned blocks = static_cast<unsigned>((T + kThreads - 1) / kThreads);
-  if (slab)
-    p2g_levelset_zshard_kernel<<<blocks, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(a);
-  else
-    p2g_levelset_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+  fn<<<dim3(gx, gy, gz), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,9 @@ one cell (rw == 1, radius_factor up to ~1.14), in one launch of
 (``p2g_mac_pallas``): the transfer alone, in one launch of
 ``csrc/p2g_mac.cu``, for the steps without ghost fluid or with a wider
 levelset window (``levelset_kernels.union_levelset``). Both sources compile
-the gather of ``csrc/p2g_gather.cuh``. On a CPU tensor the wrappers run the
+the gather of ``csrc/p2g_gather.cuh`` (one block per brick of destination
+cells, the source planes' live particles weighted once and staged in
+shared memory, ``p2g_plan``). On a CPU tensor the wrappers run the
 plain PyTorch versions: ``flip_bucket.p2g_mac`` and, for ``p2g_union``,
 ``p2g_union_plain``.
 
@@ -27,6 +29,7 @@ placed in an otherwise empty domain.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -34,12 +37,48 @@ from ..core.domain import Domain
 from ..kernels import _build
 from ..parallel import sharding as shd
 from . import flip_bucket as fb
+from .levelset_kernels import SMEM_OPTIN_BYTES
 from .rebin_kernels import check_buckets, halo_buckets
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _UNION_ARGS = ((_PTR,) * 10 + (ctypes.c_longlong,) * 2 + (_INT,) * 5
-               + (ctypes.c_float,) + (_INT,) * 2 + (_PTR,))
-_MAC_ARGS = (_PTR,) * 9 + (ctypes.c_longlong,) + (_INT,) * 5 + (_PTR,)
+               + (ctypes.c_float,) + (_INT,) * 5 + (_PTR,))
+_MAC_ARGS = (_PTR,) * 9 + (ctypes.c_longlong,) + (_INT,) * 8 + (_PTR,)
+
+# csrc/p2g_gather.cuh's kBx/kBy/kBz, the brick of destination cells (x, y,
+# z) of one block, and kCap, the particles staged at a time
+P2G_BRICK = (8, 8, 8)
+P2G_CAP = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class P2gPlan:
+    """The gather's launch for a domain's (or a slab's) output planes."""
+    grid: tuple[int, int, int]  # bricks in x, y, z
+    threads: int
+    tile: int                   # source cells staged per plane
+    cap: int                    # particles staged at a time
+    floats: int                 # floats staged per particle
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.floats * self.cap
+
+
+def p2g_plan(shape, levelset: bool) -> P2gPlan:
+    """The kernel's launch over the (lz, sy, sx) output planes: its bricks
+    and its staging, P2G_CAP particles of a source plane at a time (a plane
+    with more is staged in turns, so any PPC fits); refused where that
+    would not fit one block's shared memory (the kernel's static_assert)."""
+    lz, sy, sx = shape
+    bx, by, bz = P2G_BRICK
+    grid = (-(-sx // bx), -(-sy // by), -(-lz // bz))
+    plan = P2gPlan(grid, bx * by * (4 if levelset else 3),
+                   (bx + 2) * (by + 2), P2G_CAP, 22 if levelset else 18)
+    if plan.cap < 1 or plan.smem_bytes > SMEM_OPTIN_BYTES:
+        raise ValueError(f"p2g: {plan.cap} staged particles do not fit one "
+                         "block's shared memory")
+    return plan
 
 
 def p2g_union_plain(bk: fb.Buckets, dom: Domain, radius_factor: float = 1.0):
@@ -63,10 +102,11 @@ def _launch_union(bk: fb.Buckets, dom: Domain, radius: float, lz: int,
     vel = torch.empty((3, lz, sy, sx), dtype=torch.float32, device=dev)
     weight = torch.empty_like(vel)
     phi = torch.empty((lz, sy, sx), dtype=torch.float32, device=dev)
+    plan = p2g_plan((lz, sy, sx), True)
     _build.launcher("p2g_levelset", _UNION_ARGS)(
         *_slot_ptrs(bk), vel.data_ptr(), weight.data_ptr(), phi.data_ptr(),
         lz * sy * sx, bk.ncells, bk.ppc, sx, sy, sz, int(z_base or 0),
-        radius, int(z_base is not None), dev.index,
+        radius, int(z_base is not None), *plan.grid, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     return vel, weight, phi
 
@@ -102,9 +142,10 @@ def _p2g_mac_cuda(bk: fb.Buckets, dom: Domain):
     vel = torch.empty((3,) + dom.shape, dtype=torch.float32, device=dev)
     weight = torch.empty_like(vel)
     sz, sy, sx = dom.shape
+    plan = p2g_plan(dom.shape, False)
     _build.launcher("p2g_mac", _MAC_ARGS)(
         *_slot_ptrs(bk), vel.data_ptr(), weight.data_ptr(), bk.ncells,
-        bk.ppc, sx, sy, sz, dev.index,
+        bk.ppc, sx, sy, sz, *plan.grid, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     p2g_mac.launches += 1
     return vel, weight

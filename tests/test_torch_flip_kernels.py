@@ -20,9 +20,14 @@ made-up gap-free buckets of 1 to 40 slots, empty and full, over 19x23x29)
 to 1e-6.
 The z-slab forms equal the one-domain kernels on the slab's cells bit for
 bit (the same device code reads the same corners and sources), and the
-z rebin of a slab (K9) its plain version. The unmarked cases run on the
-CPU: a wrapper refuses a tensor it cannot launch on rather than computing
-it on the CPU.
+z rebin of a slab (K9) its plain version. The transfer (fused and alone,
+one gather) also on made-up buckets of 1 to 40 slots with made-up
+velocities, where a face's weight reaches ~68 and is held to abs 1e-5
+plus 1e-6 of itself (its float32 spacing there is 7.6e-6); two launches
+bitwise equal; its z-slab form over 2- and 32-plane slabs bitwise equal to
+the one-domain launch. The unmarked cases run on the CPU: a wrapper refuses
+a tensor it cannot launch on rather than computing it on the CPU, and the
+launch plans cover the domain and mirror the kernels' constants.
 """
 
 import dataclasses
@@ -281,6 +286,124 @@ def test_levelset_plan_covers_the_domain(rw, pc):
 def test_levelset_plan_refuses_a_window_too_wide():
     with pytest.raises(ValueError, match="does not fit"):
         lsk.levelset_plan((128, 128, 128), 60)
+
+
+def _synthetic_moving(size, ppc, fill, device):
+    """``_synthetic_buckets`` with made-up particle velocities (seed 6)."""
+    dom, bk = _synthetic_buckets(size, ppc, fill, device)
+    rng = np.random.default_rng(6)
+    v = [torch.tensor(rng.standard_normal(tuple(bk.px.shape))
+                      .astype(np.float32), device=device) for _ in range(3)]
+    return dom, dataclasses.replace(
+        bk, **{f: torch.where(bk.valid, v[i], 0.0)
+               for i, f in enumerate(("vx", "vy", "vz"))})
+
+
+def _p2g_close(got, ref):
+    """vel to abs 1e-5, phi to 1e-6; the weight to abs 1e-5 plus 1e-6 of
+    itself: at 40 slots a face sums up to ~68 of weight, whose float32
+    spacing (7.6e-6) two orders of summing part by more than 1e-5 (on the
+    H100 the earlier one-thread-per-destination gather, which sums in this
+    gather's order, parts from the plain version by 5.7e-5 on the full
+    40-slot fill, as this one does: tools/profile_torch_kernel_ab.py)."""
+    v, w = got[:2]
+    rv, rw = ref[:2]
+    assert float((v - rv).abs().max()) < 1e-5
+    assert bool(((w - rw).abs() <= 1e-5 + 1e-6 * rw.abs()).all())
+    if len(got) == 3:
+        assert float((got[2] - ref[2]).abs().max()) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ppc,fill", [(1, "random"), (24, "random"),
+                                      (40, "random"), (24, "empty"),
+                                      (40, "full")])
+def test_p2g_kernels_synthetic_buckets(cuda, ppc, fill):
+    """The fused transfer (K10) and the transfer alone (K11) on made-up
+    gap-free buckets over 19x23x29 (no brick divides it), 1 to 40 slots
+    (a full 40-slot plane is staged in several turns): each against its
+    plain version, the two equal on vel and weight, and two launches of
+    each bitwise equal."""
+    dom, bk = _synthetic_moving((19, 23, 29), ppc, fill, cuda)
+    before = (p2gk.p2g_union.launches, p2gk.p2g_mac.launches)
+    fused = [p2gk.p2g_union(bk, dom, 1.0) for _ in range(2)]
+    alone = [p2gk.p2g_mac(bk, dom) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (p2gk.p2g_union.launches, p2gk.p2g_mac.launches) == tuple(
+        b + 2 for b in before)
+    for a, b in zip(fused[0] + alone[0], fused[1] + alone[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(fused[0][0], alone[0][0])
+    assert torch.equal(fused[0][1], alone[0][1])
+    _p2g_close(fused[0], p2gk.p2g_union_plain(bk, dom, 1.0))
+    _p2g_close(alone[0], fb.p2g_mac(bk, dom))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lz", [2, 32])
+def test_p2g_union_slab_synthetic_matches_one_domain(cuda, lz):
+    """The z-slab form over slabs of 2 and of 32 planes (bricks 8 deep)
+    of made-up buckets over 19x23x64: bitwise equal to the same planes of
+    the one-domain launch and to a second launch, and close to its plain
+    version."""
+    dom, bk = _synthetic_moving((19, 23, 64), 24, "random", cuda)
+    whole = p2gk.p2g_union(bk, dom, 1.0)
+    mesh = shd.make_zmesh(64 // lz, devices=[cuda])
+    ext = rbk.halo_buckets(shd.shard_buckets(bk, mesh).slabs, 1,
+                           Domain(size=(19, 23, lz)))
+    for i, e in enumerate(ext):
+        before = p2gk.p2g_union_slab.launches
+        got = p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
+        again = p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
+        torch.cuda.synchronize()
+        assert p2gk.p2g_union_slab.launches == before + 2
+        for g, a, w in zip(got, again, whole):
+            assert torch.equal(g, a)
+            assert torch.equal(g, w[..., i * lz:(i + 1) * lz, :, :])
+        if i in (0, len(ext) // 2, len(ext) - 1):
+            _p2g_close(got, p2gk.p2g_union_slab_plain(e, dom, i * lz, 1.0))
+
+
+@pytest.mark.parametrize("shape,levelset", [((29, 23, 19), True),
+                                            ((29, 23, 19), False),
+                                            ((128, 128, 128), True),
+                                            ((2, 16, 16), True)])
+def test_p2g_plan_covers_the_domain(shape, levelset):
+    plan = p2gk.p2g_plan(shape, levelset)
+    bx, by, bz = p2gk.P2G_BRICK
+    gx, gy, gz = plan.grid
+    lz, sy, sx = shape
+    assert (gx - 1) * bx < sx <= gx * bx
+    assert (gy - 1) * by < sy <= gy * by
+    assert (gz - 1) * bz < lz <= gz * bz
+    assert plan.tile == (bx + 2) * (by + 2) <= plan.threads
+    assert plan.threads == bx * by * (4 if levelset else 3)
+    assert plan.cap == p2gk.P2G_CAP
+    assert plan.smem_bytes == 4 * plan.floats * plan.cap
+    assert plan.smem_bytes <= p2gk.SMEM_OPTIN_BYTES
+
+
+def test_p2g_plan_mirrors_the_kernel_constants():
+    """The plan's brick, thread groups, staged floats and staging size
+    are the ones csrc/p2g_gather.cuh compiles."""
+    src = (_build.CSRC / "p2g_gather.cuh").read_text()
+    bx, by, bz = p2gk.P2G_BRICK
+    assert f"constexpr int kBx = {bx}, kBy = {by}, kBz = {bz};" in src
+    assert f"constexpr int kCap = {p2gk.P2G_CAP};" in src
+    for levelset in (True, False):
+        plan = p2gk.p2g_plan((16, 16, 16), levelset)
+        assert plan.threads // (bx * by) == (4 if levelset else 3)
+    assert "kGroups = kLevelset ? 4 : 3;" in src
+    assert "kRec = kLevelset ? 22 : 18;" in src
+    assert p2gk.p2g_plan((16, 16, 16), True).floats == 22
+    assert p2gk.p2g_plan((16, 16, 16), False).floats == 18
+
+
+@pytest.mark.parametrize("cap", [0, 4096])
+def test_p2g_plan_refuses_what_does_not_fit(monkeypatch, cap):
+    monkeypatch.setattr(p2gk, "P2G_CAP", cap)
+    with pytest.raises(ValueError, match="do not fit"):
+        p2gk.p2g_plan((128, 128, 128), True)
 
 
 @pytest.mark.gpu

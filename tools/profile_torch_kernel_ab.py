@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the CG (K2) and union-levelset (K12) kernels of this checkout against
-another checkout's, on the same inputs, on one GPU.
+"""Time the CG (K2), union-levelset (K12) and particle-to-grid (K10, its
+z-slab form, K11) kernels of this checkout against another checkout's, on
+the same inputs, on one GPU.
 
     git archive <commit> | tar -x -C build/ab_other
     python3 tools/profile_torch_kernel_ab.py --other build/ab_other \
@@ -8,20 +9,34 @@ another checkout's, on the same inputs, on one GPU.
 
 The inputs come from this checkout, on the card: the 128^3 bench smoke
 system after 5 steps (chip_smoke.py phase 4: full-stencil mode, accuracy
-1e-3, 192 iterations at most) and the developed 128^3 obstacle dam
-(chip_smoke.py phase 10: radius_factor 2.5, the sphere obstacle, 70 steps
-through flip_run_bucketed_auto, PPC escalated) with its buckets for the
-levelset at radius_factor 1.0, 1.5 and 2.5 (windows of 1, 2 and 3 cells)
-and its step's ghost-fluid CG system. They are saved to a file; then each
-checkout of ``--order`` runs in a process of its own, which imports that
-checkout's ``mantaflow_tpu_torch``, builds its two kernels and times its
-wrappers ``cg_solve`` and ``union_levelset`` with CUDA events over
-``--reps`` calls (one launch each), after one warm call; also the CG's
-cost per iteration on an 8^3 system run for 2000 iterations (accuracy 0),
-which is its grid barriers and reductions with next to no cells. Prints
-one JSON line per run and a summary line: per checkout, the mean over its
-runs of the CG's ms per solve and per iteration, its iterations, and the
-levelset's ms per launch at each window.
+1e-3, 192 iterations at most); three 128^3 dams developed through
+flip_run_bucketed_auto for 70 steps (PPC escalated): the bench's
+ghost-fluid dam (chip_smoke.py phase 6), the same dam without ghost fluid
+(phase 9, flip01) and the obstacle dam (phase 10: radius_factor 2.5, the
+sphere obstacle); and the bench dam's buckets cut into 4 z-slabs, each
+extended by one plane of each neighbour (phase 13). Each checkout times
+its wrappers with CUDA events over ``--reps`` calls, after one warm call
+(the transfer first, in three rounds over its four inputs in turn, whose
+median it keeps; a process's first round reads up to 3x slow):
+``cg_solve`` on the smoke system and the obstacle step's ghost-fluid
+system, and on an 8^3 system run for 2000 iterations (accuracy 0), which
+is its grid barriers and reductions with next to no cells;
+``union_levelset`` on the obstacle dam at radius_factor 1.0, 1.5 and 2.5
+(windows of 1, 2 and 3 cells); ``p2g_union`` (K10) on the bench dam,
+``p2g_union_slab`` on the four slabs (per launch), ``p2g_mac`` (K11) on
+the flip01 and the obstacle dams. Untimed, K10 and K11 also run on the
+made-up buckets of the ``gpu`` case ``test_p2g_kernels_synthetic_buckets``
+(tests/test_torch_flip_kernels.py: 19x23x29, 1 to 40 slots, random, empty
+and full fills, made-up velocities; its generator is imported, so the
+inputs are the test's). The inputs are saved to a file; then each checkout
+of ``--order`` runs in a process of its own, which imports that checkout's
+``mantaflow_tpu_torch`` and builds its kernels. Prints one JSON line per
+run, the max |difference| of the transfer's outputs between the two
+checkouts (a change in the order of its sums shows as a number) and
+between two runs of one checkout, each checkout's max |error| against the
+plain version on the made-up buckets (vel, weight, phi, and the weight's
+error over 1e-6 of itself), and a summary line: per checkout, the mean
+over its runs of each time.
 """
 
 import argparse
@@ -32,6 +47,12 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUCKET_FIELDS = ("px", "py", "pz", "vx", "vy", "vz", "valid", "dropped")
+ZSHARDS = 4
+# the (ppc, fill) cases of test_p2g_kernels_synthetic_buckets
+SYNTHETIC = ((1, "random"), (24, "random"), (40, "random"), (24, "empty"),
+             (40, "full"))
+SYNTHETIC_SIZE = (19, 23, 29)
 
 
 def cuda_ms(torch, fn, reps):
@@ -55,8 +76,11 @@ def make_inputs(path):
     from mantaflow_tpu_torch.core.shapes import Sphere
     from mantaflow_tpu_torch.models import flip, smoke
     from mantaflow_tpu_torch.ops import extforces as ext
+    from mantaflow_tpu_torch.ops import flip_bucket as fb
     from mantaflow_tpu_torch.ops import pressure as prs
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    from mantaflow_tpu_torch.ops import rebin_kernels as rbk
+    from mantaflow_tpu_torch.parallel import sharding as shd
 
     dev = torch.device("cuda")
     res = 128
@@ -80,15 +104,34 @@ def make_inputs(path):
                      "acc": params.cg_accuracy,
                      "max_iter": int(params.cg_max_iter_fac * res)}}
 
+    def developed(fparams, obstacle=None):
+        fst = flip.make_dam_state_bucketed(dom, fparams, ppc=10,
+                                           obstacle=obstacle, device=dev)
+        for _ in range(7):
+            fst = flip.flip_run_bucketed_auto(fst, dom, fparams, 10,
+                                              check_every=10)
+        return fst
+
+    info = {}
+    bench = dict(gravity=(0.0, -0.003, 0.0), cg_accuracy=1e-3)
+    for name, kw in (("bench", dict(ghost_fluid=True,
+                                    ring_only_obstacles=True)),
+                     ("flip01", dict(ghost_fluid=False,
+                                     ring_only_obstacles=True))):
+        bk = developed(flip.FlipParams(**bench, **kw)).buckets
+        out[name] = {f: getattr(bk, f) for f in BUCKET_FIELDS}
+        info[name] = {"ppc": bk.ppc, "live": int(bk.valid.sum()),
+                      "dropped": int(bk.dropped)}
+    mesh = shd.make_zmesh(ZSHARDS, devices=[dev])
+    ext = rbk.halo_buckets(
+        shd.shard_buckets(fb.Buckets(**out["bench"]), mesh).slabs, 1,
+        Domain(size=(res, res, res // ZSHARDS)))
+    out["slabs"] = [{f: getattr(e, f) for f in BUCKET_FIELDS} for e in ext]
     fparams = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
                               radius_factor=2.5, cg_accuracy=1e-3)
     obstacle = Sphere(center=(res * 0.7, res * 0.28, res * 0.5),
                       radius=res * 0.15)
-    fst = flip.make_dam_state_bucketed(dom, fparams, ppc=10,
-                                       obstacle=obstacle, device=dev)
-    for _ in range(7):
-        fst = flip.flip_run_bucketed_auto(fst, dom, fparams, 10,
-                                          check_every=10)
+    fst = developed(fparams, obstacle)
     calls = []
     orig = prk.cg_solve
 
@@ -106,14 +149,20 @@ def make_inputs(path):
     out["obstacle"] = {
         "rhs": args[0], "stencil": args[1], "acc": args[3],
         "max_iter": args[4], "ppc": bk.ppc, "live": int(bk.valid.sum()),
-        "buckets": {f: getattr(bk, f) for f in ("px", "py", "pz", "valid")}}
+        "buckets": {f: getattr(bk, f) for f in BUCKET_FIELDS}}
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_flip_kernels import _synthetic_moving
+    out["synthetic"] = {
+        f"{ppc}_{fill}": {f: getattr(b_, f) for f in BUCKET_FIELDS}
+        for ppc, fill in SYNTHETIC
+        for b_ in [_synthetic_moving(SYNTHETIC_SIZE, ppc, fill, dev)[1]]}
     torch.save(out, path)
     return {"ppc": bk.ppc, "live": out["obstacle"]["live"],
             "particles_kept": int(bk.count()), "dropped": int(bk.dropped),
-            "fluid_cells_smoke": int(fl.is_fluid(st.flags).sum())}
+            "fluid_cells_smoke": int(fl.is_fluid(st.flags).sum()), **info}
 
 
-def time_checkout(repo, path, reps):
+def time_checkout(repo, path, reps, out_path):
     sys.path.insert(0, os.path.abspath(repo))
     import torch
     import mantaflow_tpu_torch
@@ -121,14 +170,44 @@ def time_checkout(repo, path, reps):
     from mantaflow_tpu_torch.kernels import _build
     from mantaflow_tpu_torch.ops import flip_bucket as fb
     from mantaflow_tpu_torch.ops import levelset_kernels as lsk
+    from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
 
     where = os.path.dirname(os.path.abspath(mantaflow_tpu_torch.__file__))
     assert where == os.path.join(os.path.abspath(repo), "mantaflow_tpu_torch")
-    _build.build(["cg_solve", "union_levelset"])
+    _build.build(["cg_solve", "union_levelset", "p2g_levelset", "p2g_mac"])
     inp = torch.load(path)
     dom = Domain(size=(128,) * 3)
     res = {"repo": repo}
+    bk = fb.Buckets(**inp["obstacle"]["buckets"])
+    # the transfer: K10 on the bench dam, its z-slab form on the bench
+    # dam's four slabs, K11 on the flip01 and obstacle dams
+    bench = fb.Buckets(**inp["bench"])
+    slabs = [fb.Buckets(**e) for e in inp["slabs"]]
+    lz = 128 // len(slabs)
+    outs = {}
+
+    def k10():
+        outs["k10"] = p2gk.p2g_union(bench, dom, 1.0)
+
+    def k10_zshard():
+        outs["k10_zshard"] = [p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
+                              for i, e in enumerate(slabs)]
+    timed = {"p2g_levelset": (k10, 1), "p2g_levelset_zshard": (k10_zshard,
+                                                              len(slabs))}
+    for name, b_ in (("flip01", fb.Buckets(**inp["flip01"])),
+                     ("obstacle", bk)):
+        def k11(b_=b_, name=name):
+            outs[f"k11_{name}"] = p2gk.p2g_mac(b_, dom)
+        timed[f"p2g_mac_{name}"] = (k11, 1)
+    # three rounds of reps calls each, in turn; the median per launch
+    rounds = {k: [] for k in timed}
+    for _ in range(3):
+        for k, (fn, n) in timed.items():
+            rounds[k].append(cuda_ms(torch, fn, reps) / n)
+    for k, ms in rounds.items():
+        res[f"{k}_ms"] = sorted(ms)[1]
+        res[f"{k}_rounds_ms"] = ms
     for name in ("smoke", "obstacle"):
         c = inp[name]
         got = {}
@@ -149,14 +228,19 @@ def time_checkout(repo, path, reps):
     tiny_ms = cuda_ms(
         torch, lambda: prk.cg_solve(trhs, tst, tiny, 0.0, 2000), 3)
     res["cg_8cubed_us_per_iteration"] = tiny_ms * 1e3 / 2000
-    b = inp["obstacle"]["buckets"]
-    zero = torch.zeros_like(b["px"])
-    bk = fb.Buckets(b["px"], b["py"], b["pz"], zero, zero, zero, b["valid"],
-                    torch.zeros((), dtype=torch.int32, device=zero.device))
     for rf in (1.0, 1.5, 2.5):
         rw = fb.levelset_radius(dom, rf)[1]
         res[f"levelset_rw{rw}_ms"] = cuda_ms(
             torch, lambda: lsk.union_levelset(bk, dom, rf), reps)
+    sdom = Domain(size=SYNTHETIC_SIZE)
+    for case, fields in inp["synthetic"].items():
+        b_ = fb.Buckets(**fields)
+        outs[f"syn{case}_k10"] = p2gk.p2g_union(b_, sdom, 1.0)
+        outs[f"syn{case}_k11"] = p2gk.p2g_mac(b_, sdom)
+    torch.cuda.synchronize()
+    outs["k10_zshard"] = [torch.cat(o, dim=-3) for o in
+                          zip(*outs["k10_zshard"])]
+    torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, out_path)
     print(json.dumps(res), flush=True)
 
 
@@ -167,9 +251,10 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--time", help=argparse.SUPPRESS)
     ap.add_argument("--inputs", help=argparse.SUPPRESS)
+    ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        time_checkout(args.time, args.inputs, args.reps)
+        time_checkout(args.time, args.inputs, args.reps, args.outputs)
         return
     import torch
     if not torch.cuda.is_available():
@@ -183,17 +268,56 @@ def main():
         path = os.path.join(tmp, "inputs.pt")
         info = make_inputs(path)
         print(json.dumps({"inputs": info}), flush=True)
-        runs = []
-        for which in args.order.split(","):
+        runs, saved = [], {}
+        for i, which in enumerate(args.order.split(",")):
+            out_path = os.path.join(tmp, f"outputs{i}.pt")
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--other",
                  args.other, "--time", repos[which], "--inputs", path,
-                 "--reps", str(args.reps)],
+                 "--outputs", out_path, "--reps", str(args.reps)],
                 capture_output=True, text=True, check=True).stdout
             run = json.loads(out.strip().splitlines()[-1])
             run["which"] = which
             runs.append(run)
+            saved.setdefault(which, []).append(out_path)
             print(json.dumps(run), flush=True)
+        # the transfer's outputs: this checkout against the other, and two
+        # runs of one checkout against each other
+        pairs = {}
+        if "this" in saved and "other" in saved:
+            pairs["this_vs_other"] = (saved["this"][0], saved["other"][0])
+        for which, paths in saved.items():
+            if len(paths) > 1:
+                pairs[f"{which}_vs_{which}"] = paths[:2]
+        for pair, (pa, pb) in pairs.items():
+            a, b = torch.load(pa), torch.load(pb)
+            print(json.dumps({"max_abs_diff": pair, **{
+                f"{k}_{n}": float((x - y).abs().max())
+                for k in a for n, x, y in zip(("vel", "weight", "phi"),
+                                              a[k], b[k])}}), flush=True)
+        # the made-up buckets: each checkout against the plain version
+        sys.path.insert(0, HERE)
+        from mantaflow_tpu_torch.core.domain import Domain
+        from mantaflow_tpu_torch.ops import flip_bucket as fb
+        from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
+        sdom = Domain(size=SYNTHETIC_SIZE)
+        inp = torch.load(path)
+        plain = {}
+        for case, fields in inp["synthetic"].items():
+            b_ = fb.Buckets(**fields)
+            plain[f"syn{case}_k10"] = [
+                t.cpu() for t in p2gk.p2g_union_plain(b_, sdom, 1.0)]
+            plain[f"syn{case}_k11"] = [t.cpu() for t in fb.p2g_mac(b_, sdom)]
+        for which, paths in saved.items():
+            got = torch.load(paths[0])
+            errs = {}
+            for k, ref in plain.items():
+                for n, x, y in zip(("vel", "weight", "phi"), got[k], ref):
+                    errs[f"{k}_{n}"] = float((x - y).abs().max())
+                w, rw = got[k][1], ref[1]
+                errs[f"{k}_weight_over_1e-6_rel"] = float(
+                    ((w - rw).abs() - 1e-6 * rw.abs()).max())
+            print(json.dumps({"vs_plain": which, **errs}), flush=True)
     summary = {}
     for which in repos:
         mine = [r for r in runs if r["which"] == which]
@@ -203,7 +327,8 @@ def main():
                               if not isinstance(mine[0][k], dict) else
                               {kk: sum(r[k][kk] for r in mine) / len(mine)
                                for kk in mine[0][k]})
-                          for k in mine[0] if k not in ("repo", "which")}
+                          for k in mine[0] if k not in ("repo", "which")
+                          and not isinstance(mine[0][k], list)}
     print(card)
     print(json.dumps({"summary": summary, "card": card}))
 
