@@ -24,12 +24,16 @@ Phases (any failed check raises, and the script exits non-zero):
    and redoes the chunk): 10 timed steps, 30 more, the bench's settle
    loop, 10 timed steps, with every kernel launch counted per step, then
    checks of the final state (no particle lost);
-7. hold the four FLIP kernels (advection+blend, rebin, p2g+levelset,
-   extrapolation layer) and the CG on the ghost-fluid system against their
-   plain versions on the card: every kernel call of one 128^3 step, cold
-   (PPC 10) and developed (PPC 16), a 24^3 corner dam over the advection's
-   modes, blend and obstacle options, and the rebin overflow fixture;
-   then each kernel's time on the developed step's inputs;
+7. hold the four FLIP kernels (advection+blend, the fused rebin,
+   p2g+levelset, extrapolation layer) and the CG on the ghost-fluid system
+   against their plain versions on the card: every kernel call of one
+   128^3 step, cold (PPC 10) and developed (PPC 16), a 24^3 corner dam
+   over the advection's modes, blend and obstacle options; the fused
+   rebin bitwise against flip_bucket.rebin and against the three-pass
+   kernel (each pass against its plain version) on each step's rebin, a
+   24^3 overflow, the overflow fixture and made-up buckets of 1, 24 and 40
+   slots; then each kernel's time on the developed step's inputs (the
+   three-pass kernel on the step's rebin);
 8. the FLIP port on the card against the port on the CPU, 3 steps at 24^3;
 9. path A, the bench dam solved without ghost fluid
    (scenes/flip01_simple.py: no particle levelset) at 128^3, driven and
@@ -52,12 +56,14 @@ Phases (any failed check raises, and the script exits non-zero):
    it), 10 timed steps of ``flip_step_bucketed(..., zshard=mesh)`` against
    10 one-device steps from the same state (grids, flags and buckets
    equal, no particle lost, the launches per step counted: per shard one
-   advection, two x/y rebin passes, one z rebin over the halo-extended slab
-   and one transfer; on the lead the extrapolation layers and the CG);
-   every z-slab kernel call of a step against its plain version, the z
-   rebin also on the boundary-crossing fixture at 8 shards; their times and
-   the halo copies; 3 steps at 16^3 over 8 shards on the card against the
-   CPU.
+   advection, one whole rebin of the halo-extended slab and one transfer;
+   on the lead the extrapolation layers and the CG); every z-slab kernel
+   call of a step against its plain version, the step's rebin also
+   through the three-pass kernels (the slabs' x/y passes and the z pass
+   over the halo-extended slab, each call against its plain version, the
+   result bitwise against the step's), both also on the
+   boundary-crossing fixture at 8 shards; their times and the halo
+   copies; 3 steps at 16^3 over 8 shards on the card against the CPU.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device. A
@@ -109,9 +115,11 @@ def bench_state(smoke, Domain, Sphere, res, device):
                                        source_shape=src, device=device)
 
 
-def synthetic_buckets(dom, ppc, rng, device):
+def synthetic_buckets(dom, ppc, rng, device, spread=0.5):
     """Gap-free buckets with 0..ppc particles in half the cells (the rest
-    empty), at random positions in the cell; free slots at the centre."""
+    empty), at random positions up to ``spread`` from the cell centre (past
+    0.5: in the neighbouring cells too, inside the domain); free slots at
+    the centre."""
     import torch
 
     from mantaflow_tpu_torch.ops import flip_bucket as fb
@@ -123,9 +131,13 @@ def synthetic_buckets(dom, ppc, rng, device):
     flat = np.arange(T)
     centre = (flat % sx + 0.5, (flat // sx) % sy + 0.5,
               flat // (sx * sy) + 0.5)
-    pos = [torch.tensor(np.where(valid, c + rng.uniform(-0.5, 0.5, (ppc, T)),
-                                 c).astype(np.float32), device=device)
-           for c in centre]
+    pos = []
+    for c, n_axis in zip(centre, (sx, sy, sz)):
+        p = c + rng.uniform(-spread, spread, (ppc, T))
+        if spread > 0.5:
+            p = np.clip(p, 0.01, n_axis - 0.01)
+        pos.append(torch.tensor(np.where(valid, p, c).astype(np.float32),
+                                device=device))
     zero = torch.zeros((ppc, T), dtype=torch.float32, device=device)
     return fb.Buckets(*pos, zero, zero, zero,
                       torch.tensor(valid, device=device),
@@ -543,7 +555,11 @@ def main():
     # -- 6. FLIP main path: the bench FLIP dam at 128^3 ---------------------
     fdom = Domain(size=(FLIP_RES,) * 3)
     flip_kernels = {"advect_bucket": fadk.advect_blend,
-                    "rebin": rbk.rebin_pass, "p2g_levelset": p2gk.p2g_union,
+                    "rebin_fused": rbk.rebin_fused,
+                    "rebin_fused_slab": rbk.rebin_fused_slab,
+                    "rebin": rbk.rebin_pass,
+                    "rebin_zshard": rbk.rebin_zpass_halo,
+                    "p2g_levelset": p2gk.p2g_union,
                     "p2g_mac": p2gk.p2g_mac,
                     "union_levelset": lsk.union_levelset,
                     "flip_blend": blk.flip_update,
@@ -674,19 +690,21 @@ def main():
         return numbers, fst, launches
 
     fparams = flip_bench_params(flip)
-    per_step = {"advect_bucket": 1, "rebin": 3, "p2g_levelset": 1,
+    per_step = {"advect_bucket": 1, "rebin_fused": 1, "p2g_levelset": 1,
                 "extrap_layer": 10, "cg_solve": 1}
     flip_numbers, fst, flip_launches = drive_flip("flip", fparams, per_step)
     zshard_start = fst  # phase 13 starts from the developed state
 
     # -- 7. FLIP kernels vs their plain versions on the card ----------------
     plain_of = {"advect_bucket": fadk.advect_blend_plain,
-                "rebin": fb._rebin_axis, "p2g_levelset": p2gk.p2g_union_plain,
+                "rebin_fused": fb.rebin,
+                "p2g_levelset": p2gk.p2g_union_plain,
                 "p2g_mac": fb.p2g_mac,
                 "union_levelset": fb.union_levelset_bucketed,
                 "flip_blend": fb.flip_update_bucketed,
                 "extrap_layer": xk.extrap_layer_plain}
     sites = {"advect_bucket": (fadk, "advect_blend"),
+             "rebin_fused": (rbk, "rebin_fused"),
              "rebin": (rbk, "rebin_pass"),
              "p2g_levelset": (p2gk, "p2g_union"),
              "p2g_mac": (p2gk, "p2g_mac"),
@@ -717,12 +735,26 @@ def main():
             err = max(err, float((g - r).abs().max()))
         return err
 
+    def three_passes(bk, dom_):
+        """The three-pass kernel's x, y and z passes, each against
+        ``_rebin_axis`` on its own input (bitwise); returns the result and
+        the passes' calls."""
+        calls = []
+        for axis in range(3):
+            calls.append(((bk, dom_, axis), {}))
+            nxt = rbk.rebin_pass(bk, dom_, axis)
+            bucket_err(nxt, fb._rebin_axis(bk, dom_, axis), exact=True)
+            bk = nxt
+        return bk, calls
+
     def check_call(kind, args, kwargs):
         """Kernel vs plain on one recorded call; returns max abs error."""
         orig = getattr(*sites[kind])
         got = orig(*args, **kwargs)
         ref = plain_of[kind](*args, **kwargs)
-        if kind == "rebin":
+        if kind == "rebin_fused":
+            # against flip_bucket.rebin and the three-pass kernel
+            bucket_err(got, three_passes(*args)[0], exact=True)
             return bucket_err(got, ref, exact=True)
         if kind in ("advect_bucket", "flip_blend"):
             err = bucket_err(got, ref, exact=False)
@@ -812,8 +844,11 @@ def main():
             "advect_bucket", (b_, f_, v_, vo_, dt_,
                               torch.tensor(pend, device=dev),
                               fparams.flip_ratio, d_, mode, ring), {}))
-    # the rebin on a 24^3 overflow (displacements of a cell) and the
-    # overflow fixture of tests/test_flip_bucket.py
+    # the rebin on a 24^3 overflow (displacements of a cell), the overflow
+    # fixture of tests/test_flip_bucket.py and made-up buckets over
+    # 19x23x29 (1, 24 and 40 slots, up to 1.45 cells from the centre): the
+    # fused kernel against flip_bucket.rebin and the three passes, each
+    # pass against its plain version
     moved = fb.advect_bucketed(cbk, corner.flags, cvel * 6.0,
                                torch.tensor(1.0, device=dev), cdom, 0)
     opos = np.array([[3.5, 3.5, 3.5], [2.6, 3.5, 3.5], [4.4, 3.5, 3.5],
@@ -827,20 +862,24 @@ def main():
         f: torch.where(obk.valid, getattr(obk, f)
                        + 0.9 * (3.5 - getattr(obk, f)), getattr(obk, f))
         for f in ("px", "py", "pz")})
+    sydom = Domain(size=(19, 23, 29))
+    rebin_cases = [(moved, cdom), (obk, odom)] + [
+        (synthetic_buckets(sydom, ppc, np.random.default_rng(ppc), dev,
+                           spread=1.45), sydom) for ppc in (1, 24, 40)]
     drops = []
-    for b_, d_ in ((moved, cdom), (obk, odom)):
-        got, ref = b_, b_
-        for axis in range(3):
-            got = rbk.rebin_pass(got, d_, axis)
-            ref = fb._rebin_axis(ref, d_, axis)
-            bucket_err(got, ref, exact=True)
-        drops.append(int(got.dropped))
-    require(drops[0] > 0 and drops[1] == 1, f"rebin overflow drops {drops}")
+    for b_, d_ in rebin_cases:
+        errs["rebin_fused"] = max(errs["rebin_fused"], check_call(
+            "rebin_fused", (b_, d_), {}))
+        drops.append(int(rbk.rebin_fused(b_, d_).dropped))
+    require(drops[0] > 0 and drops[1] == 1 and all(d > 0 for d in drops[2:]),
+            f"rebin overflow drops {drops}")
+    del rebin_cases
     errs["p2g_levelset"] = max(errs["p2g_levelset"], check_call(
         "p2g_levelset", (cbk, cdom, 1.0), {}))
     print(f"flip kernels vs plain, 24^3 and option sweeps: "
           f"advect_bucket {errs['advect_bucket']:.3g} over {len(options)} "
-          f"cases, rebin overflow drops {drops} bitwise, p2g_levelset "
+          f"cases, rebin (fused and three passes) overflow drops {drops} "
+          f"bitwise, p2g_levelset "
           f"{errs['p2g_levelset']:.3g}", flush=True)
 
     # times on the developed step's inputs
@@ -878,11 +917,15 @@ def main():
         return sum(valid_bytes_read(a[0]) for a, _ in calls) / len(calls)
 
     layer_bytes = [len(a[0]) * 16 * T for a, _ in dev_calls["extrap_layer"]]
+    # the three-pass kernel's x, y and z passes of the step's rebin
+    rebin_calls = three_passes(*dev_calls["rebin_fused"][0][0])[1]
     fbytes = {
         "advect_bucket": (24 + 24) * P * T + 2 * 12 * T
         + mean_valid_bytes(dev_calls["advect_bucket"]),
-        "rebin": 25 * P * T + 24 * live
-        + mean_valid_bytes(dev_calls["rebin"]),
+        "rebin": 25 * P * T + 24 * live + mean_valid_bytes(rebin_calls),
+        # the whole rebin moves what one pass does
+        "rebin_fused": 25 * P * T + 24 * live
+        + mean_valid_bytes(dev_calls["rebin_fused"]),
         "p2g_levelset": 24 * live + 28 * T
         + mean_valid_bytes(dev_calls["p2g_levelset"]),
         "extrap_layer": sum(layer_bytes) / len(layer_bytes),
@@ -890,21 +933,26 @@ def main():
     # float operations per launch, counted on the live particles: RK4 with
     # the blend ~620 per particle (4 stages x 3 components x ~36 for the
     # weights and the 8-corner blend, plus dt scaling and clamps; the
-    # blend's second grid and mix ~120); a rebin pass ~10 per particle;
+    # blend's second grid and mix ~120); a rebin pass ~10 per particle, the
+    # fused rebin three passes' worth;
     # p2g+levelset ~540 per particle (3 components x 18 taps x 5, and 27
     # levelset distances x 10); a layer ~20 per cell and pair
     fops = {"advect_bucket": 620 * live, "rebin": 10 * live,
+            "rebin_fused": 30 * live,
             "p2g_levelset": 540 * live,
             "extrap_layer": 20 * sum(len(a[0]) for a, _ in
                                      dev_calls["extrap_layer"]) * T
             / len(dev_calls["extrap_layer"])}
     for kind, kname in (("advect_bucket", "advect_bucket_kernel"),
-                        ("rebin", "rebin_pass_kernel"),
+                        ("rebin_fused", "rebin_fused_kernel<false>"),
                         ("p2g_levelset", "p2g_levelset_kernel"),
                         ("extrap_layer", "extrap_layer_kernel")):
         time_kernel(kind, kname, dev_calls[kind], getattr(*sites[kind]),
                     plain_of[kind], fbytes[kind], fops[kind],
                     f"P {P}, {live} live")
+    time_kernel("rebin", "rebin_pass_kernel", rebin_calls, rbk.rebin_pass,
+                fb._rebin_axis, fbytes["rebin"], fops["rebin"],
+                f"P {P}, {live} live, the step's rebin in three passes")
     # the developed bench dam's full-mode (ghost-fluid) solve: rhs and A0-Ak
     # in, p out, against its iterations x 24 flops per cell
     (cg_args, cg_kw), = dev_calls["cg_solve"]
@@ -952,7 +1000,7 @@ def main():
     # kernel alone, the CG on the plain system, no levelset layers
     params_a = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=False,
                                cg_accuracy=1e-3, ring_only_obstacles=True)
-    per_step_a = {"advect_bucket": 1, "rebin": 3, "p2g_mac": 1,
+    per_step_a = {"advect_bucket": 1, "rebin_fused": 1, "p2g_mac": 1,
                   "extrap_layer": 6, "cg_solve": 1}
     a_numbers, a_state, a_launches = drive_flip("flip01", params_a,
                                                 per_step_a)
@@ -969,7 +1017,7 @@ def main():
             "path B: the levelset window is not 3 cells")
     obstacle_b = Sphere(center=(FLIP_RES * 0.7, FLIP_RES * 0.28,
                                 FLIP_RES * 0.5), radius=FLIP_RES * 0.15)
-    per_step_b = {"advect_bucket": 1, "rebin": 3, "p2g_mac": 1,
+    per_step_b = {"advect_bucket": 1, "rebin_fused": 1, "p2g_mac": 1,
                   "union_levelset": 1, "extrap_layer": 10, "cg_solve": 1}
     b_numbers, b_state, b_launches = drive_flip(
         "obstacle", params_b, per_step_b, obstacle=obstacle_b, finalize=True)
@@ -1136,11 +1184,10 @@ def main():
             "zshard: the one-device reference drops particles")
     n_parts = int(zstart.buckets.count())
     z_kernels = {**flip_kernels, "advect_bucket_zshard": fadk.advect_blend_slab,
-                 "rebin_zshard": rbk.rebin_zpass_halo,
                  "p2g_levelset_zshard": p2gk.p2g_union_slab}
-    z_per_step = {"advect_bucket_zshard": mesh.n, "rebin": 2 * mesh.n,
-                  "rebin_zshard": mesh.n, "p2g_levelset_zshard": mesh.n,
-                  "extrap_layer": 10, "cg_solve": 1}
+    z_per_step = {"advect_bucket_zshard": mesh.n, "rebin_fused_slab": mesh.n,
+                  "p2g_levelset_zshard": mesh.n, "extrap_layer": 10,
+                  "cg_solve": 1}
     sh0 = shd.shard_flip_bucket_state(zstart, mesh)
     flip.flip_step_bucketed(sh0, fdom, fparams, zshard=mesh)  # warm
     torch.cuda.synchronize()
@@ -1191,28 +1238,46 @@ def main():
           f"launches {z_launches}", flush=True)
 
     # every z-slab kernel call of one step against its plain version; the
-    # halo copies of the step (halo_z, and the lead's scatter_z/gather_z)
+    # halo copies of the step (halo_z, and the lead's scatter_z/gather_z).
+    # The three-pass kernels are off the step's path: the step's rebin
+    # input goes through them too (the slabs' x and y passes, K9), each
+    # call recorded and held against its plain version, the result against
+    # the step's rebin
     z_sites = {"advect_bucket_zshard": (fadk, "advect_blend_slab"),
-               "rebin": (rbk, "rebin_pass"),
-               "rebin_zshard": (rbk, "rebin_zpass_halo"),
+               "rebin_fused_slab": (rbk, "rebin_fused_slab"),
+               "rebin_zshard_step": (rbk, "rebin_zshard"),
                "p2g_levelset_zshard": (p2gk, "p2g_union_slab"),
                "halo_z": (shd, "halo_z"), "scatter_z": (shd, "scatter_z"),
                "gather_z": (shd, "gather_z")}
+    three_sites = {"rebin": (rbk, "rebin_pass"),
+                   "rebin_zshard": (rbk, "rebin_zpass_halo")}
     z_plain = {"advect_bucket_zshard": fadk.advect_blend_slab_plain,
+               "rebin_fused_slab": fb.rebin_slab_plain,
                "rebin": fb._rebin_axis,
                "rebin_zshard": fb.rebin_zpass_halo_plain,
                "p2g_levelset_zshard": p2gk.p2g_union_slab_plain}
-    zcalls = {k: [] for k in z_sites}
+    z_wrappers = {**z_sites, **three_sites}
+    zcalls = {k: [] for k in z_wrappers}
     with contextlib.ExitStack() as stack:
         for k, (mod, name) in z_sites.items():
             stack.enter_context(recording(mod, name, zcalls[k]))
         flip.flip_step_bucketed(sh, fdom, fparams, zshard=mesh)
+    (z_rebin_args, _), = zcalls["rebin_zshard_step"]
+    with contextlib.ExitStack() as stack:
+        for k, (mod, name) in three_sites.items():
+            stack.enter_context(recording(mod, name, zcalls[k]))
+        z_three = rbk.rebin_zshard_three_pass(*z_rebin_args)
+    bucket_err(shd.unshard_buckets(z_three),
+               shd.unshard_buckets(rbk.rebin_zshard(*z_rebin_args)),
+               exact=True)
+    del z_three, z_rebin_args
     torch.cuda.synchronize()
+    z_calls_want = {**z_per_step, "rebin": 2 * mesh.n, "rebin_zshard": mesh.n}
     for k in z_plain:
-        require(len(zcalls[k]) == z_per_step[k],
+        require(len(zcalls[k]) == z_calls_want[k],
                 f"zshard: {len(zcalls[k])} {k} calls in one step")
     for k, plain in z_plain.items():
-        kernel = getattr(*z_sites[k])
+        kernel = getattr(*z_wrappers[k])
         for args, kwargs in zcalls[k]:
             got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
             if k == "p2g_levelset_zshard":
@@ -1238,33 +1303,42 @@ def main():
         for i, f in enumerate(("px", "py", "pz"))})
     xmesh = shd.make_zmesh(8, devices=mesh.devices)
     xlocal = Domain(size=(16, 16, 2))
+    xsbk = shd.shard_buckets(xbk, xmesh)
     xslabs = []
-    for i, b in enumerate(shd.shard_buckets(xbk, xmesh).slabs):
+    for i, b in enumerate(xsbk.slabs):
         for axis in (0, 1):
             b = rbk.rebin_pass(b, xlocal, axis, z_base=2 * i)
         xslabs.append(b)
     for i, e in enumerate(rbk.halo_buckets(xslabs, 1, xlocal)):
         bucket_err(rbk.rebin_zpass_halo(e, xlocal, 2 * i, 16),
                    fb.rebin_zpass_halo_plain(e, xlocal, 2 * i, 16), exact=True)
-    xgot = shd.unshard_buckets(rbk.rebin_zshard(shd.shard_buckets(xbk, xmesh),
-                                                xdom, xmesh))
-    bucket_err(xgot, fb.rebin(xbk, xdom), exact=True)
+    for i, e in enumerate(rbk.halo_buckets(xsbk.slabs, 1, xlocal)):
+        bucket_err(rbk.rebin_fused_slab(e, xlocal, 2 * i, 16),
+                   fb.rebin_slab_plain(e, xlocal, 2 * i, 16), exact=True)
+    xref = fb.rebin(xbk, xdom)
+    for rebin_sharded in (rbk.rebin_zshard, rbk.rebin_zshard_three_pass):
+        xgot = shd.unshard_buckets(rebin_sharded(xsbk, xdom, xmesh))
+        bucket_err(xgot, xref, exact=True)
     require(int(xgot.dropped) > 0, "crossing fixture: no overflow")
     print(f"zshard kernels vs plain on the step's calls: "
           + ", ".join(f"{k} {errs[k]:.3g}" for k in z_plain)
-          + f"; rebin_zshard on the 8-shard crossing fixture bitwise, "
-          f"{int(xgot.dropped)} dropped as fb.rebin", flush=True)
-    del xbk, xgot, xslabs
+          + f"; the slab rebin (fused and three passes) on the 8-shard "
+          f"crossing fixture bitwise, {int(xgot.dropped)} dropped as "
+          "fb.rebin", flush=True)
+    del xbk, xsbk, xgot, xslabs, xref
 
-    # times per launch on the step's inputs; the bound of the z rebin is
-    # counted as the rebin pass's: the valid bytes valid_bytes_read counts
-    # in its input (the halo planes too), the six fields of the live
-    # particles, every output slot
+    # times per launch on the step's inputs; the bounds of the slab rebin
+    # and of the z pass are counted as the rebin pass's: the valid bytes
+    # valid_bytes_read counts in the input (the halo planes too), the six
+    # fields of the live particles, every output slot
     zk = {}
     zP = sh.buckets.ppc
     t_slab = fdom.num_cells // mesh.n
     z_live = sum(int(s.valid.sum()) for s in sh.buckets.slabs) / mesh.n
     for k, kname, nbytes, nops in (
+            ("rebin_fused_slab", "rebin_fused_kernel<true>",
+             mean_valid_bytes(zcalls["rebin_fused_slab"]) + 25 * zP * t_slab
+             + 24 * z_live, 30 * z_live),
             ("rebin_zshard", "rebin_zshard_kernel",
              mean_valid_bytes(zcalls["rebin_zshard"]) + 25 * zP * t_slab
              + 24 * z_live, 10 * z_live),
@@ -1279,7 +1353,7 @@ def main():
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = nops / FP32_OPS_PER_S * 1e3
         ms, call_ms, timed_by = timed_launches(
-            torch, replay(calls, getattr(*z_sites[k])), 5, kname, len(calls))
+            torch, replay(calls, getattr(*z_wrappers[k])), 5, kname, len(calls))
         zk[k] = {"ms": ms, "call_ms": call_ms, "timed_by": timed_by,
                  "plain_ms": cuda_ms(torch, replay(calls, z_plain[k]), 1)
                  / len(calls),
@@ -1359,7 +1433,8 @@ def main():
     # the TPU kernel replaced, and (rebin) the others of the same function
     flip_replaces = {
         "advect_bucket": [f"{fbp}:80"],
-        "rebin": [f"{fbp}:{n}" for n in (744, 301, 433, 482, 1079)],
+        "rebin_fused": [f"{fbp}:1079"],
+        "rebin": [f"{fbp}:{n}" for n in (744, 301, 433, 482)],
         "p2g_levelset": ["mantaflow_tpu/ops/flip_bucket_pallas2.py:408"],
         "extrap_layer": ["mantaflow_tpu/ops/extrapolation_pallas.py:45"]}
     fbp2 = "mantaflow_tpu/ops/flip_bucket_pallas2.py"
@@ -1382,9 +1457,11 @@ def main():
         if kind == "advect_bucket":
             entry["max_abs_err_with_obstacle"] = obstacle_err
         kernels.append(entry)
-    # the z-slab kernels: K9, and the z-slab forms of K3 and K10, each its
-    # own __global__ function (in the one-domain kernel's source for K3/K10)
+    # the z-slab kernels: the slab rebin, K9, and the z-slab forms of K3
+    # and K10, each its own __global__ function or template instance (in
+    # the one-domain kernel's source for the slab rebin, K3 and K10)
     z_sources = {"advect_bucket_zshard": ("advect_bucket", f"{fbp}:80"),
+                 "rebin_fused_slab": ("rebin_fused", f"{fbp}:1310"),
                  "rebin_zshard": ("rebin_zshard", f"{fbp}:1310"),
                  "p2g_levelset_zshard": ("p2g_levelset", f"{fbp2}:408")}
     for name, (src, repl) in z_sources.items():

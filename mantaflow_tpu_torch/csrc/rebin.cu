@@ -1,7 +1,10 @@
 // One axis pass of the bucket rebin: the hand-written Hopper kernel behind
 // ops/rebin_kernels.py:rebin_pass. Three launches (x, y, z) make the whole
-// rebin after an advection step; on a z-slab of the sharded step it runs
-// the x and y passes (the z pass there is csrc/rebin_zshard.cu).
+// rebin (rebin_three_pass); on a z-slab it runs the x and y passes, before
+// the z pass of csrc/rebin_zshard.cu (rebin_zshard_three_pass). The FLIP
+// step runs neither: its rebin is csrc/rebin_fused.cu, all three passes in
+// one launch (one per shard on the sharded step), held bitwise against
+// these passes.
 //
 // Replaces the TPU kernels mantaflow_tpu/ops/flip_bucket_pallas.py:
 // _rebin_xy_kernel (x then y in one plane-local pass), _rebin_pass_kernel

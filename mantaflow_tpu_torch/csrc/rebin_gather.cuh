@@ -1,8 +1,10 @@
 // The rebin gather shared by csrc/rebin.cu (one axis pass over the whole
 // domain, or an x or y pass over a z-slab) and csrc/rebin_zshard.cu (the z
 // pass of a z-slab, read from the slab extended by one plane of each
-// neighbour). One thread per destination cell walks the slots of its three
-// source cells along the axis and copies the arrivals in merge order.
+// neighbour): the three-pass rebin, off the FLIP step's path since the
+// fused kernel (csrc/rebin_fused.cu) took its place. One thread per
+// destination cell walks the slots of its three source cells along the
+// axis and copies the arrivals in merge order.
 // kHalo is a compile-time flag, so the one-domain pass compiles the body it
 // had and nothing of the extended read.
 //

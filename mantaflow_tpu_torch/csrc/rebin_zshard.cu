@@ -1,7 +1,9 @@
 // The z pass of the rebin on one z-slab of the sharded FLIP step: the
 // hand-written Hopper kernel behind ops/rebin_kernels.py:rebin_zpass_halo,
-// one launch per shard and step, after the slab's x and y passes
-// (csrc/rebin.cu).
+// after the slab's x and y passes (csrc/rebin.cu), in
+// rebin_zshard_three_pass. The sharded step itself rebins each slab in one
+// launch of csrc/rebin_fused.cu's slab form, held bitwise against this
+// three-pass form.
 //
 // Replaces the TPU kernel mantaflow_tpu/ops/flip_bucket_pallas.py:
 // _rebin_zpass_kernel_sh (_rebin_z_sharded, rebin_zshard_spmd), which

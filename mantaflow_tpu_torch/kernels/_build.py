@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("window_advect", "cg_solve", "extrap_layer", "rebin",
            "advect_bucket", "p2g_levelset", "p2g_mac", "union_levelset",
-           "flip_blend", "rebin_zshard")
+           "flip_blend", "rebin_zshard", "rebin_fused")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the FLIP kernels keep their plain versions' rounding: no a*b+c contracted
@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
                ("extrap_layer", "advect_bucket", "p2g_levelset", "p2g_mac",
                 "union_levelset", "flip_blend")}
+
+# the shared memory one block may opt in to on an H100 (227 KB); the launch
+# plans of the kernels that stage in shared memory fit within it
+SMEM_OPTIN_BYTES = 232448
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

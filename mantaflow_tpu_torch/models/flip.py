@@ -10,7 +10,7 @@ before particle velocities are read.
 
 On a GPU the particle stages run through the hand-written CUDA kernels, as
 the JAX package's TPU branch runs its Pallas kernels: advection with the
-blend (``advect_bucket_kernels``), the three rebin passes
+blend (``advect_bucket_kernels``), the rebin's three passes in one launch
 (``rebin_kernels``), the particle-to-grid transfer (``p2g_kernels``: fused
 with the union levelset when there is ghost fluid and the particle radius
 spans one cell; else alone, followed with ghost fluid by
@@ -24,7 +24,8 @@ host; ``flip_run_bucketed_auto`` reads ``dropped`` once per chunk.
 The z-sharded branch (``zshard=mesh``, a ``parallel.sharding.ZMesh``, on a
 state from ``shard_flip_bucket_state``) runs the particle stages per
 shard over z-slabs of the buckets, as the JAX package's branch does with
-``shard_map``: the advection and the rebin, and with ghost fluid and a
+``shard_map``: the advection and the rebin (one launch per slab, over the
+slab extended by one plane of each neighbour), and with ghost fluid and a
 one-cell levelset window the fused transfer. Their slabs of ``vel``,
 ``weight`` and ``phi`` are joined on the lead, where the grid stages run
 as on one device, over whole grids. On the routes that are not fused the

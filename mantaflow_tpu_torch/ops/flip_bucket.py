@@ -20,9 +20,10 @@ host in numpy, as in the reference: set-up and overflow recovery only.
 For the z-sharded step (``parallel/sharding.py``) the rebin takes a slab's
 global z offset (``_rebin_axis``'s ``z_base``) and a slab's z pass reads
 the slab extended by one plane of each neighbour
-(``rebin_zpass_halo_plain``); ``embed_slab`` places a slab in an otherwise
-empty domain, where the slab forms' plain versions run the whole-domain
-functions. ``counts_bucketed``, ``mark_fluid_cells_bucketed``,
+(``rebin_zpass_halo_plain``); ``rebin_slab_plain`` is a slab's whole
+rebin from its pre-rebin planes so extended; ``embed_slab`` places a slab
+in an otherwise empty domain, where the slab forms' plain versions run the
+whole-domain functions. ``counts_bucketed``, ``mark_fluid_cells_bucketed``,
 ``max_cell_occupancy`` and ``to_particles`` read a bucket set only through
 ``whole()`` and ``cell_counts()``, which a sharded one answers too.
 """
@@ -466,6 +467,37 @@ def rebin_zpass_halo_plain(ext: Buckets, dom: Domain, z_base: int,
     return Buckets(*(o[:, inner].contiguous() for o in outs),
                    valid=new_valid[:, inner].contiguous(),
                    dropped=ext.dropped + over)
+
+
+def rebin_slab_plain(ext: Buckets, dom: Domain, z_base: int,
+                     sz_global: int) -> Buckets:
+    """The whole rebin of one shard's slab, the z-slab form of ``rebin``:
+    ``ext`` holds the slab's buckets before the rebin, ``dom.shape[0]``
+    planes with one neighbour plane on each side (global planes
+    ``z_base - 1 ..``; empty past the domain's ends), ``dom`` is the slab's
+    domain. The x and y passes run over all of ``ext`` at global z, then
+    the z pass (``rebin_zpass_halo_plain``). Returns the slab's buckets;
+    ``dropped`` is ``ext``'s plus the overflow of the slab's own cells: the
+    halo planes' x/y overflow is the neighbouring shards' and is taken off
+    again, so the shards' sum is the whole domain's."""
+    lz, sy, sx = dom.shape
+    if ext.ncells != (lz + 2) * sy * sx:
+        raise ValueError(f"rebin_slab: ext must hold {lz + 2} planes")
+    sxy = sy * sx
+
+    def halo_count(b):
+        return (b.valid[:, :sxy].sum(dtype=torch.int32)
+                + b.valid[:, -sxy:].sum(dtype=torch.int32))
+
+    ext_dom = Domain(size=(sx, sy, lz + 2))
+    xy = ext
+    for axis in (0, 1):
+        xy = _rebin_axis(xy, ext_dom, axis, z_base - 1)
+    # the x and y passes are plane-local: a halo plane's lost particles are
+    # its overflow
+    halo_over = halo_count(ext) - halo_count(xy)
+    out = rebin_zpass_halo_plain(xy, dom, z_base, sz_global)
+    return dataclasses.replace(out, dropped=out.dropped - halo_over)
 
 
 def embed_z(a, dim: int, z0: int, sz: int):

@@ -23,6 +23,7 @@ import torch
 
 from ..core.domain import Domain
 from ..kernels import _build
+from ..kernels._build import SMEM_OPTIN_BYTES
 from . import flip_bucket as fb
 from .rebin_kernels import check_buckets
 
@@ -34,7 +35,6 @@ _ARGS = ((_PTR,) * 5 + (ctypes.c_longlong,) + (_INT,) * 6
 # block, and the most slots per source cell staged at a time
 LS_BRICK = (8, 8, 8)
 LS_CHUNK = 8
-SMEM_OPTIN_BYTES = 232448  # an H100 block's shared memory (227 KB)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,9 +35,9 @@ import torch
 
 from ..core.domain import Domain
 from ..kernels import _build
+from ..kernels._build import SMEM_OPTIN_BYTES
 from ..parallel import sharding as shd
 from . import flip_bucket as fb
-from .levelset_kernels import SMEM_OPTIN_BYTES
 from .rebin_kernels import check_buckets, halo_buckets
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int

@@ -1,21 +1,26 @@
 """The bucket rebin through the hand-written CUDA kernels.
 
-``rebin_pass`` is the port of ``mantaflow_tpu/ops/flip_bucket_pallas.py``'s
-rebin kernels (``_rebin_xy_kernel``, ``_rebin_pass_kernel``,
-``_rebin_zpass_kernel``; ``rebin_pallas``): one axis pass of the rebin after
-advection, in one launch of ``csrc/rebin.cu``. On a CPU tensor it runs the
-plain PyTorch version, ``flip_bucket._rebin_axis``. ``rebin`` runs the x, y
-and z passes, as ``flip_bucket.rebin`` does; the result is bit-exact
-against it, ``dropped`` included.
+``rebin`` is the rebin of the FLIP step after the advection: ``rebin_fused``,
+its x, y and z passes in one launch of ``csrc/rebin_fused.cu``, the port of
+``mantaflow_tpu/ops/flip_bucket_pallas.py:_rebin_fused_kernel``
+(``rebin_fused``) and of the three-pass kernels it stands for
+(``_rebin_xy_kernel``, ``_rebin_pass_kernel``, ``_rebin_zpass_kernel``;
+``rebin_pallas``). ``rebin_plan`` mirrors its tile, run and shared memory.
+``rebin_zshard``, the rebin of a bucket set cut into z-slabs
+(``parallel/sharding.py``; the port of ``rebin_zshard_spmd``), extends each
+shard's slab by one plane of each neighbour and runs the kernel's z-slab
+form, ``rebin_fused_slab``, once per shard (the port of
+``_rebin_zpass_kernel_sh`` with the slab's x and y passes). On a CPU tensor
+they run the plain PyTorch versions, ``flip_bucket.rebin`` and
+``flip_bucket.rebin_slab_plain``. Both equal the three passes of
+``flip_bucket.rebin`` bit for bit, ``dropped`` included.
 
-``rebin_zshard`` is the port of ``rebin_zshard_spmd``, the rebin of a bucket
-set cut into z-slabs (``parallel/sharding.py``): on each shard the x and y
-passes over its slab (``rebin_pass`` with the slab's z offset), then the z
-pass over the slab extended by one plane of each neighbour
-(``rebin_zpass_halo``: ``csrc/rebin_zshard.cu``, the port of
-``_rebin_zpass_kernel_sh``; plain version
-``flip_bucket.rebin_zpass_halo_plain``). It equals ``rebin`` of the whole
-set bit for bit, ``dropped`` included.
+The three-pass kernels stay, off the step's path, as the counterparts of the
+TPU's pass kernels: ``rebin_pass`` (``csrc/rebin.cu``, one axis pass; plain
+``flip_bucket._rebin_axis``), ``rebin_three_pass`` (its x, y and z passes),
+``rebin_zpass_halo`` (``csrc/rebin_zshard.cu``, a slab's z pass after its
+x and y passes; plain ``flip_bucket.rebin_zpass_halo_plain``) and
+``rebin_zshard_three_pass`` (the sharded rebin through them).
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import torch
 
 from ..core.domain import Domain
 from ..kernels import _build
+from ..kernels._build import SMEM_OPTIN_BYTES
 from ..parallel import sharding as shd
+from . import flip_bucket as fb
 from .flip_bucket import Buckets, _rebin_axis, rebin_zpass_halo_plain
 
 _FIELDS = ("px", "py", "pz", "vx", "vy", "vz")
@@ -38,6 +45,56 @@ _ARGS = ((ctypes.POINTER(_PTR), _PTR, ctypes.POINTER(_PTR), _PTR, _PTR,
           ctypes.c_longlong) + (_INT,) * 7 + (_PTR,))
 _ZSHARD_ARGS = ((ctypes.POINTER(_PTR), _PTR, ctypes.POINTER(_PTR), _PTR,
                  _PTR) + (ctypes.c_longlong,) * 2 + (_INT,) * 6 + (_PTR,))
+_FUSED_ARGS = ((ctypes.POINTER(_PTR), _PTR, ctypes.POINTER(_PTR), _PTR,
+                _PTR) + (ctypes.c_longlong,) * 2 + (_INT,) * 10
+               + (ctypes.c_longlong, _INT, _PTR))
+
+# csrc/rebin_fused.cu: a block's tile is REBIN_TILE_X columns in x by
+# `rows` in y (tried in this order), one thread a column, over a run of
+# REBIN_RUN output planes; a staged particle is referenced as
+# slot * window + cell in 14 bits
+REBIN_TILE_X = 32
+REBIN_ROWS = (4, 2, 1)
+REBIN_RUN = 4
+REBIN_REF_LIMIT = 1 << 14
+
+
+@dataclasses.dataclass(frozen=True)
+class RebinPlan:
+    """The fused rebin's launch for P slots over (nz, sy, sx) planes."""
+    grid: tuple[int, int, int]  # tiles in x, y; runs in z
+    rows: int                   # tile rows; threads = REBIN_TILE_X * rows
+    ppc: int
+
+    @property
+    def window(self) -> int:
+        """Cells staged per plane: the tile and one cell around it."""
+        return (REBIN_TILE_X + 2) * (self.rows + 2)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Counts of the window, of the x merge's cells and of three ring
+        planes (4 bytes each); x-merge, ring and z-merge references (2
+        bytes per slot); codes (1 byte per slot and window cell)."""
+        xs = REBIN_TILE_X * (self.rows + 2)
+        cols = REBIN_TILE_X * self.rows
+        return (4 * (self.window + xs + 3 * cols)
+                + 2 * self.ppc * (xs + 4 * cols) + self.ppc * self.window)
+
+
+def rebin_plan(shape, ppc: int) -> RebinPlan:
+    """Tiles over a (nz, sy, sx) output: the widest tile whose references
+    and shared memory fit P = ``ppc`` slots (4 rows up to P 80, then 2 and
+    1 row up to P 160); raises past that."""
+    nz, sy, sx = shape
+    for rows in REBIN_ROWS:
+        plan = RebinPlan((-(-sx // REBIN_TILE_X), -(-sy // rows),
+                          -(-nz // REBIN_RUN)), rows, ppc)
+        if (ppc * plan.window <= REBIN_REF_LIMIT
+                and plan.smem_bytes <= SMEM_OPTIN_BYTES):
+            return plan
+    raise ValueError(f"rebin_fused: {ppc} slots per cell do not fit one "
+                     "block's tile")
 
 
 def check_buckets(bk: Buckets, dom: Domain, who: str):
@@ -103,11 +160,79 @@ def rebin_pass(bk: Buckets, dom: Domain, axis: int,
 rebin_pass.launches = 0  # kernel launches (CUDA only)
 
 
-def rebin(bk: Buckets, dom: Domain) -> Buckets:
-    """Full rebin after advection: the x, y and z passes."""
+def rebin_three_pass(bk: Buckets, dom: Domain) -> Buckets:
+    """The rebin through the three-pass kernel: the x, y and z passes."""
     for axis in range(3):
         bk = rebin_pass(bk, dom, axis)
     return bk
+
+
+def _launch_fused(src: Buckets, shape, sz: int, z_base: int,
+                  slab: bool) -> Buckets:
+    """One launch of the fused kernel for the (nz, sy, sx) output planes
+    ``shape`` from global plane ``z_base``; ``slab``: ``src`` holds one
+    plane more on each side."""
+    nz, sy, sx = shape
+    dev = src.px.device
+    plan = rebin_plan(shape, src.ppc)
+    out_shape = (src.ppc, nz * sy * sx)
+    out = {n: torch.empty(out_shape, dtype=torch.float32, device=dev)
+           for n in _FIELDS}
+    valid = torch.empty(out_shape, dtype=torch.bool, device=dev)
+    dropped = src.dropped.clone()
+    _build.launcher("rebin_fused", _FUSED_ARGS)(
+        _ptrs([getattr(src, n) for n in _FIELDS]), src.valid.data_ptr(),
+        _ptrs([out[n] for n in _FIELDS]), valid.data_ptr(),
+        dropped.data_ptr(), out_shape[1], src.ncells, src.ppc, sx, sy, sz,
+        int(z_base), int(slab), plan.rows, *plan.grid, plan.smem_bytes,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return Buckets(**out, valid=valid, dropped=dropped)
+
+
+def rebin_fused(bk: Buckets, dom: Domain) -> Buckets:
+    """The whole rebin after advection in one launch; the buckets must be
+    gap-free, as every bucket set of the step is. CUDA tensors run the
+    kernel, CPU tensors ``flip_bucket.rebin``."""
+    dev = bk.px.device
+    if dev.type == "cpu":
+        return fb.rebin(bk, dom)
+    if dev.type != "cuda":
+        raise ValueError(f"rebin_fused: unsupported device {dev}")
+    check_buckets(bk, dom, "rebin_fused")
+    out = _launch_fused(bk, dom.shape, dom.shape[0], 0, False)
+    rebin_fused.launches += 1
+    return out
+
+
+rebin_fused.launches = 0  # kernel launches (CUDA only)
+
+
+def rebin(bk: Buckets, dom: Domain) -> Buckets:
+    """The step's rebin after advection: ``rebin_fused``."""
+    return rebin_fused(bk, dom)
+
+
+def rebin_fused_slab(ext: Buckets, dom: Domain, z_base: int,
+                     sz_global: int) -> Buckets:
+    """The whole rebin of one z-slab in one launch: ``ext`` holds the
+    slab's gap-free buckets before the rebin (``dom``, global planes from
+    ``z_base``) with one plane of each neighbour on either side; returns
+    the slab's buckets, the overflow of its own cells added to
+    ``ext.dropped``. CUDA tensors run the kernel, CPU tensors
+    ``flip_bucket.rebin_slab_plain``."""
+    dev = ext.px.device
+    if dev.type == "cpu":
+        return fb.rebin_slab_plain(ext, dom, z_base, sz_global)
+    if dev.type != "cuda":
+        raise ValueError(f"rebin_fused_slab: unsupported device {dev}")
+    lz, sy, sx = dom.shape
+    check_buckets(ext, Domain(size=(sx, sy, lz + 2)), "rebin_fused_slab")
+    out = _launch_fused(ext, dom.shape, int(sz_global), z_base, True)
+    rebin_fused_slab.launches += 1
+    return out
+
+
+rebin_fused_slab.launches = 0  # kernel launches (CUDA only)
 
 
 def _rebin_zpass_halo_cuda(ext: Buckets, dom: Domain, z_base: int,
@@ -161,12 +286,34 @@ def halo_buckets(slabs, h: int, dom: Domain):
             for i, b in enumerate(slabs)]
 
 
+def _zshard_result(sbk: shd.ShardedBuckets, out, mesh: shd.ZMesh):
+    """The shards' rebinned slabs, their drops summed into ``dropped`` on
+    the lead."""
+    dropped = sbk.dropped + shd.psum([b.dropped for b in out], mesh.lead)
+    return shd.ShardedBuckets(
+        slabs=[dataclasses.replace(b, dropped=s.dropped)
+               for b, s in zip(out, sbk.slabs)], dropped=dropped, mesh=mesh)
+
+
 def rebin_zshard(sbk: shd.ShardedBuckets, dom: Domain,
                  mesh: shd.ZMesh) -> shd.ShardedBuckets:
     """The rebin of a z-sharded bucket set (flip_bucket_pallas.py:
-    rebin_zshard_spmd): per shard the x and y passes over its slab, the
-    slabs' one-plane halos, and the z pass; the shards' drops summed into
-    ``dropped`` on the lead."""
+    rebin_zshard_spmd): the slabs' one-plane halos, then per shard the
+    whole rebin of its slab in one launch (``rebin_fused_slab``); the
+    shards' drops summed into ``dropped`` on the lead."""
+    sz, sy, sx = dom.shape
+    lz = mesh.planes(sz)
+    local = Domain(size=(sx, sy, lz))
+    ext = halo_buckets(sbk.slabs, 1, local)
+    out = [rebin_fused_slab(e, local, i * lz, sz) for i, e in enumerate(ext)]
+    return _zshard_result(sbk, out, mesh)
+
+
+def rebin_zshard_three_pass(sbk: shd.ShardedBuckets, dom: Domain,
+                            mesh: shd.ZMesh) -> shd.ShardedBuckets:
+    """``rebin_zshard`` through the three-pass kernels: per shard the x and
+    y passes over its slab (``rebin_pass`` with the slab's z offset), the
+    slabs' one-plane halos, and the z pass (``rebin_zpass_halo``)."""
     sz, sy, sx = dom.shape
     lz = mesh.planes(sz)
     local = Domain(size=(sx, sy, lz))
@@ -177,7 +324,4 @@ def rebin_zshard(sbk: shd.ShardedBuckets, dom: Domain,
         xy.append(b)
     ext = halo_buckets(xy, 1, local)
     out = [rebin_zpass_halo(e, local, i * lz, sz) for i, e in enumerate(ext)]
-    dropped = sbk.dropped + shd.psum([b.dropped for b in out], mesh.lead)
-    return shd.ShardedBuckets(
-        slabs=[dataclasses.replace(b, dropped=s.dropped)
-               for b, s in zip(out, sbk.slabs)], dropped=dropped, mesh=mesh)
+    return _zshard_result(sbk, out, mesh)

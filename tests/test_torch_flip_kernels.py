@@ -140,7 +140,7 @@ def test_rebin_kernel_matches_plain_bitwise(cuda, scale):
     moved = fb.advect_bucketed(bk, flags, vel * scale,
                                torch.tensor(1.0, device=cuda), dom, 0)
     before = rbk.rebin_pass.launches
-    got = rbk.rebin(moved, dom)
+    got = rbk.rebin_three_pass(moved, dom)
     torch.cuda.synchronize()
     assert rbk.rebin_pass.launches == before + 3
     ref = fb.rebin(moved, dom)
@@ -165,7 +165,7 @@ def test_rebin_kernel_overflow_fixture(cuda):
         f: torch.where(bk.valid, getattr(bk, f)
                        + 0.9 * (3.5 - getattr(bk, f)), getattr(bk, f))
         for f in ("px", "py", "pz")})
-    got, ref = rbk.rebin(bk, dom), fb.rebin(bk, dom)
+    got, ref = rbk.rebin_three_pass(bk, dom), fb.rebin(bk, dom)
     assert int(got.dropped) == int(ref.dropped) == 1
     assert torch.equal(got.valid, ref.valid)
     for f in FIELDS:
@@ -540,7 +540,7 @@ def test_rebin_zshard_kernel_matches_plain_bitwise(cuda, n):
         assert int(got.dropped) == int(ref.dropped)
         for f in FIELDS + ("valid",):
             assert torch.equal(getattr(got, f), getattr(ref, f)), (i, f)
-    got = shd.unshard_buckets(rbk.rebin_zshard(sbk, dom, mesh))
+    got = shd.unshard_buckets(rbk.rebin_zshard_three_pass(sbk, dom, mesh))
     ref = fb.rebin(bk, dom)
     assert int(got.dropped) == int(ref.dropped) > 0
     for f in FIELDS + ("valid",):

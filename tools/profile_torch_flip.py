@@ -14,8 +14,8 @@ without ghost fluid, scenes/flip01_simple.py: the transfer alone) or
 dam developed on one device, then cut into ``--shards`` z-slabs over every
 visible card (``parallel/sharding.py``) and stepped with
 ``flip_step_bucketed(..., zshard=mesh)``: per shard the z-slab forms of the
-advection and the transfer, the x/y rebin passes and the z rebin over the
-halo-extended slab, the grid stages on the lead; its halo copies
+advection, the rebin (the whole rebin of the halo-extended slab in one
+launch) and the transfer, the grid stages on the lead; its halo copies
 (``halo_z``, ``scatter_z``, ``gather_z``) of one step are recorded and
 timed on their own (CUDA events over 10 replays), and it has no runner
 chunks (the runner takes no mesh). It runs 1 warm step and
@@ -48,6 +48,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # kernel name in the trace -> group
 GROUPS = {"advect_bucket_kernel": "advect_bucket",
           "advect_bucket_zshard_kernel": "advect_bucket_zshard",
+          "rebin_fused_kernel<false>": "rebin_fused",
+          "rebin_fused_kernel<true>": "rebin_fused_slab",
           "rebin_pass_kernel": "rebin",
           "rebin_zshard_kernel": "rebin_zshard",
           "p2g_levelset_kernel": "p2g_levelset",

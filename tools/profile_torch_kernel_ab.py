@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the CG (K2), union-levelset (K12) and particle-to-grid (K10, its
-z-slab form, K11) kernels of this checkout against another checkout's, on
-the same inputs, on one GPU.
+"""Time the CG (K2), union-levelset (K12), particle-to-grid (K10, its
+z-slab form, K11) kernels and the rebin (one device and z-sharded) of this
+checkout against another checkout's, on the same inputs, on one GPU.
 
     git archive <commit> | tar -x -C build/ab_other
     python3 tools/profile_torch_kernel_ab.py --other build/ab_other \
@@ -13,30 +13,36 @@ system after 5 steps (chip_smoke.py phase 4: full-stencil mode, accuracy
 flip_run_bucketed_auto for 70 steps (PPC escalated): the bench's
 ghost-fluid dam (chip_smoke.py phase 6), the same dam without ghost fluid
 (phase 9, flip01) and the obstacle dam (phase 10: radius_factor 2.5, the
-sphere obstacle); and the bench dam's buckets cut into 4 z-slabs, each
-extended by one plane of each neighbour (phase 13). Each checkout times
-its wrappers with CUDA events over ``--reps`` calls, after one warm call
-(the transfer first, in three rounds over its four inputs in turn, whose
-median it keeps; a process's first round reads up to 3x slow):
+sphere obstacle); the bench dam's buckets cut into 4 z-slabs, each
+extended by one plane of each neighbour (phase 13); and the input of the
+developed bench dam's rebin, its buckets after one more advection. Each
+checkout times its wrappers with CUDA events over ``--reps`` calls, after
+one warm call (the transfer and the rebin first, in three rounds over
+their inputs in turn, whose median it keeps; a process's first round
+reads up to 3x slow):
 ``cg_solve`` on the smoke system and the obstacle step's ghost-fluid
 system, and on an 8^3 system run for 2000 iterations (accuracy 0), which
 is its grid barriers and reductions with next to no cells;
 ``union_levelset`` on the obstacle dam at radius_factor 1.0, 1.5 and 2.5
 (windows of 1, 2 and 3 cells); ``p2g_union`` (K10) on the bench dam,
 ``p2g_union_slab`` on the four slabs (per launch), ``p2g_mac`` (K11) on
-the flip01 and the obstacle dams. Untimed, K10 and K11 also run on the
+the flip01 and the obstacle dams; ``rebin_kernels.rebin`` (the step's
+rebin, whatever kernels the checkout runs it through) on the advected
+bench dam, and ``rebin_kernels.rebin_zshard`` on its 4 z-slabs (per step:
+the halo copies and every launch). Untimed, K10 and K11 also run on the
 made-up buckets of the ``gpu`` case ``test_p2g_kernels_synthetic_buckets``
 (tests/test_torch_flip_kernels.py: 19x23x29, 1 to 40 slots, random, empty
 and full fills, made-up velocities; its generator is imported, so the
 inputs are the test's). The inputs are saved to a file; then each checkout
 of ``--order`` runs in a process of its own, which imports that checkout's
 ``mantaflow_tpu_torch`` and builds its kernels. Prints one JSON line per
-run, the max |difference| of the transfer's outputs between the two
-checkouts (a change in the order of its sums shows as a number) and
-between two runs of one checkout, each checkout's max |error| against the
-plain version on the made-up buckets (vel, weight, phi, and the weight's
-error over 1e-6 of itself), and a summary line: per checkout, the mean
-over its runs of each time.
+run, the max |difference| of the transfer's and the rebin's outputs
+between the two checkouts (a change in the order of the transfer's sums
+shows as a number; the rebin's are 0 where it is bitwise equal,
+``dropped`` included) and between two runs of one checkout, each
+checkout's max |error| against the plain version on the made-up buckets
+(vel, weight, phi, and the weight's error over 1e-6 of itself), and a
+summary line: per checkout, the mean over its runs of each time.
 """
 
 import argparse
@@ -118,7 +124,11 @@ def make_inputs(path):
                                     ring_only_obstacles=True)),
                      ("flip01", dict(ghost_fluid=False,
                                      ring_only_obstacles=True))):
-        bk = developed(flip.FlipParams(**bench, **kw)).buckets
+        fparams_ = flip.FlipParams(**bench, **kw)
+        fst_ = developed(fparams_)
+        if name == "bench":
+            bench_state, bench_params = fst_, fparams_
+        bk = fst_.buckets
         out[name] = {f: getattr(bk, f) for f in BUCKET_FIELDS}
         info[name] = {"ppc": bk.ppc, "live": int(bk.valid.sum()),
                       "dropped": int(bk.dropped)}
@@ -127,6 +137,20 @@ def make_inputs(path):
         shd.shard_buckets(fb.Buckets(**out["bench"]), mesh).slabs, 1,
         Domain(size=(res, res, res // ZSHARDS)))
     out["slabs"] = [{f: getattr(e, f) for f in BUCKET_FIELDS} for e in ext]
+    # the rebin's input in one more step of the developed bench dam
+    rebin_in, rebin = [], rbk.rebin
+
+    def rec_rebin(bk_, dom_):
+        rebin_in.append(bk_)
+        return rebin(bk_, dom_)
+    rbk.rebin = rec_rebin
+    try:
+        flip.flip_step_bucketed(bench_state, dom, bench_params)
+    finally:
+        rbk.rebin = rebin
+    (adv,) = rebin_in
+    out["rebin"] = {f: getattr(adv, f) for f in BUCKET_FIELDS}
+    info["rebin"] = {"ppc": adv.ppc, "live": int(adv.valid.sum())}
     fparams = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
                               radius_factor=2.5, cg_accuracy=1e-3)
     obstacle = Sphere(center=(res * 0.7, res * 0.28, res * 0.5),
@@ -172,10 +196,12 @@ def time_checkout(repo, path, reps, out_path):
     from mantaflow_tpu_torch.ops import levelset_kernels as lsk
     from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    from mantaflow_tpu_torch.ops import rebin_kernels as rbk
+    from mantaflow_tpu_torch.parallel import sharding as shd
 
     where = os.path.dirname(os.path.abspath(mantaflow_tpu_torch.__file__))
     assert where == os.path.join(os.path.abspath(repo), "mantaflow_tpu_torch")
-    _build.build(["cg_solve", "union_levelset", "p2g_levelset", "p2g_mac"])
+    _build.build()
     inp = torch.load(path)
     dom = Domain(size=(128,) * 3)
     res = {"repo": repo}
@@ -193,8 +219,19 @@ def time_checkout(repo, path, reps, out_path):
     def k10_zshard():
         outs["k10_zshard"] = [p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
                               for i, e in enumerate(slabs)]
+    adv = fb.Buckets(**inp["rebin"])
+    mesh = shd.make_zmesh(len(slabs), devices=[adv.px.device])
+    adv_sharded = shd.shard_buckets(adv, mesh)
+
+    def rebin():
+        outs["rebin"] = rbk.rebin(adv, dom)
+
+    def rebin_zshard():
+        outs["rebin_zshard"] = shd.unshard_buckets(
+            rbk.rebin_zshard(adv_sharded, dom, mesh))
     timed = {"p2g_levelset": (k10, 1), "p2g_levelset_zshard": (k10_zshard,
-                                                              len(slabs))}
+                                                              len(slabs)),
+             "rebin": (rebin, 1), "rebin_zshard_step": (rebin_zshard, 1)}
     for name, b_ in (("flip01", fb.Buckets(**inp["flip01"])),
                      ("obstacle", bk)):
         def k11(b_=b_, name=name):
@@ -240,6 +277,8 @@ def time_checkout(repo, path, reps, out_path):
     torch.cuda.synchronize()
     outs["k10_zshard"] = [torch.cat(o, dim=-3) for o in
                           zip(*outs["k10_zshard"])]
+    for k in ("rebin", "rebin_zshard"):
+        outs[k] = [getattr(outs[k], f) for f in BUCKET_FIELDS]
     torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, out_path)
     print(json.dumps(res), flush=True)
 
@@ -292,9 +331,11 @@ def main():
         for pair, (pa, pb) in pairs.items():
             a, b = torch.load(pa), torch.load(pb)
             print(json.dumps({"max_abs_diff": pair, **{
-                f"{k}_{n}": float((x - y).abs().max())
-                for k in a for n, x, y in zip(("vel", "weight", "phi"),
-                                              a[k], b[k])}}), flush=True)
+                f"{k}_{n}": float((x.double() - y.double()).abs().max())
+                for k in a for n, x, y in zip(
+                    BUCKET_FIELDS if k.startswith("rebin")
+                    else ("vel", "weight", "phi"), a[k], b[k])}}),
+                flush=True)
         # the made-up buckets: each checkout against the plain version
         sys.path.insert(0, HERE)
         from mantaflow_tpu_torch.core.domain import Domain
