@@ -63,7 +63,19 @@ Phases (any failed check raises, and the script exits non-zero):
    over the halo-extended slab, each call against its plain version, the
    result bitwise against the step's), both also on the
    boundary-crossing fixture at 8 shards; their times and the halo
-   copies; 3 steps at 16^3 over 8 shards on the card against the CPU.
+   copies; 3 steps at 16^3 over 8 shards on the card against the CPU;
+14. the flat-layout FLIP dam (bench.py:37-40: the bench dam through
+   make_dam_state, particles as (N, 3) tensors, 3,830,400 of them) at
+   128^3: 1 warm step, 10 timed, 20 more, 10 timed (CUDA events), the
+   launches per step counted (10 extrapolation layers and 1 CG, no other
+   kernel), no particle lost, every field finite, every position in
+   [0, 128); the layer kernel and the CG against their plain versions on
+   every call of a cold and a developed step, and timed on the developed
+   step's inputs;
+15. the APIC ghost-fluid dam (tests/test_flip_model.py:24) at 128^3, driven
+   and checked the same way;
+16. the flat FLIP dam, the APIC dam and the flat dam with a sphere
+   obstacle on the card against the CPU, 3 steps at 24^3.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device. A
@@ -1399,8 +1411,220 @@ def main():
         "launches_per_step": z_per_step, "copies_ms_per_step": halo_ms,
         "card_vs_cpu_16": {"vel": xv, "phi": xp}}
 
+    # -- 14-15. the flat-layout FLIP and APIC dams at 128^3 -----------------
+    # the particles as (N, 3) tensors, their transfers PyTorch's scatters
+    # and gathers; per step 10 K14 launches and 1 K2 and nothing else
+    every_kernel = {**flip_kernels, "window_advect": advk.window_pass,
+                    "advect_bucket_zshard": fadk.advect_blend_slab,
+                    "p2g_levelset_zshard": p2gk.p2g_union_slab}
+    flat_per_step = {"extrap_layer": 10, "cg_solve": 1}
+    flat_sites = {k: sites[k] for k in flat_per_step}
+
+    def flat_checks(name, st, n_parts):
+        """No particle lost, every field finite, every active particle in
+        [0, n) on every axis."""
+        active = st.parts.active_mask()
+        require(int(active.sum()) == n_parts,
+                f"{name}: {int(active.sum())} active particles, had "
+                f"{n_parts}")
+        for field in ("vel", "vel_old", "pressure", "phi", "pvel", "cpx",
+                      "cpy", "cpz"):
+            require(bool(torch.isfinite(getattr(st, field)).all()),
+                    f"{name}: {field} not finite")
+        pos = st.parts.pos[active]
+        require(bool(torch.isfinite(pos).all()) and bool((pos >= 0).all())
+                and bool((pos < FLIP_RES).all()),
+                f"{name}: a position outside [0, {FLIP_RES})")
+
+    def drive_flat(name, params_, windows):
+        """A flat dam at 128^3 set up by make_dam_state (bench.py:37-40), 1
+        warm step, then for each (pre, n) of ``windows`` pre untimed steps
+        (flip_run) and n timed ones (CUDA events). Every kernel's count is
+        set to 0 just before the warm step and read after the last; the
+        launches per step, the particles and the fields are checked.
+        Returns the run's numbers, the state after the warm step (the cold
+        inputs) and the last state, and the launches."""
+        t0 = time.perf_counter()
+        st = flip.make_dam_state(fdom, params_, discretization=2, device=dev)
+        n_parts = int(st.parts.count)
+        setup_s = time.perf_counter() - t0
+        require(n_parts == flip_numbers["particles"],
+                f"{name}: {n_parts} particles, the bucketed dam has "
+                f"{flip_numbers['particles']}")
+        require(st.parts.capacity == -(-int(n_parts * 1.02) // 1024) * 1024,
+                f"{name}: capacity {st.parts.capacity}")
+        torch.cuda.synchronize()
+        for fn in every_kernel.values():
+            fn.launches = 0
+        st = flip.flip_step(st, fdom, params_)  # warm
+        cold_state, n_steps, timed_ = st, 1, []
+        for pre, n in windows:
+            st = flip.flip_run(st, fdom, params_, pre)
+            iters = torch.zeros((), dtype=torch.int64, device=dev)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(n):
+                st = flip.flip_step(st, fdom, params_)
+                iters += st.cg_iters
+            t1.record()
+            torch.cuda.synchronize()
+            timed_.append((t0.elapsed_time(t1) / n, int(iters) / n))
+            n_steps += pre + n
+        launches = {k: fn.launches for k, fn in every_kernel.items()}
+        for k, got in launches.items():
+            want = flat_per_step.get(k, 0) * n_steps
+            require(got == want, f"{name}: {k} launched {got} times in "
+                    f"{n_steps} steps (expected {want})")
+        flat_checks(name, st, n_parts)
+        require(int(st.ts.count) == n_steps, f"{name}: ts.count")
+        (cold_ms, cold_it), (dev_ms, dev_it) = timed_[0], timed_[-1]
+        print(f"{name} {FLIP_RES}^3: {n_steps} steps, {n_parts} particles "
+              f"(capacity {st.parts.capacity}), {cold_ms:.2f} ms/step cold, "
+              f"{dev_ms:.2f} developed, CG {cold_it:.1f} / {dev_it:.1f} "
+              f"it/step, launches {launches}", flush=True)
+        numbers = {"ms_per_step_cold": cold_ms, "ms_per_step_developed":
+                   dev_ms, "steps_per_s_cold": 1e3 / cold_ms,
+                   "steps_per_s_developed": 1e3 / dev_ms,
+                   "cg_iters_per_step_cold": cold_it,
+                   "cg_iters_per_step_developed": dev_it,
+                   "particles": n_parts, "capacity": st.parts.capacity,
+                   "steps_run": n_steps, "launches_per_step": flat_per_step,
+                   "setup_s": setup_s}
+        return numbers, cold_state, st, launches
+
+    def cg_check_by_residual(rhs, stencil, fluid, acc, max_iter, dom_,
+                             early=10):
+        """K2 against cg_plain on a flat step's system. The max-norm
+        residual of these solves hovers near the accuracy for tens of
+        iterations before it exits, so rounding anywhere moves the exit
+        iteration (the float64 CG's too) and with it the pressure, by up
+        to a few per cent at equal iteration counts past ~20 (measured by
+        tools/profile_cg_exit.py). So: after ``early``
+        iterations with no exit the two pressures must agree to rel 1e-5
+        (the arithmetic is the same); each solve must exit on its residual
+        or at max_iter; and the true residual of each pressure, max|rhs -
+        A p| over the fluid cells in float64, must lie below the accuracy,
+        with 1 % for the drift of the updated residual from the true one.
+        Returns the max abs error after ``early`` iterations."""
+        st64 = tuple(a.double() for a in stencil)
+        n = min(early, max_iter)
+        pk, nk, _ = prk.cg_solve(rhs, stencil, dom_, 0.0, n, fluid=fluid)
+        pp, np_, _ = prs.cg_plain(rhs, stencil, dom_, 0.0, n, fluid)
+        require(int(nk) == int(np_) == n,
+                f"cg_solve: {int(nk)} and {int(np_)} of {n} iterations")
+        err = float((pk - pp).abs().max())
+        rel = err / (float(pp.abs().max()) + 1e-30)
+        require(rel < 1e-5, f"cg_solve at {n} iterations: rel err {rel}")
+        exits = []
+        for who, (p_, it, rn) in (
+                ("kernel", prk.cg_solve(rhs, stencil, dom_, acc, max_iter,
+                                        fluid=fluid)),
+                ("plain", prs.cg_plain(rhs, stencil, dom_, acc, max_iter,
+                                       fluid))):
+            it = int(it)
+            require(it == max_iter or float(rn) < acc,
+                    f"cg_solve ({who}) exited at resnorm {float(rn)}")
+            r64 = rhs.double() - prs._apply_stencil(p_.double(), st64, dom_)
+            true_rn = float(torch.where(fluid, r64, 0.0).abs().max())
+            require(it == max_iter or true_rn < 1.01 * acc,
+                    f"cg_solve ({who}): true residual {true_rn} at exit")
+            exits.append(f"{it} it, true residual {true_rn:.4g}")
+        print(f"cg_solve {dom_.shape}: rel err {rel:.3g} at {n} it; kernel "
+              f"exits at {exits[0]}, plain at {exits[1]}", flush=True)
+        return err
+
+    def flat_kernel_check(name, st, params_, what):
+        """K14 and K2 against their plain versions on every call of one
+        flat step from ``st``: the layers exact, the CG by
+        cg_check_by_residual."""
+        calls = {k: [] for k in flat_sites}
+        with contextlib.ExitStack() as stack:
+            for k, (mod, fname) in flat_sites.items():
+                stack.enter_context(recording(mod, fname, calls[k]))
+            flip.flip_step(st, fdom, params_)
+        torch.cuda.synchronize()
+        for k, n in flat_per_step.items():
+            require(len(calls[k]) == n,
+                    f"{name}: {len(calls[k])} {k} calls in one step")
+        for args, kwargs in calls["extrap_layer"]:
+            errs["extrap_layer"] = max(errs["extrap_layer"], check_call(
+                "extrap_layer", args, kwargs))
+        for args, kwargs in calls["cg_solve"]:
+            rhs, stencil, dom_, acc, max_iter = args
+            errs["cg_solve"] = max(errs["cg_solve"], cg_check_by_residual(
+                rhs, stencil, kwargs["fluid"], acc, max_iter, dom_))
+        print(f"{name} {FLIP_RES}^3 {what} step, kernels vs plain: "
+              f"extrap_layer {errs['extrap_layer']:.3g}, cg_solve "
+              f"{errs['cg_solve']:.3g}", flush=True)
+        return calls
+
+    flat_params = flip_bench_params(flip)
+    apic_params = dataclasses.replace(flat_params, apic=True)
+    flat_numbers, flat_cold, flat_last, flat_launches = drive_flat(
+        "flat", flat_params, [(0, FLIP_CHUNK), (20, FLIP_CHUNK)])
+    flat_kernel_check("flat", flat_cold, flat_params, "cold")
+    flat_calls = flat_kernel_check("flat", flat_last, flat_params,
+                                   "developed")
+    del flat_cold, flat_last
+    # K2 and K14 on the developed flat step's inputs
+    (cg_args, cg_kw), = flat_calls["cg_solve"]
+    flat_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+    T = fdom.num_cells
+    time_kernel("cg_solve_flat", "cg_kernel<false>", flat_calls["cg_solve"],
+                prk.cg_solve, prs.cg_plain, 6 * 4 * T, flat_it * 24 * T,
+                f"flat dam developed solve, {flat_it} it")
+    fk["cg_solve_flat"]["iterations"] = flat_it
+    # the bytes and operations of phase 7's layers
+    layer_calls = flat_calls["extrap_layer"]
+    pairs = sum(len(a[0]) for a, _ in layer_calls) / len(layer_calls)
+    time_kernel("extrap_layer_flat", "extrap_layer_kernel", layer_calls,
+                xk.extrap_layer, xk.extrap_layer_plain, pairs * 16 * T,
+                pairs * 20 * T, "flat dam developed step's layers")
+    del flat_calls, layer_calls, cg_args, cg_kw
+
+    apic_numbers, apic_cold, apic_last, apic_launches = drive_flat(
+        "apic", apic_params, [(0, FLIP_CHUNK), (20, FLIP_CHUNK)])
+    require(bool((apic_last.cpx != 0).any()), "apic: the affine rows are 0")
+    flat_kernel_check("apic", apic_cold, apic_params, "cold")
+    flat_kernel_check("apic", apic_last, apic_params, "developed")
+    del apic_cold, apic_last
+
+    # -- 16. the flat dams on the card vs the port on the CPU ---------------
+    def flat_card_vs_cpu(name, params_, obstacle=None):
+        """3 steps at 24^3 on the card and on the CPU: flags, particle
+        flags and counts exact, grids to abs 2e-4, particles to 1e-4."""
+        g_, c_ = (flip.flip_run(flip.make_dam_state(
+            sdom, params_, obstacle=obstacle, device=d_), sdom, params_, 3)
+            for d_ in (dev, "cpu"))
+        for what, a_, b_ in (("flags", g_.flags, c_.flags),
+                             ("particle flags", g_.parts.flags,
+                              c_.parts.flags),
+                             ("count", g_.parts.count, c_.parts.count),
+                             ("ts.count", g_.ts.count, c_.ts.count)):
+            require(torch.equal(a_.cpu(), b_),
+                    f"24^3 {name} card vs CPU: {what} differ")
+        gerr = max(float((getattr(g_, k).cpu() - getattr(c_, k)).abs().max())
+                   for k in ("vel", "vel_old", "pressure", "phi"))
+        perr = max(float((a_.cpu() - b_).abs().max()) for a_, b_ in (
+            (g_.parts.pos, c_.parts.pos), (g_.pvel, c_.pvel),
+            (g_.cpx, c_.cpx), (g_.cpy, c_.cpy), (g_.cpz, c_.cpz)))
+        require(gerr < 2e-4 and perr < 1e-4,
+                f"24^3 {name} card vs CPU: grids {gerr}, particles {perr}")
+        print(f"24^3 {name} x3 steps, card vs CPU: grids {gerr:.3g}, "
+              f"particles {perr:.3g}", flush=True)
+        return {"grids": gerr, "particles": perr}
+
+    flat_card_cpu = {
+        "flat": flat_card_vs_cpu("flat", flat_params),
+        "apic": flat_card_vs_cpu("apic", apic_params),
+        "flat_obstacle": flat_card_vs_cpu("flat obstacle", params_b, Sphere(
+            center=(24 * 0.7, 24 * 0.28, 12.0), radius=24 * 0.15))}
+    flat_numbers["card_vs_cpu_24"] = flat_card_cpu
+
     flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
-                  "obstacle_128": b_launches, "flip_zshard_128": z_launches}
+                  "obstacle_128": b_launches, "flip_zshard_128": z_launches,
+                  "flat_128": flat_launches, "apic_128": apic_launches}
     kernels = [
         {"name": "window_advect", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
@@ -1427,7 +1651,8 @@ def main():
                                  for k, v in flip_paths.items()}},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
          "iteration_floor": k2_iter_floor,
-         "bench_dam_solve": fk["cg_solve_bench"]},
+         "bench_dam_solve": fk["cg_solve_bench"],
+         "flat_dam_solve": fk["cg_solve_flat"]},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function
@@ -1456,6 +1681,8 @@ def main():
                                          for rw in (1, 2)}
         if kind == "advect_bucket":
             entry["max_abs_err_with_obstacle"] = obstacle_err
+        if kind == "extrap_layer":
+            entry["flat_path"] = fk["extrap_layer_flat"]
         kernels.append(entry)
     # the z-slab kernels: the slab rebin, K9, and the z-slab forms of K3
     # and K10, each its own __global__ function or template instance (in
@@ -1481,6 +1708,7 @@ def main():
                       "density_max": dmax},
         "flip_128": flip_numbers, "flip01_128": a_numbers,
         "obstacle_128": b_numbers, "flip_zshard_128": zshard_numbers,
+        "flat_128": flat_numbers, "apic_128": apic_numbers,
         "build_s": build_s, "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

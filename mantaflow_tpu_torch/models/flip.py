@@ -1,40 +1,52 @@
-"""FLIP liquid solver on the cell-bucketed particle layout.
+"""FLIP and APIC liquid solvers: the flat particle layout and the
+cell-bucketed one.
 
-Port of the bucketed half of ``mantaflow_tpu/models/flip.py`` (the
-reference FLIP scene loops, scenes/flip01_simple.py:47-68): one step is
-advection -> rebin -> p2g -> extrapolation -> forces -> levelset ->
-projection -> extrapolation, over the ``(P, T)`` bucket layout of
-``ops/flip_bucket.py``. The FLIP blend of step t runs at the head of step
-t+1, fused into the advection; ``finalize_buckets`` applies a pending blend
-before particle velocities are read.
+Port of ``mantaflow_tpu/models/flip.py`` (the reference FLIP scene loops,
+scenes/flip01_simple.py:47-68, scenes/benchmark_dam.py:99-143).
 
-On a GPU the particle stages run through the hand-written CUDA kernels, as
-the JAX package's TPU branch runs its Pallas kernels: advection with the
-blend (``advect_bucket_kernels``), the rebin's three passes in one launch
-(``rebin_kernels``), the particle-to-grid transfer (``p2g_kernels``: fused
-with the union levelset when there is ghost fluid and the particle radius
-spans one cell; else alone, followed with ghost fluid by
-``levelset_kernels`` for the wider radius), the extrapolation layers
-(``extrapolation_kernels``) and the CG (``pressure_kernels``);
-``finalize_buckets`` runs the standalone blend (``blend_kernels``). On the
-CPU the same wrappers run their plain PyTorch versions, which are the JAX
-package's CPU forms. Nothing on the step path reads a value back to the
-host; ``flip_run_bucketed_auto`` reads ``dropped`` once per chunk.
+The flat layout (``FlipState``, ``make_dam_state``, ``flip_step``,
+``flip_run``) keeps the particles as ``(N, 3)`` tensors: one step is
+advection (``core/particles.advect_in_grid``) -> p2g (``ops/flip`` or, with
+``apic``, ``ops/apic``) -> extrapolation -> fluid marking -> forces ->
+levelset -> projection -> extrapolation -> the FLIP blend or the APIC g2p.
+Its transfers are PyTorch scatters and gathers, as the JAX package leaves
+them to XLA; on a GPU its extrapolation layers and its CG run through the
+hand-written kernels (``extrapolation_kernels``, ``pressure_kernels``).
 
-The z-sharded branch (``zshard=mesh``, a ``parallel.sharding.ZMesh``, on a
-state from ``shard_flip_bucket_state``) runs the particle stages per
-shard over z-slabs of the buckets, as the JAX package's branch does with
-``shard_map``: the advection and the rebin (one launch per slab, over the
-slab extended by one plane of each neighbour), and with ghost fluid and a
-one-cell levelset window the fused transfer. Their slabs of ``vel``,
-``weight`` and ``phi`` are joined on the lead, where the grid stages run
-as on one device, over whole grids. On the routes that are not fused the
-buckets are joined on the lead for the transfer and the levelset. The
-result equals the one-device step.
+The bucketed layout keeps them in ``(P, T)`` cell buckets
+(``ops/flip_bucket.py``): one step is advection -> rebin -> p2g ->
+extrapolation -> forces -> levelset -> projection -> extrapolation. The
+FLIP blend of step t runs at the head of step t+1, fused into the
+advection; ``finalize_buckets`` applies a pending blend before particle
+velocities are read. On a GPU the particle stages run through the
+hand-written CUDA kernels, as the JAX package's TPU branch runs its Pallas
+kernels: advection with the blend (``advect_bucket_kernels``), the rebin's
+three passes in one launch (``rebin_kernels``), the particle-to-grid
+transfer (``p2g_kernels``: fused with the union levelset when there is
+ghost fluid and the particle radius spans one cell; else alone, followed
+with ghost fluid by ``levelset_kernels`` for the wider radius), the
+extrapolation layers (``extrapolation_kernels``) and the CG
+(``pressure_kernels``); ``finalize_buckets`` runs the standalone blend
+(``blend_kernels``). APIC is flat only, as in the JAX package.
 
-Not ported yet (ROADMAP.md): the flat particle layout (``flip_step``,
-``flip_run``), APIC, the sharded grid stages and the preconditioned
-pressure solves.
+On the CPU the same wrappers run their plain PyTorch versions, which are
+the JAX package's CPU forms. Nothing on either step's path reads a value
+back to the host; ``flip_run_bucketed_auto`` reads ``dropped`` once per
+chunk.
+
+The z-sharded branch of the bucketed step (``zshard=mesh``, a
+``parallel.sharding.ZMesh``, on a state from ``shard_flip_bucket_state``)
+runs the particle stages per shard over z-slabs of the buckets, as the JAX
+package's branch does with ``shard_map``: the advection and the rebin (one
+launch per slab, over the slab extended by one plane of each neighbour),
+and with ghost fluid and a one-cell levelset window the fused transfer.
+Their slabs of ``vel``, ``weight`` and ``phi`` are joined on the lead,
+where the grid stages run as on one device, over whole grids. On the
+routes that are not fused the buckets are joined on the lead for the
+transfer and the levelset. The result equals the one-device step.
+
+Not ported yet (ROADMAP.md): the sharded grid stages, the flat layout's
+N-sharding and the preconditioned pressure solves.
 """
 
 from __future__ import annotations
@@ -51,9 +63,11 @@ from ..core import solver as slv
 from ..core.domain import Domain
 from ..core.shapes import Box
 from ..ops import advect_bucket_kernels as advk
+from ..ops import apic as ao
 from ..ops import blend_kernels as blk
 from ..ops import extforces as ext
 from ..ops import extrapolation as xtr
+from ..ops import flip as fo
 from ..ops import flip_bucket as fb
 from ..ops import levelset_kernels as lsk
 from ..ops import p2g_kernels as p2gk
@@ -86,6 +100,189 @@ class FlipParams:
     # bounds test (the same result for such scenes)
     ring_only_obstacles: bool = False
 
+
+# ---------------------------------------------------------------------------
+# the flat particle layout
+
+@dataclasses.dataclass
+class FlipState:
+    """Full flat-layout state; every tensor lives on the simulation
+    device."""
+    flags: torch.Tensor     # int32 [z,y,x]
+    vel: torch.Tensor       # float32 (3,z,y,x)
+    vel_old: torch.Tensor   # float32 (3,z,y,x): the p2g grid, for the blend
+    pressure: torch.Tensor  # float32 [z,y,x]
+    phi: torch.Tensor       # float32 [z,y,x]
+    parts: cp.Particles
+    pvel: torch.Tensor      # float32 (N,3)
+    cpx: torch.Tensor       # float32 (N,3) APIC affine rows (zeros for FLIP)
+    cpy: torch.Tensor
+    cpz: torch.Tensor
+    ts: slv.TimeState
+    # CG iterations of the last step's pressure solve (0-dim int32); not
+    # part of the JAX state
+    cg_iters: torch.Tensor | None = None
+
+
+def _dam_flags(dom: Domain, dam_frac, boundary_width: int, obstacle,
+               device):
+    """The breaking dam's flags (flip01_simple.py:29-38): a box of fluid,
+    the cells inside an ``obstacle`` shape made obstacle cells (the
+    flip06_obstacle.py pattern), so no particle is born there."""
+    sx, sy, sz = dom.size
+    box = Box(p0=(0, 0, 0), p1=(sx * dam_frac[0], sy * dam_frac[1],
+                                sz * dam_frac[2]), dim=dom.dim)
+    flags = fl.update_from_levelset(
+        fl.init_domain(dom, boundary_width, device=device),
+        box.compute_levelset(dom, device), 1e10)
+    if obstacle is not None:
+        flags = torch.where(obstacle.inside_grid(dom, device),
+                            fl.TypeObstacle, flags)
+    return flags
+
+
+def make_dam_state(dom: Domain, params: FlipParams,
+                   dam_frac=(0.4, 0.6, 1.0), discretization: int = 2,
+                   randomness: float = 0.05, boundary_width: int = 0,
+                   dt: float = 0.5, obstacle=None,
+                   capacity_headroom: float = 1.02,
+                   device=None) -> FlipState:
+    """Breaking-dam set-up (flip01_simple.py:29-38) on the flat layout.
+    Sampling runs once on the host; the particle positions are the JAX
+    package's bit for bit. The model never reseeds, so the capacity is the
+    particle count times ``capacity_headroom``, rounded up to 1024. Runs on
+    CUDA unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    flags = _dam_flags(dom, dam_frac, boundary_width, obstacle, device)
+    parts = cp.sample_flags_with_particles(flags.cpu().numpy(), dom,
+                                           discretization, randomness,
+                                           headroom=capacity_headroom,
+                                           device=device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    n = parts.capacity
+    return FlipState(
+        flags=flags, vel=zeros((3,) + dom.shape),
+        vel_old=zeros((3,) + dom.shape), pressure=zeros(dom.shape),
+        phi=torch.full(dom.shape, 0.5, dtype=torch.float32, device=device),
+        parts=parts, pvel=zeros((n, 3)), cpx=zeros((n, 3)),
+        cpy=zeros((n, 3)), cpz=zeros((n, 3)),
+        ts=slv.TimeState.create(dt, device=device))
+
+
+def flip_step(state: FlipState, dom: Domain, params: FlipParams) -> FlipState:
+    """One FLIP or APIC step on the flat layout, following
+    mantaflow_tpu/models/flip.py:flip_step."""
+    flags, vel = state.flags, state.vel
+    parts, pvel = state.parts, state.pvel
+    ts = state.ts
+
+    if params.adaptive_dt:
+        max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2
+                                       + vel[2] ** 2))
+        ts = slv.adapt_timestep(ts, max_vel, params.cfl, params.dt_min,
+                                params.dt_max, params.frame_length)
+    dt = ts.dt
+
+    # particle advection (keep particles, bisect out of obstacles)
+    parts = cp.advect_in_grid(parts, flags, vel, dt, dom,
+                              params.integration_mode,
+                              delete_in_obstacle=False,
+                              stop_in_obstacle=True)
+
+    # p2g
+    if params.apic:
+        vel, weight = ao.apic_map_parts_to_mac(parts, pvel, state.cpx,
+                                               state.cpy, state.cpz, flags,
+                                               dom)
+    else:
+        vel, weight = fo.map_parts_to_mac(parts, pvel, flags, dom)
+    vel_old = vel
+    vel, _ = xtr.extrapolate_mac_from_weight(vel, weight, dom,
+                                             params.extrap_weight_dist)
+    flags = fo.mark_fluid_cells(parts, flags, dom)
+
+    vel = ext.add_gravity(flags, vel, params.gravity, dt, dom,
+                          scale=params.gravity_scale)
+
+    phi = state.phi
+    if params.ghost_fluid:
+        phi = fo.union_particle_levelset(parts, flags, dom,
+                                         params.radius_factor)
+        phi = xtr.extrapolate_ls_simple(phi, dom, distance=4, inside=True)
+
+    vel = ext.set_wall_bcs(flags, vel, dom)
+    vel, pressure, _, iters, _ = prs.solve_pressure(
+        vel, flags, dom, cg_accuracy=params.cg_accuracy,
+        phi=phi if params.ghost_fluid else None,
+        cg_max_iter_fac=params.cg_max_iter_fac,
+        preconditioner=params.preconditioner)
+    vel = ext.set_wall_bcs(flags, vel, dom)
+    vel = xtr.extrapolate_mac_simple(flags, vel, dom, params.extrap_vel_dist)
+
+    # g2p velocity update
+    if params.apic:
+        pvel, cpx, cpy, cpz = ao.apic_map_mac_to_parts(
+            parts, vel, flags, dom,
+            old=(pvel, state.cpx, state.cpy, state.cpz))
+    else:
+        pvel = fo.flip_velocity_update(parts, pvel, flags, vel, vel_old,
+                                       params.flip_ratio)
+        cpx, cpy, cpz = state.cpx, state.cpy, state.cpz
+
+    ts = slv.step(ts, params.frame_length)
+    return FlipState(flags=flags, vel=vel, vel_old=vel_old,
+                     pressure=pressure, phi=phi, parts=parts, pvel=pvel,
+                     cpx=cpx, cpy=cpy, cpz=cpz, ts=ts, cg_iters=iters)
+
+
+def flip_run(state: FlipState, dom: Domain, params: FlipParams,
+             n_steps: int) -> FlipState:
+    """``n_steps`` flat steps; no host read between them."""
+    for _ in range(n_steps):
+        state = flip_step(state, dom, params)
+    return state
+
+
+_GRIDS = ("flags", "vel", "vel_old", "pressure", "phi")
+_PARTS = ("pos", "flags", "count")
+_PCHANNELS = ("pvel", "cpx", "cpy", "cpz")
+_TS = ("dt", "time_total", "time_per_frame", "frame", "lock_dt", "count")
+
+
+def _tensor(v, device):
+    return torch.tensor(np.asarray(v), device=device)
+
+
+def _numpy(v):
+    return np.array(v.cpu())
+
+
+def flat_state_from_numpy(d: dict, device=None) -> FlipState:
+    """A FlipState from numpy arrays: ``d`` holds the grids and particle
+    channels of a JAX FlipState under their field names, its particles'
+    fields under ``d["parts"]`` and its TimeState fields under ``d["ts"]``,
+    each as a numpy array or scalar."""
+    device = resolve_device(device)
+    return FlipState(
+        **{k: _tensor(d[k], device) for k in _GRIDS + _PCHANNELS},
+        parts=cp.Particles(**{k: _tensor(d["parts"][k], device)
+                              for k in _PARTS}),
+        ts=slv.TimeState(**{k: _tensor(d["ts"][k], device) for k in _TS}))
+
+
+def flat_state_to_numpy(state: FlipState) -> dict:
+    """The inverse of ``flat_state_from_numpy``: numpy copies of every
+    field."""
+    out = {k: _numpy(getattr(state, k)) for k in _GRIDS + _PCHANNELS}
+    out["parts"] = {k: _numpy(getattr(state.parts, k)) for k in _PARTS}
+    out["ts"] = {k: _numpy(getattr(state.ts, k)) for k in _TS}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the bucketed particle layout
 
 @dataclasses.dataclass
 class FlipBucketState:
@@ -122,15 +319,7 @@ def make_dam_state_bucketed(dom: Domain, params: FlipParams,
         raise ValueError("ring_only_obstacles promises no interior "
                          "obstacles; stamping an obstacle shape breaks the "
                          "bounds-test shortcut (see ops/flip_bucket.py)")
-    sx, sy, sz = dom.size
-    box = Box(p0=(0, 0, 0), p1=(sx * dam_frac[0], sy * dam_frac[1],
-                                sz * dam_frac[2]), dim=dom.dim)
-    flags = fl.update_from_levelset(
-        fl.init_domain(dom, boundary_width, device=device),
-        box.compute_levelset(dom, device), 1e10)
-    if obstacle is not None:
-        flags = torch.where(obstacle.inside_grid(dom, device),
-                            fl.TypeObstacle, flags)
+    flags = _dam_flags(dom, dam_frac, boundary_width, obstacle, device)
     # the bucketed model never reseeds: tight capacity
     parts = cp.sample_flags_with_particles(flags.cpu().numpy(), dom,
                                            discretization, randomness,
@@ -158,7 +347,7 @@ def _fused_levelset(dom: Domain, params: FlipParams) -> bool:
 def _check_supported(params: FlipParams):
     if params.apic:
         raise ValueError("flip_step_bucketed implements the FLIP blend "
-                         "only; APIC (params.apic) is not ported")
+                         "only; use flip_step for APIC (params.apic)")
     if params.adaptive_dt and params.cfl > 1.0:
         raise ValueError(f"bucketed layout needs cfl <= 1 (got "
                          f"{params.cfl}): particles may only move one cell "
@@ -337,9 +526,7 @@ def flip_run_bucketed_auto(state: FlipBucketState, dom: Domain,
     return state
 
 
-_GRIDS = ("flags", "vel", "vel_old", "pressure", "phi")
 _BUCKETS = ("px", "py", "pz", "vx", "vy", "vz", "valid", "dropped")
-_TS = ("dt", "time_total", "time_per_frame", "frame", "lock_dt", "count")
 
 
 def state_from_numpy(d: dict, device=None) -> FlipBucketState:
@@ -350,7 +537,7 @@ def state_from_numpy(d: dict, device=None) -> FlipBucketState:
     device = resolve_device(device)
 
     def t(v):
-        return torch.tensor(np.asarray(v), device=device)
+        return _tensor(v, device)
     return FlipBucketState(
         **{k: t(d[k]) for k in _GRIDS},
         buckets=fb.Buckets(**{k: t(d["buckets"][k]) for k in _BUCKETS}),
@@ -361,11 +548,9 @@ def state_from_numpy(d: dict, device=None) -> FlipBucketState:
 def state_to_numpy(state: FlipBucketState) -> dict:
     """The inverse of ``state_from_numpy``: numpy copies of every field,
     of a sharded state's buckets joined."""
-    def n(v):
-        return np.array(v.cpu())
     bk = state.buckets.whole()
-    out = {k: n(getattr(state, k)) for k in _GRIDS}
-    out["buckets"] = {k: n(getattr(bk, k)) for k in _BUCKETS}
-    out["ts"] = {k: n(getattr(state.ts, k)) for k in _TS}
-    out["blend_pending"] = n(state.blend_pending)
+    out = {k: _numpy(getattr(state, k)) for k in _GRIDS}
+    out["buckets"] = {k: _numpy(getattr(bk, k)) for k in _BUCKETS}
+    out["ts"] = {k: _numpy(getattr(state.ts, k)) for k in _TS}
+    out["blend_pending"] = _numpy(state.blend_pending)
     return out
