@@ -28,7 +28,10 @@ Phases (any failed check raises, and the script exits non-zero):
    p2g+levelset, extrapolation layer) and the CG on the ghost-fluid system
    against their plain versions on the card: every kernel call of one
    128^3 step, cold (PPC 10) and developed (PPC 16), a 24^3 corner dam
-   over the advection's modes, blend and obstacle options; the fused
+   over the advection's modes, blend and obstacle options (the step's
+   advection on its live slots, the form that passes invalid slots
+   through on every slot; the step's rebin bitwise the same with the
+   advected buckets' invalid slots poisoned by NaN and +-1e30); the fused
    rebin bitwise against flip_bucket.rebin and against the three-pass
    kernel (each pass against its plain version) on each step's rebin, a
    24^3 overflow, the overflow fixture and made-up buckets of 1, 24 and 40
@@ -58,7 +61,8 @@ Phases (any failed check raises, and the script exits non-zero):
    equal, no particle lost, the launches per step counted: per shard one
    advection, one whole rebin of the halo-extended slab and one transfer;
    on the lead the extrapolation layers and the CG); every z-slab kernel
-   call of a step against its plain version, the step's rebin also
+   call of a step against its plain version (the advection as in phase 7,
+   the sharded rebin with poisoned invalid slots), the step's rebin also
    through the three-pass kernels (the slabs' x/y passes and the z pass
    over the halo-extended slab, each call against its plain version, the
    result bitwise against the step's), both also on the
@@ -566,7 +570,10 @@ def main():
 
     # -- 6. FLIP main path: the bench FLIP dam at 128^3 ---------------------
     fdom = Domain(size=(FLIP_RES,) * 3)
-    flip_kernels = {"advect_bucket": fadk.advect_blend,
+    # the step's advection (live slots only) and, never on a step, the
+    # form that passes invalid slots through
+    flip_kernels = {"advect_bucket": fadk.advect_blend_live,
+                    "advect_bucket_public": fadk.advect_blend,
                     "rebin_fused": rbk.rebin_fused,
                     "rebin_fused_slab": rbk.rebin_fused_slab,
                     "rebin": rbk.rebin_pass,
@@ -715,7 +722,7 @@ def main():
                 "union_levelset": fb.union_levelset_bucketed,
                 "flip_blend": fb.flip_update_bucketed,
                 "extrap_layer": xk.extrap_layer_plain}
-    sites = {"advect_bucket": (fadk, "advect_blend"),
+    sites = {"advect_bucket": (fadk, "advect_blend_live"),
              "rebin_fused": (rbk, "rebin_fused"),
              "rebin": (rbk, "rebin_pass"),
              "p2g_levelset": (p2gk, "p2g_union"),
@@ -734,6 +741,42 @@ def main():
             flip.flip_step_bucketed(state, fdom, params_)
         torch.cuda.synchronize()
         return calls
+
+    fields6 = ("px", "py", "pz", "vx", "vy", "vz")
+
+    def advect_err(got, ref, bk, public):
+        """The step's advection (``got``) against the plain version
+        (``ref``) on the live slots of its input ``bk``, to abs 1e-6; the
+        public form (``public``, invalid slots passed through) against the
+        plain version on every slot, its invalid slots equal to the input
+        and its live slots to the step's form."""
+        live = bk.valid
+        require(torch.equal(got.valid, live)
+                and int(got.dropped) == int(bk.dropped),
+                "advection: valid or dropped changed")
+        err = 0.0
+        for f in fields6:
+            g, r, p_, i_ = (getattr(o, f) for o in (got, ref, public, bk))
+            require(torch.equal(g[live], p_[live]),
+                    f"advection: the step's and the public form's {f} "
+                    "differ on the live slots")
+            require(torch.equal(p_[~live], i_[~live]),
+                    f"advection: the public form changed an invalid {f}")
+            err = max(err, float((g[live] - r[live]).abs().max()),
+                      float((p_ - r).abs().max()))
+        require(err <= 1e-6, f"advection: max abs err {err}")
+        return err
+
+    def poisoned(bk):
+        """``bk`` with the invalid slots' six fields NaN, +1e30 and -1e30
+        by turns: what no rebin may read."""
+        bad = torch.tensor([float("nan"), 1e30, -1e30],
+                           device=bk.px.device)
+        idx = torch.arange(bk.px.numel(), device=bk.px.device)
+        return dataclasses.replace(bk, **{
+            f: torch.where(bk.valid, getattr(bk, f),
+                           bad[(idx + k) % 3].view(bk.px.shape))
+            for k, f in enumerate(fields6)})
 
     def bucket_err(got, ref, exact):
         require(torch.equal(got.valid, ref.valid), "buckets: valid differs")
@@ -768,7 +811,10 @@ def main():
             # against flip_bucket.rebin and the three-pass kernel
             bucket_err(got, three_passes(*args)[0], exact=True)
             return bucket_err(got, ref, exact=True)
-        if kind in ("advect_bucket", "flip_blend"):
+        if kind == "advect_bucket":
+            return advect_err(got, ref, args[0], fadk.advect_blend(
+                *args, **kwargs))
+        if kind == "flip_blend":
             err = bucket_err(got, ref, exact=False)
             require(err <= 1e-6, f"{kind}: max abs err {err}")
             return err
@@ -791,6 +837,7 @@ def main():
         return err
 
     errs = {k: 0.0 for k in flip_kernels}
+    poison_checks = []
     # the 128^3 step from the developed state (PPC escalated), from a cold
     # state a few steps in (PPC 10), and from that state rebinned at PPC 16
     dev_calls = record_step(fst)
@@ -809,6 +856,14 @@ def main():
                     f"{kind}: {len(calls[kind])} calls in one step")
             for args, kwargs in calls[kind]:
                 errs[kind] = max(errs[kind], check_call(kind, args, kwargs))
+        # the step's rebin reads the advected buckets' live slots alone
+        (r_args, _), = calls["rebin_fused"]
+        r_ref = rbk.rebin_fused(*r_args)
+        r_bad = poisoned(r_args[0])
+        bucket_err(rbk.rebin_fused(r_bad, r_args[1]), r_ref, exact=True)
+        bucket_err(fb.rebin(r_bad, r_args[1]), r_ref, exact=True)
+        poison_checks.append(f"rebin {what}")
+        del r_args, r_ref, r_bad
         for args, kwargs in calls["cg_solve"]:
             rhs, stencil, dom_, acc, max_iter = args
             # the ghost-fluid diagonal needs the full-stencil mode
@@ -920,9 +975,11 @@ def main():
     # least bytes per launch, for what each function must read and write:
     # slot fields are 4 bytes, valid 1 byte, of which each function reads
     # valid_bytes_read (the buckets are gap-free; the mean over the
-    # recorded calls' inputs). The advection passes invalid slots through,
-    # so it reads the six slot fields of every slot and writes them, plus
-    # the vel and vel_old grids. The rebin and p2g read the six fields of
+    # recorded calls' inputs). The step's advection reads and writes the
+    # six slot fields of the live slots, and reads the vel and vel_old
+    # grids (and, unless ring_only, the obstacle mask); the public form
+    # passes invalid slots through, so it reads and writes the six fields
+    # of every slot. The rebin and p2g read the six fields of
     # the live particles only; the rebin writes all seven output fields of
     # every slot, p2g its seven grids (vel and weight 3 each, phi).
     def mean_valid_bytes(calls):
@@ -931,9 +988,23 @@ def main():
     layer_bytes = [len(a[0]) * 16 * T for a, _ in dev_calls["extrap_layer"]]
     # the three-pass kernel's x, y and z passes of the step's rebin
     rebin_calls = three_passes(*dev_calls["rebin_fused"][0][0])[1]
+    def advect_bytes(calls, t_grid, ring_only, every_slot=False):
+        """Least bytes per launch of the advection over the recorded
+        calls: the six fields of the live slots (every slot's for the
+        public form) read and written, the valid bytes read, vel and
+        vel_old over ``t_grid`` cells, the obstacle mask unless
+        ``ring_only``."""
+        n = 0.0
+        for a, _ in calls:
+            slots = a[0].valid.numel() if every_slot else int(
+                a[0].valid.sum())
+            n += (48 * slots + valid_bytes_read(a[0]) + 24 * t_grid
+                  + (0 if ring_only else t_grid))
+        return n / len(calls)
+
     fbytes = {
-        "advect_bucket": (24 + 24) * P * T + 2 * 12 * T
-        + mean_valid_bytes(dev_calls["advect_bucket"]),
+        "advect_bucket": advect_bytes(dev_calls["advect_bucket"], T,
+                                      fparams.ring_only_obstacles),
         "rebin": 25 * P * T + 24 * live + mean_valid_bytes(rebin_calls),
         # the whole rebin moves what one pass does
         "rebin_fused": 25 * P * T + 24 * live
@@ -955,7 +1026,7 @@ def main():
             "extrap_layer": 20 * sum(len(a[0]) for a, _ in
                                      dev_calls["extrap_layer"]) * T
             / len(dev_calls["extrap_layer"])}
-    for kind, kname in (("advect_bucket", "advect_bucket_kernel"),
+    for kind, kname in (("advect_bucket", "advect_live_kernel<false>"),
                         ("rebin_fused", "rebin_fused_kernel<false>"),
                         ("p2g_levelset", "p2g_levelset_kernel"),
                         ("extrap_layer", "extrap_layer_kernel")):
@@ -965,6 +1036,23 @@ def main():
     time_kernel("rebin", "rebin_pass_kernel", rebin_calls, rbk.rebin_pass,
                 fb._rebin_axis, fbytes["rebin"], fops["rebin"],
                 f"P {P}, {live} live, the step's rebin in three passes")
+    # the public form on the same inputs: its copies of every slot and the
+    # kernel, timed together by CUDA events, against the every-slot bound
+    adv_calls = dev_calls["advect_bucket"]
+    pub_b_ms = advect_bytes(adv_calls, T, fparams.ring_only_obstacles,
+                            every_slot=True) / HBM_BYTES_PER_S * 1e3
+    pub_o_ms = fops["advect_bucket"] / FP32_OPS_PER_S * 1e3
+    fk["advect_bucket_public"] = {
+        "ms": cuda_ms(torch, replay(adv_calls, fadk.advect_blend), 5)
+        / len(adv_calls), "timed_by": "events",
+        "plain_ms": fk["advect_bucket"]["plain_ms"],
+        "bound_ms": max(pub_b_ms, pub_o_ms),
+        "bound_by": "bytes" if pub_b_ms >= pub_o_ms else "operations"}
+    print(f"advect_bucket public form: "
+          f"{fk['advect_bucket_public']['ms'] * 1e3:.1f} us/launch (bound "
+          f"{fk['advect_bucket_public']['bound_ms'] * 1e3:.1f} us, "
+          f"{fk['advect_bucket_public']['bound_by']}; P {P}, {live} live, "
+          "invalid slots copied through)", flush=True)
     # the developed bench dam's full-mode (ghost-fluid) solve: rhs and A0-Ak
     # in, p out, against its iterations x 24 flops per cell
     (cg_args, cg_kw), = dev_calls["cg_solve"]
@@ -1195,7 +1283,9 @@ def main():
     require(int(ref.buckets.dropped) == int(zstart.buckets.dropped),
             "zshard: the one-device reference drops particles")
     n_parts = int(zstart.buckets.count())
-    z_kernels = {**flip_kernels, "advect_bucket_zshard": fadk.advect_blend_slab,
+    z_kernels = {**flip_kernels,
+                 "advect_bucket_zshard": fadk.advect_blend_slab_live,
+                 "advect_bucket_zshard_public": fadk.advect_blend_slab,
                  "p2g_levelset_zshard": p2gk.p2g_union_slab}
     z_per_step = {"advect_bucket_zshard": mesh.n, "rebin_fused_slab": mesh.n,
                   "p2g_levelset_zshard": mesh.n, "extrap_layer": 10,
@@ -1255,7 +1345,7 @@ def main():
     # input goes through them too (the slabs' x and y passes, K9), each
     # call recorded and held against its plain version, the result against
     # the step's rebin
-    z_sites = {"advect_bucket_zshard": (fadk, "advect_blend_slab"),
+    z_sites = {"advect_bucket_zshard": (fadk, "advect_blend_slab_live"),
                "rebin_fused_slab": (rbk, "rebin_fused_slab"),
                "rebin_zshard_step": (rbk, "rebin_zshard"),
                "p2g_levelset_zshard": (p2gk, "p2g_union_slab"),
@@ -1298,9 +1388,21 @@ def main():
                     require(e <= tol, f"{k}: max abs err {e}")
                     errs[k] = max(errs.get(k, 0.0), e)
                 continue
-            e = bucket_err(got, want, exact=k != "advect_bucket_zshard")
-            require(e <= 1e-6, f"{k}: max abs err {e}")
+            if k == "advect_bucket_zshard":
+                e = advect_err(got, want, args[0], fadk.advect_blend_slab(
+                    *args, **kwargs))
+            else:
+                e = bucket_err(got, want, exact=True)
             errs[k] = max(errs.get(k, 0.0), e)
+    # the sharded rebin reads the advected slabs' live slots alone
+    (z_rebin_args, _), = zcalls["rebin_zshard_step"]
+    z_sbk = z_rebin_args[0]
+    bucket_err(shd.unshard_buckets(rbk.rebin_zshard(dataclasses.replace(
+        z_sbk, slabs=[poisoned(b) for b in z_sbk.slabs]),
+        *z_rebin_args[1:])), shd.unshard_buckets(
+        rbk.rebin_zshard(*z_rebin_args)), exact=True)
+    poison_checks.append(f"rebin_zshard {mesh.n} shards")
+    del z_rebin_args, z_sbk
     # the boundary-crossing fixture of tests/test_flip_sharded.py:145-162
     # at 8 shards: particles displaced across the slab faces, overflow
     xdom = Domain(size=(16,) * 3)
@@ -1354,10 +1456,10 @@ def main():
             ("rebin_zshard", "rebin_zshard_kernel",
              mean_valid_bytes(zcalls["rebin_zshard"]) + 25 * zP * t_slab
              + 24 * z_live, 10 * z_live),
-            ("advect_bucket_zshard", "advect_bucket_zshard_kernel",
-             (24 + 24) * zP * t_slab
-             + mean_valid_bytes(zcalls["advect_bucket_zshard"])
-             + 2 * 12 * (t_slab + 4 * FLIP_RES ** 2), 620 * z_live),
+            ("advect_bucket_zshard", "advect_live_kernel<true>",
+             advect_bytes(zcalls["advect_bucket_zshard"],
+                          t_slab + 4 * FLIP_RES ** 2,
+                          fparams.ring_only_obstacles), 620 * z_live),
             ("p2g_levelset_zshard", "p2g_levelset_zshard_kernel",
              mean_valid_bytes(zcalls["p2g_levelset_zshard"]) + 24 * z_live
              + 28 * t_slab, 540 * z_live)):
@@ -1375,6 +1477,21 @@ def main():
               f"(bound {zk[k]['bound_ms'] * 1e3:.1f} us, "
               f"{zk[k]['bound_by']}), plain {zk[k]['plain_ms']:.2f} ms",
               flush=True)
+    # the public slab form (invalid slots copied through) on the same
+    # inputs, CUDA events, against its every-slot bound
+    z_adv = zcalls["advect_bucket_zshard"]
+    zk["advect_bucket_zshard"]["public_form"] = {
+        "ms": cuda_ms(torch, replay(z_adv, fadk.advect_blend_slab), 5)
+        / len(z_adv), "timed_by": "events",
+        "bound_ms": advect_bytes(z_adv, t_slab + 4 * FLIP_RES ** 2,
+                                 fparams.ring_only_obstacles,
+                                 every_slot=True) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    print(f"advect_bucket_zshard public form: "
+          f"{zk['advect_bucket_zshard']['public_form']['ms'] * 1e3:.1f} "
+          f"us/launch (bound "
+          f"{zk['advect_bucket_zshard']['public_form']['bound_ms'] * 1e3:.1f}"
+          " us)", flush=True)
     halo_ms = {k: cuda_ms(torch, replay(zcalls[k], getattr(*z_sites[k])), 5)
                for k in ("halo_z", "scatter_z", "gather_z")}
     print("zshard copies per step (ms): " + ", ".join(
@@ -1415,7 +1532,8 @@ def main():
     # the particles as (N, 3) tensors, their transfers PyTorch's scatters
     # and gathers; per step 10 K14 launches and 1 K2 and nothing else
     every_kernel = {**flip_kernels, "window_advect": advk.window_pass,
-                    "advect_bucket_zshard": fadk.advect_blend_slab,
+                    "advect_bucket_zshard": fadk.advect_blend_slab_live,
+                    "advect_bucket_zshard_public": fadk.advect_blend_slab,
                     "p2g_levelset_zshard": p2gk.p2g_union_slab}
     flat_per_step = {"extrap_layer": 10, "cg_solve": 1}
     flat_sites = {k: sites[k] for k in flat_per_step}
@@ -1681,6 +1799,8 @@ def main():
                                          for rw in (1, 2)}
         if kind == "advect_bucket":
             entry["max_abs_err_with_obstacle"] = obstacle_err
+            entry["public_form"] = fk["advect_bucket_public"]
+            entry["poison_checks"] = poison_checks
         if kind == "extrap_layer":
             entry["flat_path"] = fk["extrap_layer_flat"]
         kernels.append(entry)

@@ -20,8 +20,10 @@ FLIP blend of step t runs at the head of step t+1, fused into the
 advection; ``finalize_buckets`` applies a pending blend before particle
 velocities are read. On a GPU the particle stages run through the
 hand-written CUDA kernels, as the JAX package's TPU branch runs its Pallas
-kernels: advection with the blend (``advect_bucket_kernels``), the rebin's
-three passes in one launch (``rebin_kernels``), the particle-to-grid
+kernels: advection with the blend over the live slots
+(``advect_bucket_kernels.advect_blend_live``: its invalid slots are left
+undefined, and the rebin reads none of them), the rebin's three passes in
+one launch (``rebin_kernels``), the particle-to-grid
 transfer (``p2g_kernels``: fused with the union levelset when there is
 ghost fluid and the particle radius spans one cell; else alone, followed
 with ghost fluid by ``levelset_kernels`` for the wider radius), the
@@ -375,7 +377,7 @@ def _particle_stages(state: FlipBucketState, bk, dt, dom: Domain,
     kw = dict(integration_mode=params.integration_mode,
               ring_only=params.ring_only_obstacles)
     if zshard is None:
-        bk = rbk.rebin(advk.advect_blend(bk, *args, **kw), dom)
+        bk = rbk.rebin(advk.advect_blend_live(bk, *args, **kw), dom)
         whole = bk
     else:
         bk = advk.advect_blend_zshard(bk, *args, zshard, **kw)

@@ -5,28 +5,33 @@ first stage, through the hand-written CUDA kernel.
 _advect_kernel`` as ``advect_blend_pallas`` calls it: RK4/RK2/Euler
 advection of every bucket slot, stop-in-obstacle, clamp and bisection, with
 the FLIP blend of the previous step applied at the drift-0 positions when
-``pending`` is true, in one launch of ``csrc/advect_bucket.cu``. The form
+``pending`` is true. The kernel, ``csrc/advect_bucket.cu``, computes the
+live slots only (each cell's slots up to its first invalid one), from a
+launch plan of tiles (``advect_plan``); ``advect_blend`` first copies every
+slot's fields into its outputs, so that invalid slots pass through as on
+the TPU. ``advect_blend_live``, the step's form, writes the live slots
+alone: the rebin that consumes its output reads nothing else. The form
 without the blend (``advect_pallas``) and advection that does not stop in
 obstacles have no caller on the port's path and are not ported
-(ROADMAP.md). On a CPU tensor it runs the plain PyTorch
-version, ``advect_blend_plain``: ``flip_update_bucketed`` then
-``advect_bucketed``.
+(ROADMAP.md). On a CPU tensor every form runs the plain PyTorch version,
+``advect_blend_plain``: ``flip_update_bucketed`` then ``advect_bucketed``.
 
 ``advect_blend_zshard`` is the port of ``advect_blend_zshard_spmd``: the
 same step on a bucket set cut into z-slabs (``parallel/sharding.py``). Each
 shard gets its slab of ``vel``, ``vel_old`` and the obstacle mask with two
 planes of each neighbour (``sharding.halo_z``) and runs the kernel's z-slab
-form (``advect_blend_slab``): global positions, the domain's z extent in
-every clamp. Its plain version, ``advect_blend_slab_plain``, places the
-slab and its halo planes in an otherwise empty domain and runs
-``advect_blend_plain`` there. The result equals ``advect_blend`` of the
-whole set.
+form (``advect_blend_slab_live``; ``advect_blend_slab`` with the
+pass-through): global positions, the domain's z extent in every clamp. Its
+plain version, ``advect_blend_slab_plain``, places the slab and its halo
+planes in an otherwise empty domain and runs ``advect_blend_plain`` there.
+The result equals ``advect_blend`` of the whole set on the live slots.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -54,10 +59,56 @@ def advect_blend_plain(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
                               ring_only)
 
 
+# csrc/advect_bucket.cu's launch plan: a block per tile of cells, and the
+# windows of the grids it stages (cells below and above the tile per axis)
+ADVECT_TILE = (32, 4, 2)  # cells in x, y, z
+ADVECT_HALOS = {"vel": (2, 3), "vel_old": (1, 1), "obs": (1, 2)}
+ADVECT_MAX_PPC = 255      # the list's 16-bit entries: slot row < 256
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvectPlan:
+    """The advection kernel's launch for P slots over (nz, sy, sx) cells."""
+    grid: tuple[int, int, int]  # tiles in x, y, z
+    ppc: int
+
+    @staticmethod
+    def window(halo: str) -> int:
+        lo, hi = ADVECT_HALOS[halo]
+        return math.prod(t + lo + hi for t in ADVECT_TILE)
+
+    @property
+    def smem_bytes(self) -> int:
+        """The staged vel and vel_old windows (float32, 3 components) and
+        obstacle window (1 byte), one mask and one list offset per slot row
+        and tile row of 32 cells (4 bytes each), the list of live slots (2
+        bytes per slot of a tile of up to 256 cells, else 4)."""
+        cells = math.prod(ADVECT_TILE)
+        staged = (12 * (self.window("vel") + self.window("vel_old"))
+                  + self.window("obs"))
+        entry = 2 if cells <= 256 else 4
+        return (staged + 8 * self.ppc * (cells // 32)
+                + entry * self.ppc * cells)
+
+
+def advect_plan(shape, ppc: int) -> AdvectPlan:
+    """Tiles over the (nz, sy, sx) cells of a bucket set of ``ppc`` slots;
+    raises past ADVECT_MAX_PPC slots or the shared memory of a block."""
+    nz, sy, sx = shape
+    tx, ty, tz = ADVECT_TILE
+    plan = AdvectPlan((-(-sx // tx), -(-sy // ty), -(-nz // tz)), ppc)
+    if not 1 <= ppc <= ADVECT_MAX_PPC or \
+            plan.smem_bytes > _build.SMEM_OPTIN_BYTES:
+        raise ValueError(f"advect_blend: {ppc} slots per cell do not fit "
+                         "one block's list")
+    return plan
+
+
 _ARGS = ((ctypes.c_void_p,) * 18 + (ctypes.c_longlong,)
-         + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 4
-         + (ctypes.c_void_p,))
+         + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 6
+         + (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p))
 _HALO = 2  # grid planes each shard takes from each neighbour
+_FIELDS = ("px", "py", "pz", "vx", "vy", "vz")
 
 
 def _scalar(v, dtype, dev, name):
@@ -75,49 +126,57 @@ def _check_grid(g, shape, dev, who, name):
 
 
 def _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom: Domain,
-            integration_mode, ring_only, slab=None):
-    """One launch over ``bk``; ``slab`` = (z_base, zlo): the z-slab form,
-    its cells from global plane z_base, its grids from plane zlo."""
+            integration_mode, ring_only, through, slab=None):
+    """One launch over the live slots of ``bk``; ``through``: the outputs
+    start as copies of the inputs, else uninitialised. ``slab`` = (z_base,
+    zlo): the z-slab form, its cells from global plane z_base, its grids
+    from plane zlo."""
     dev = bk.px.device
     if integration_mode not in (0, 1, 2):
         raise ValueError("unknown integration type")
     dt_t = _scalar(dt, torch.float32, dev, "dt")
     pend_t = _scalar(pending, torch.bool, dev, "pending")
-    fields = ("px", "py", "pz", "vx", "vy", "vz")
-    out = {n: torch.empty_like(getattr(bk, n)) for n in fields}
+    out = {n: (torch.clone if through else torch.empty_like)(getattr(bk, n))
+           for n in _FIELDS}
     sz, sy, sx = dom.shape
     z_base, zlo = slab if slab is not None else (0, 0)
+    plan = advect_plan((bk.ncells // (sy * sx), sy, sx), bk.ppc)
     _build.launcher("advect_bucket", _ARGS)(
-        *(getattr(bk, n).data_ptr() for n in fields[:3]),
+        *(getattr(bk, n).data_ptr() for n in _FIELDS[:3]),
         bk.valid.data_ptr(),
-        *(getattr(bk, n).data_ptr() for n in fields[3:]),
+        *(getattr(bk, n).data_ptr() for n in _FIELDS[3:]),
         vel.data_ptr(), vel_old.data_ptr(),
         obs.data_ptr() if obs is not None else None,
         dt_t.data_ptr(), pend_t.data_ptr(),
-        *(out[n].data_ptr() for n in fields),
+        *(out[n].data_ptr() for n in _FIELDS),
         bk.ncells, bk.ppc, sx, sy, sz, int(z_base), int(zlo), vel.shape[1],
         float(flip_ratio), 1.0 - float(flip_ratio), int(integration_mode),
-        int(ring_only), int(slab is not None), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(ring_only), int(slab is not None), *plan.grid, plan.smem_bytes,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return dataclasses.replace(bk, **out)
 
 
 def _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio,
-                       dom, integration_mode, ring_only):
-    check_buckets(bk, dom, "advect_blend")
+                       dom, integration_mode, ring_only, through, who):
+    check_buckets(bk, dom, who)
     dev = bk.px.device
     for name, g in (("vel", vel), ("vel_old", vel_old)):
-        _check_grid(g, (3,) + dom.shape, dev, "advect_blend", name)
+        _check_grid(g, (3,) + dom.shape, dev, who, name)
     obs = None
     if not ring_only:
         if tuple(flags.shape) != dom.shape or flags.device != dev:
-            raise ValueError(f"advect_blend: flags must be a {dom.shape} "
-                             f"tensor on {dev}")
+            raise ValueError(f"{who}: flags must be a {dom.shape} tensor on "
+                             f"{dev}")
         obs = fl.is_obstacle(flags).contiguous()
-    out = _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom,
-                  integration_mode, ring_only)
-    advect_blend.launches += 1
-    return out
+    return _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom,
+                   integration_mode, ring_only, through)
+
+
+def _device(bk, who):
+    dev = bk.px.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {dev}")
+    return dev
 
 
 def advect_blend(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
@@ -125,21 +184,47 @@ def advect_blend(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
                  ring_only: bool = False) -> fb.Buckets:
     """FLIP blend of (vel, vel_old) at the drift-0 positions where
     ``pending``, then advection through ``vel`` by ``dt``, stopping in
-    obstacles. ``dt`` and ``pending`` may be 0-dim device tensors (no host
-    sync). CUDA tensors run the kernel, CPU tensors
-    ``advect_blend_plain``."""
-    dev = bk.px.device
-    if dev.type == "cpu":
+    obstacles; invalid slots pass through. ``dt`` and ``pending`` may be
+    0-dim device tensors (no host sync). CUDA tensors run the kernel on
+    copies of the inputs, CPU tensors ``advect_blend_plain``."""
+    if _device(bk, "advect_blend").type == "cpu":
         return advect_blend_plain(bk, flags, vel, vel_old, dt, pending,
                                   flip_ratio, dom, integration_mode,
                                   ring_only)
-    if dev.type != "cuda":
-        raise ValueError(f"advect_blend: unsupported device {dev}")
-    return _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending,
-                              flip_ratio, dom, integration_mode, ring_only)
+    out = _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending,
+                             flip_ratio, dom, integration_mode, ring_only,
+                             True, "advect_blend")
+    advect_blend.launches += 1
+    return out
 
 
 advect_blend.launches = 0  # kernel launches (CUDA only)
+
+
+def advect_blend_live(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
+                      flip_ratio: float, dom: Domain,
+                      integration_mode: int = 2,
+                      ring_only: bool = False) -> fb.Buckets:
+    """The step's form of ``advect_blend``: on the card only the live slots
+    (each cell's slots up to its first invalid one) of the result are
+    written, and the other slots' fields are undefined. Its one consumer is
+    the rebin, which reads live slots only and parks the others again: the
+    buckets between the two break the layout's parking rule
+    (ops/flip_bucket.py), and no state outside the step holds them. CPU
+    tensors run ``advect_blend_plain``, whose pass-through is one such
+    result."""
+    if _device(bk, "advect_blend_live").type == "cpu":
+        return advect_blend_plain(bk, flags, vel, vel_old, dt, pending,
+                                  flip_ratio, dom, integration_mode,
+                                  ring_only)
+    out = _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending,
+                             flip_ratio, dom, integration_mode, ring_only,
+                             False, "advect_blend_live")
+    advect_blend_live.launches += 1
+    return out
+
+
+advect_blend_live.launches = 0  # kernel launches (CUDA only)
 
 
 def advect_blend_slab_plain(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
@@ -168,29 +253,27 @@ def advect_blend_slab_plain(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
     cells = slice(z_base * dom.shape[1] * dom.shape[2],
                   (z_base + lz) * dom.shape[1] * dom.shape[2])
     return dataclasses.replace(bk, **{
-        f: getattr(out, f)[:, cells].contiguous()
-        for f in ("px", "py", "pz", "vx", "vy", "vz")})
+        f: getattr(out, f)[:, cells].contiguous() for f in _FIELDS})
 
 
 def _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending, flip_ratio,
-                            dom, z_base, integration_mode, ring_only):
+                            dom, z_base, integration_mode, ring_only,
+                            through, who):
     sz, sy, sx = dom.shape
     lz = bk.ncells // (sy * sx)
-    check_buckets(bk, Domain(size=(sx, sy, lz)), "advect_blend_slab")
+    check_buckets(bk, Domain(size=(sx, sy, lz)), who)
     dev = bk.px.device
     grid = (3, lz + 2 * _HALO, sy, sx)
     for name, g in (("vel", vel), ("vel_old", vel_old)):
-        _check_grid(g, grid, dev, "advect_blend_slab", name)
+        _check_grid(g, grid, dev, who, name)
     if not ring_only and (obs is None or obs.dtype != torch.bool
                           or tuple(obs.shape) != grid[1:]
                           or not obs.is_contiguous() or obs.device != dev):
-        raise ValueError(f"advect_blend_slab: obs must be a contiguous bool "
-                         f"{grid[1:]} tensor on {dev}")
-    out = _launch(bk, None if ring_only else obs, vel, vel_old, dt, pending,
-                  flip_ratio, dom, integration_mode, ring_only,
-                  slab=(z_base, z_base - _HALO))
-    advect_blend_slab.launches += 1
-    return out
+        raise ValueError(f"{who}: obs must be a contiguous bool {grid[1:]} "
+                         f"tensor on {dev}")
+    return _launch(bk, None if ring_only else obs, vel, vel_old, dt,
+                   pending, flip_ratio, dom, integration_mode, ring_only,
+                   through, slab=(z_base, z_base - _HALO))
 
 
 def advect_blend_slab(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
@@ -198,31 +281,55 @@ def advect_blend_slab(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
                       integration_mode: int = 2,
                       ring_only: bool = False) -> fb.Buckets:
     """``advect_blend`` on one z-slab (arguments as
-    ``advect_blend_slab_plain``). CUDA tensors run the kernel's z-slab
-    form, CPU tensors ``advect_blend_slab_plain``."""
-    dev = bk.px.device
-    if dev.type == "cpu":
+    ``advect_blend_slab_plain``), invalid slots passed through. CUDA
+    tensors run the kernel's z-slab form on copies of the inputs, CPU
+    tensors ``advect_blend_slab_plain``."""
+    if _device(bk, "advect_blend_slab").type == "cpu":
         return advect_blend_slab_plain(bk, obs, vel, vel_old, dt, pending,
                                        flip_ratio, dom, z_base,
                                        integration_mode, ring_only)
-    if dev.type != "cuda":
-        raise ValueError(f"advect_blend_slab: unsupported device {dev}")
-    return _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending,
-                                   flip_ratio, dom, z_base, integration_mode,
-                                   ring_only)
+    out = _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending,
+                                  flip_ratio, dom, z_base, integration_mode,
+                                  ring_only, True, "advect_blend_slab")
+    advect_blend_slab.launches += 1
+    return out
 
 
 advect_blend_slab.launches = 0  # kernel launches (CUDA only)
+
+
+def advect_blend_slab_live(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
+                           flip_ratio: float, dom: Domain, z_base: int,
+                           integration_mode: int = 2,
+                           ring_only: bool = False) -> fb.Buckets:
+    """The sharded step's form of ``advect_blend_slab``: on the card only
+    the live slots of the result are written, the others' fields are
+    undefined (as ``advect_blend_live``; its one consumer is the slab's
+    rebin). CPU tensors run ``advect_blend_slab_plain``."""
+    if _device(bk, "advect_blend_slab_live").type == "cpu":
+        return advect_blend_slab_plain(bk, obs, vel, vel_old, dt, pending,
+                                       flip_ratio, dom, z_base,
+                                       integration_mode, ring_only)
+    out = _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending,
+                                  flip_ratio, dom, z_base, integration_mode,
+                                  ring_only, False, "advect_blend_slab_live")
+    advect_blend_slab_live.launches += 1
+    return out
+
+
+advect_blend_slab_live.launches = 0  # kernel launches (CUDA only)
 
 
 def advect_blend_zshard(sbk: shd.ShardedBuckets, flags, vel, vel_old, dt,
                         pending, flip_ratio: float, dom: Domain,
                         mesh: shd.ZMesh, integration_mode: int = 2,
                         ring_only: bool = False) -> shd.ShardedBuckets:
-    """``advect_blend`` of a z-sharded bucket set, the grids whole on the
-    lead: each shard takes its slab of ``vel``, ``vel_old`` and (unless
+    """``advect_blend_live`` of a z-sharded bucket set, the grids whole on
+    the lead: each shard takes its slab of ``vel``, ``vel_old`` and (unless
     ``ring_only``) the obstacle mask with two planes of each neighbour and
-    advects its buckets (flip_bucket_pallas.py:advect_blend_zshard_spmd)."""
+    advects its buckets (flip_bucket_pallas.py:advect_blend_zshard_spmd)
+    through ``advect_blend_slab_live``: on the card the invalid slots of
+    the result are undefined, for the sharded rebin alone to read."""
     lz = mesh.planes(dom.shape[0])
     vel_h = shd.halo_z(shd.scatter_z(vel, mesh, 1), _HALO, 1)
     old_h = shd.halo_z(shd.scatter_z(vel_old, mesh, 1), _HALO, 1)
@@ -232,7 +339,7 @@ def advect_blend_zshard(sbk: shd.ShardedBuckets, flags, vel, vel_old, dt,
     slabs = []
     for i, b in enumerate(sbk.slabs):
         dev = mesh.device(i)
-        slabs.append(advect_blend_slab(
+        slabs.append(advect_blend_slab_live(
             b, obs_h[i], vel_h[i], old_h[i], torch.as_tensor(dt).to(dev),
             torch.as_tensor(pending).to(dev), flip_ratio, dom, i * lz,
             integration_mode, ring_only))

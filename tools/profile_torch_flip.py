@@ -53,8 +53,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 # kernel name in the trace -> group
-GROUPS = {"advect_bucket_kernel": "advect_bucket",
-          "advect_bucket_zshard_kernel": "advect_bucket_zshard",
+GROUPS = {"advect_live_kernel<false>": "advect_bucket",
+          "advect_live_kernel<true>": "advect_bucket_zshard",
           "rebin_fused_kernel<false>": "rebin_fused",
           "rebin_fused_kernel<true>": "rebin_fused_slab",
           "rebin_pass_kernel": "rebin",

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time the CG (K2), union-levelset (K12), particle-to-grid (K10, its
-z-slab form, K11) kernels and the rebin (one device and z-sharded) of this
-checkout against another checkout's, on the same inputs, on one GPU.
+z-slab form, K11) kernels, the rebin (one device and z-sharded) and the
+bucket advection (K3, its z-slab form) of this checkout against another
+checkout's, on the same inputs, on one GPU.
 
     git archive <commit> | tar -x -C build/ab_other
     python3 tools/profile_torch_kernel_ab.py --other build/ab_other \
-        [--order other,this,this,other] [--reps 5]
+        [--order other,this,this,other] [--reps 5] [--only k3] \
+        [--extra NAME=PATH ...]
 
 The inputs come from this checkout, on the card: the 128^3 bench smoke
 system after 5 steps (chip_smoke.py phase 4: full-stencil mode, accuracy
@@ -29,7 +31,13 @@ is its grid barriers and reductions with next to no cells;
 the flip01 and the obstacle dams; ``rebin_kernels.rebin`` (the step's
 rebin, whatever kernels the checkout runs it through) on the advected
 bench dam, and ``rebin_kernels.rebin_zshard`` on its 4 z-slabs (per step:
-the halo copies and every launch). Untimed, K10 and K11 also run on the
+the halo copies and every launch); the step's advection (each
+checkout's step form: ``advect_blend_live`` where it has one, else
+``advect_blend``) on the developed bench dam, the obstacle dam (its
+flags-at-position probes), the cold dam at PPC 10 (three steps in) and,
+per launch, the bench dam's 4 z-slabs (``advect_blend_slab_live``, else
+``advect_blend_slab``), and the form that passes invalid slots through
+(``advect_blend``) on the bench dam. Untimed, K10 and K11 also run on the
 made-up buckets of the ``gpu`` case ``test_p2g_kernels_synthetic_buckets``
 (tests/test_torch_flip_kernels.py: 19x23x29, 1 to 40 slots, random, empty
 and full fills, made-up velocities; its generator is imported, so the
@@ -39,10 +47,14 @@ of ``--order`` runs in a process of its own, which imports that checkout's
 run, the max |difference| of the transfer's and the rebin's outputs
 between the two checkouts (a change in the order of the transfer's sums
 shows as a number; the rebin's are 0 where it is bitwise equal,
-``dropped`` included) and between two runs of one checkout, each
+``dropped`` included; the advection's over the live slots, 0 where it
+is bitwise equal) and between two runs of one checkout, each
 checkout's max |error| against the plain version on the made-up buckets
 (vel, weight, phi, and the weight's error over 1e-6 of itself), and a
 summary line: per checkout, the mean over its runs of each time.
+``--extra NAME=PATH`` adds a checkout under that name for ``--order``
+(a design variant, tools/make_advect_variant.py); ``--only k3`` times the
+advection alone.
 """
 
 import argparse
@@ -59,6 +71,26 @@ ZSHARDS = 4
 SYNTHETIC = ((1, "random"), (24, "random"), (40, "random"), (24, "empty"),
              (40, "full"))
 SYNTHETIC_SIZE = (19, 23, 29)
+FIELDS6 = BUCKET_FIELDS[:6]
+
+
+def k3_call(args, kwargs, slab):
+    """An advection call's arguments as tensors and numbers: one domain,
+    (bk, flags, vel, vel_old, dt, pending, flip_ratio, dom) with the mode
+    and ring_only as keywords (models/flip.py); a slab, (bk, obs, vel,
+    vel_old, dt, pending, flip_ratio, dom, z_base, mode, ring_only)."""
+    import torch
+    if slab:
+        bk, obs, vel, vold, dt, pend, fr, _, z_base, mode, ring = args
+        grid = {"obs": obs, "z_base": z_base}
+    else:
+        bk, flags, vel, vold, dt, pend, fr, _ = args
+        mode, ring = kwargs["integration_mode"], kwargs["ring_only"]
+        grid = {"flags": flags}
+    return {"buckets": {f: getattr(bk, f) for f in BUCKET_FIELDS},
+            "vel": vel, "vel_old": vold, "dt": torch.as_tensor(dt),
+            "pending": torch.as_tensor(pend), "flip_ratio": float(fr),
+            "mode": int(mode), "ring_only": bool(ring), **grid}
 
 
 def cuda_ms(torch, fn, reps):
@@ -74,13 +106,14 @@ def cuda_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def make_inputs(path):
+def make_inputs(path, only):
     sys.path.insert(0, HERE)
     import torch
     from mantaflow_tpu_torch.core import flags as fl
     from mantaflow_tpu_torch.core.domain import Domain
     from mantaflow_tpu_torch.core.shapes import Sphere
     from mantaflow_tpu_torch.models import flip, smoke
+    from mantaflow_tpu_torch.ops import advect_bucket_kernels as advk
     from mantaflow_tpu_torch.ops import extforces as ext
     from mantaflow_tpu_torch.ops import flip_bucket as fb
     from mantaflow_tpu_torch.ops import pressure as prs
@@ -151,11 +184,43 @@ def make_inputs(path):
     (adv,) = rebin_in
     out["rebin"] = {f: getattr(adv, f) for f in BUCKET_FIELDS}
     info["rebin"] = {"ppc": adv.ppc, "live": int(adv.valid.sum())}
+    # the advection's inputs: one step of each dam, its call recorded
+    k3 = out["k3"] = {}
+
+    def record_advection(st, fparams_, zshard=None):
+        name = "advect_blend_slab_live" if zshard else "advect_blend_live"
+        calls, orig = [], getattr(advk, name)
+
+        def rec(*args, **kwargs):
+            calls.append((args, kwargs))
+            return orig(*args, **kwargs)
+        rec.launches = 0  # the wrapper counts on the module's name
+        setattr(advk, name, rec)
+        try:
+            flip.flip_step_bucketed(st, dom, fparams_, zshard=zshard)
+        finally:
+            setattr(advk, name, orig)
+        return [k3_call(args, kwargs, zshard is not None)
+                for args, kwargs in calls]
+    k3["bench"], = record_advection(bench_state, bench_params)
+    mesh4 = shd.make_zmesh(ZSHARDS, devices=[dev])
+    k3["slabs"] = record_advection(
+        shd.shard_flip_bucket_state(bench_state, mesh4), bench_params, mesh4)
+    cold = flip.make_dam_state_bucketed(dom, bench_params, ppc=10,
+                                        device=dev)
+    for _ in range(3):
+        cold = flip.flip_step_bucketed(cold, dom, bench_params)
+    k3["cold"], = record_advection(cold, bench_params)
+    del cold
+    for name in ("bench", "cold"):
+        info[f"k3_{name}"] = {"ppc": k3[name]["buckets"]["valid"].shape[0],
+                              "live": int(k3[name]["buckets"]["valid"].sum())}
     fparams = flip.FlipParams(gravity=(0.0, -0.003, 0.0), ghost_fluid=True,
                               radius_factor=2.5, cg_accuracy=1e-3)
     obstacle = Sphere(center=(res * 0.7, res * 0.28, res * 0.5),
                       radius=res * 0.15)
     fst = developed(fparams, obstacle)
+    k3["obstacle"], = record_advection(fst, fparams)
     calls = []
     orig = prk.cg_solve
 
@@ -180,18 +245,21 @@ def make_inputs(path):
         f"{ppc}_{fill}": {f: getattr(b_, f) for f in BUCKET_FIELDS}
         for ppc, fill in SYNTHETIC
         for b_ in [_synthetic_moving(SYNTHETIC_SIZE, ppc, fill, dev)[1]]}
-    torch.save(out, path)
-    return {"ppc": bk.ppc, "live": out["obstacle"]["live"],
+    info["obstacle"] = {"ppc": bk.ppc, "live": out["obstacle"]["live"]}
+    # --only k3: the advection's inputs alone go to the timing processes
+    torch.save({"k3": out["k3"]} if only == "k3" else out, path)
+    return {"ppc": bk.ppc, "live": info["obstacle"]["live"],
             "particles_kept": int(bk.count()), "dropped": int(bk.dropped),
             "fluid_cells_smoke": int(fl.is_fluid(st.flags).sum()), **info}
 
 
-def time_checkout(repo, path, reps, out_path):
+def time_checkout(repo, path, reps, out_path, only):
     sys.path.insert(0, os.path.abspath(repo))
     import torch
     import mantaflow_tpu_torch
     from mantaflow_tpu_torch.core.domain import Domain
     from mantaflow_tpu_torch.kernels import _build
+    from mantaflow_tpu_torch.ops import advect_bucket_kernels as advk
     from mantaflow_tpu_torch.ops import flip_bucket as fb
     from mantaflow_tpu_torch.ops import levelset_kernels as lsk
     from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
@@ -205,38 +273,73 @@ def time_checkout(repo, path, reps, out_path):
     inp = torch.load(path)
     dom = Domain(size=(128,) * 3)
     res = {"repo": repo}
-    bk = fb.Buckets(**inp["obstacle"]["buckets"])
-    # the transfer: K10 on the bench dam, its z-slab form on the bench
-    # dam's four slabs, K11 on the flip01 and obstacle dams
-    bench = fb.Buckets(**inp["bench"])
-    slabs = [fb.Buckets(**e) for e in inp["slabs"]]
-    lz = 128 // len(slabs)
-    outs = {}
+    timed, outs = {}, {}
+    if only != "k3":
+        bk = fb.Buckets(**inp["obstacle"]["buckets"])
+        # the transfer: K10 on the bench dam, its z-slab form on the bench
+        # dam's four slabs, K11 on the flip01 and obstacle dams
+        bench = fb.Buckets(**inp["bench"])
+        slabs = [fb.Buckets(**e) for e in inp["slabs"]]
+        lz = 128 // len(slabs)
 
-    def k10():
-        outs["k10"] = p2gk.p2g_union(bench, dom, 1.0)
+        def k10():
+            outs["k10"] = p2gk.p2g_union(bench, dom, 1.0)
 
-    def k10_zshard():
-        outs["k10_zshard"] = [p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
-                              for i, e in enumerate(slabs)]
-    adv = fb.Buckets(**inp["rebin"])
-    mesh = shd.make_zmesh(len(slabs), devices=[adv.px.device])
-    adv_sharded = shd.shard_buckets(adv, mesh)
+        def k10_zshard():
+            outs["k10_zshard"] = [p2gk.p2g_union_slab(e, dom, i * lz, 1.0)
+                                  for i, e in enumerate(slabs)]
+        adv = fb.Buckets(**inp["rebin"])
+        mesh = shd.make_zmesh(len(slabs), devices=[adv.px.device])
+        adv_sharded = shd.shard_buckets(adv, mesh)
 
-    def rebin():
-        outs["rebin"] = rbk.rebin(adv, dom)
+        def rebin():
+            outs["rebin"] = rbk.rebin(adv, dom)
 
-    def rebin_zshard():
-        outs["rebin_zshard"] = shd.unshard_buckets(
-            rbk.rebin_zshard(adv_sharded, dom, mesh))
-    timed = {"p2g_levelset": (k10, 1), "p2g_levelset_zshard": (k10_zshard,
-                                                              len(slabs)),
-             "rebin": (rebin, 1), "rebin_zshard_step": (rebin_zshard, 1)}
-    for name, b_ in (("flip01", fb.Buckets(**inp["flip01"])),
-                     ("obstacle", bk)):
-        def k11(b_=b_, name=name):
-            outs[f"k11_{name}"] = p2gk.p2g_mac(b_, dom)
-        timed[f"p2g_mac_{name}"] = (k11, 1)
+        def rebin_zshard():
+            outs["rebin_zshard"] = shd.unshard_buckets(
+                rbk.rebin_zshard(adv_sharded, dom, mesh))
+        timed.update({"p2g_levelset": (k10, 1),
+                      "p2g_levelset_zshard": (k10_zshard, len(slabs)),
+                      "rebin": (rebin, 1),
+                      "rebin_zshard_step": (rebin_zshard, 1)})
+        for name, b_ in (("flip01", fb.Buckets(**inp["flip01"])),
+                         ("obstacle", bk)):
+            def k11(b_=b_, name=name):
+                outs[f"k11_{name}"] = p2gk.p2g_mac(b_, dom)
+            timed[f"p2g_mac_{name}"] = (k11, 1)
+    # the advection: each checkout's step form, and the public form
+    step_form = getattr(advk, "advect_blend_live", advk.advect_blend)
+    slab_form = getattr(advk, "advect_blend_slab_live",
+                        advk.advect_blend_slab)
+
+    def k3_args(c):
+        slab = "z_base" in c
+        return ((fb.Buckets(**c["buckets"]),
+                 c["obs"] if slab else c["flags"], c["vel"], c["vel_old"],
+                 c["dt"], c["pending"], c["flip_ratio"], dom)
+                + ((c["z_base"],) if slab else ())
+                + (c["mode"], c["ring_only"]))
+
+    def live_fields(outs_, args_):
+        """The six fields of the live slots, concatenated over the calls."""
+        return [torch.cat([getattr(o, f)[a[0].valid]
+                           for o, a in zip(outs_, args_)]) for f in FIELDS6]
+    k3 = {name: k3_args(inp["k3"][name])
+          for name in ("bench", "obstacle", "cold")}
+    k3_slabs = [k3_args(c) for c in inp["k3"]["slabs"]]
+    k3_outs = {}
+    for name, a_ in k3.items():
+        def k3_step(a_=a_, name=name):
+            k3_outs[name] = [step_form(*a_)]
+        timed[f"advect_{name}"] = (k3_step, 1)
+
+    def k3_zshard():
+        k3_outs["zshard"] = [slab_form(*a_) for a_ in k3_slabs]
+    timed["advect_zshard"] = (k3_zshard, len(k3_slabs))
+
+    def k3_public():
+        k3_outs["public"] = [advk.advect_blend(*k3["bench"])]
+    timed["advect_public_bench"] = (k3_public, 1)
     # three rounds of reps calls each, in turn; the median per launch
     rounds = {k: [] for k in timed}
     for _ in range(3):
@@ -245,6 +348,21 @@ def time_checkout(repo, path, reps, out_path):
     for k, ms in rounds.items():
         res[f"{k}_ms"] = sorted(ms)[1]
         res[f"{k}_rounds_ms"] = ms
+    torch.cuda.synchronize()
+    for name, o in k3_outs.items():
+        a_ = (k3_slabs if name == "zshard" else
+              [k3["bench" if name == "public" else name]])
+        outs[f"k3_{name}"] = live_fields(o, a_)
+    # the public form passes the invalid slots through
+    pub, (b_, *_) = k3_outs["public"][0], k3["bench"]
+    res["advect_public_invalid_unchanged"] = all(
+        torch.equal(getattr(pub, f)[~b_.valid], getattr(b_, f)[~b_.valid])
+        for f in FIELDS6)
+    if only == "k3":
+        torch.save({k: [t.cpu() for t in v] for k, v in outs.items()},
+                   out_path)
+        print(json.dumps(res), flush=True)
+        return
     for name in ("smoke", "obstacle"):
         c = inp[name]
         got = {}
@@ -288,12 +406,16 @@ def main():
     ap.add_argument("--other", required=True)
     ap.add_argument("--order", default="other,this,this,other")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", choices=("all", "k3"), default="all")
+    ap.add_argument("--extra", action="append", default=[],
+                    help="NAME=PATH: another checkout for --order")
     ap.add_argument("--time", help=argparse.SUPPRESS)
     ap.add_argument("--inputs", help=argparse.SUPPRESS)
     ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        time_checkout(args.time, args.inputs, args.reps, args.outputs)
+        time_checkout(args.time, args.inputs, args.reps, args.outputs,
+                      args.only)
         return
     import torch
     if not torch.cuda.is_available():
@@ -302,10 +424,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    repos = {"this": HERE, "other": args.other}
+    repos = {"this": HERE, "other": args.other,
+             **dict(e.split("=", 1) for e in args.extra)}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "inputs.pt")
-        info = make_inputs(path)
+        info = make_inputs(path, args.only)
         print(json.dumps({"inputs": info}), flush=True)
         runs, saved = [], {}
         for i, which in enumerate(args.order.split(",")):
@@ -313,7 +436,8 @@ def main():
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--other",
                  args.other, "--time", repos[which], "--inputs", path,
-                 "--outputs", out_path, "--reps", str(args.reps)],
+                 "--outputs", out_path, "--reps", str(args.reps),
+                 "--only", args.only],
                 capture_output=True, text=True, check=True).stdout
             run = json.loads(out.strip().splitlines()[-1])
             run["which"] = which
@@ -323,8 +447,10 @@ def main():
         # the transfer's outputs: this checkout against the other, and two
         # runs of one checkout against each other
         pairs = {}
-        if "this" in saved and "other" in saved:
-            pairs["this_vs_other"] = (saved["this"][0], saved["other"][0])
+        for which in saved:
+            if which != "this" and "this" in saved:
+                pairs[f"this_vs_{which}"] = (saved["this"][0],
+                                             saved[which][0])
         for which, paths in saved.items():
             if len(paths) > 1:
                 pairs[f"{which}_vs_{which}"] = paths[:2]
@@ -332,33 +458,36 @@ def main():
             a, b = torch.load(pa), torch.load(pb)
             print(json.dumps({"max_abs_diff": pair, **{
                 f"{k}_{n}": float((x.double() - y.double()).abs().max())
-                for k in a for n, x, y in zip(
+                for k in a if k in b for n, x, y in zip(
                     BUCKET_FIELDS if k.startswith("rebin")
+                    else FIELDS6 if k.startswith("k3")
                     else ("vel", "weight", "phi"), a[k], b[k])}}),
                 flush=True)
         # the made-up buckets: each checkout against the plain version
-        sys.path.insert(0, HERE)
-        from mantaflow_tpu_torch.core.domain import Domain
-        from mantaflow_tpu_torch.ops import flip_bucket as fb
-        from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
-        sdom = Domain(size=SYNTHETIC_SIZE)
-        inp = torch.load(path)
-        plain = {}
-        for case, fields in inp["synthetic"].items():
-            b_ = fb.Buckets(**fields)
-            plain[f"syn{case}_k10"] = [
-                t.cpu() for t in p2gk.p2g_union_plain(b_, sdom, 1.0)]
-            plain[f"syn{case}_k11"] = [t.cpu() for t in fb.p2g_mac(b_, sdom)]
-        for which, paths in saved.items():
-            got = torch.load(paths[0])
-            errs = {}
-            for k, ref in plain.items():
-                for n, x, y in zip(("vel", "weight", "phi"), got[k], ref):
-                    errs[f"{k}_{n}"] = float((x - y).abs().max())
-                w, rw = got[k][1], ref[1]
-                errs[f"{k}_weight_over_1e-6_rel"] = float(
-                    ((w - rw).abs() - 1e-6 * rw.abs()).max())
-            print(json.dumps({"vs_plain": which, **errs}), flush=True)
+        if args.only != "k3":
+            sys.path.insert(0, HERE)
+            from mantaflow_tpu_torch.core.domain import Domain
+            from mantaflow_tpu_torch.ops import flip_bucket as fb
+            from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
+            sdom = Domain(size=SYNTHETIC_SIZE)
+            inp = torch.load(path)
+            plain = {}
+            for case, fields in inp["synthetic"].items():
+                b_ = fb.Buckets(**fields)
+                plain[f"syn{case}_k10"] = [
+                    t.cpu() for t in p2gk.p2g_union_plain(b_, sdom, 1.0)]
+                plain[f"syn{case}_k11"] = [t.cpu()
+                                           for t in fb.p2g_mac(b_, sdom)]
+            for which, paths in saved.items():
+                got = torch.load(paths[0])
+                errs = {}
+                for k, ref in plain.items():
+                    for n, x, y in zip(("vel", "weight", "phi"), got[k], ref):
+                        errs[f"{k}_{n}"] = float((x - y).abs().max())
+                    w, rw = got[k][1], ref[1]
+                    errs[f"{k}_weight_over_1e-6_rel"] = float(
+                        ((w - rw).abs() - 1e-6 * rw.abs()).max())
+                print(json.dumps({"vs_plain": which, **errs}), flush=True)
     summary = {}
     for which in repos:
         mine = [r for r in runs if r["which"] == which]
