@@ -79,7 +79,30 @@ Phases (any failed check raises, and the script exits non-zero):
 15. the APIC ghost-fluid dam (tests/test_flip_model.py:24) at 128^3, driven
    and checked the same way;
 16. the flat FLIP dam, the APIC dam and the flat dam with a sphere
-   obstacle on the card against the CPU, 3 steps at 24^3.
+   obstacle on the card against the CPU, 3 steps at 24^3;
+17. the exact-gather smoke (the bench configuration with window 0 and
+   clamp mode 2, the JAX package's default advection) at 128^3: 1 warm
+   step, 10 timed, 30 more, 10 timed, no window kernel and one CG per
+   step; the CG kernel against the plain CG on a developed step's system,
+   as phase 4 holds it;
+18. the bench smoke with PcMGStatic at 128^3 (bench.py's BENCH_SMOKE_PC=mg:
+   V-cycles and a CG tail, no CG kernel, 8 window passes a step): 1 warm
+   step, 10 timed, 10 more, 10 timed, with the V-cycles, CG-tail
+   iterations and host reads per step; the hierarchy built once; the
+   post-projection divergence under the JAX package's bound; 5 PcMGDynamic
+   steps equal to 5 PcMGStatic steps bit for bit; 10 PcMIC steps (one CG
+   with 12 times PcNone's budget), each equal to a PcNone step from the
+   same state wherever PcNone converged inside its own budget;
+19. the 2D plume (scenes/plume_2d.py: open "yY" bounds, window 3,
+   MacCormack, PcNone; adaptive dt for the window's CFL bound) at 512^2:
+   1 warm step, 10 timed, 30 more, 10 timed, 6 passes of the window
+   kernel's 2D instance and one CG a step; every window pass and the CG of
+   a developed step against their plain versions, and their times;
+20. these configurations on the card against the CPU, 3 steps each (the
+   exact gathers at 24^3 in both clamp modes, PcMGStatic and PcMIC at
+   32^3, the 2D plume at 32^2), and one solve_pressure at 24^3 for each of
+   the l2 exit, compatibility, fractions with an obstacle velocity and
+   ghost fluid with surface tension.
 
 Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device. A
@@ -106,6 +129,7 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
 
 FLIP_RES = 128
+PLUME_RES = 512  # the 2D plume (scenes/plume_2d.py's 64^2 occupies no card)
 FLIP_CHUNK = 10  # bench.py's n_steps: timed window and runner chunk
 ZSHARDS = 4      # z-slabs of the sharded path
 
@@ -120,14 +144,15 @@ def bench_params(smoke):
     # bench.py:193-197
     return smoke.SmokeParams(buoyancy=(0.0, -6e-4, 0.0),
                              vorticity_confinement=0.1, cg_accuracy=1e-3,
-                             window=K, adaptive_dt=True,
+                             window=K, use_pallas=True, adaptive_dt=True,
                              cfl=3.0, dt_max=2.0)
 
 
-def bench_state(smoke, Domain, Sphere, res, device):
+def bench_state(smoke, Domain, Sphere, res, device, params=None):
+    """The bench smoke's initial state (``params``: bench_params)."""
     dom = Domain(size=(res, res, res), dim=3)
     src = Sphere(center=(res / 2.0, res * 0.1, res / 2.0), radius=res * 0.14)
-    return dom, smoke.make_smoke_state(dom, bench_params(smoke),
+    return dom, smoke.make_smoke_state(dom, params or bench_params(smoke),
                                        source_shape=src, device=device)
 
 
@@ -306,6 +331,7 @@ def main():
     from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
     from mantaflow_tpu_torch.ops import rebin_kernels as rbk
     from mantaflow_tpu_torch.ops import extforces as ext
+    from mantaflow_tpu_torch.ops.flip import get_curvature
     from mantaflow_tpu_torch.ops import pressure as prs
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
     from mantaflow_tpu_torch.ops.advection import _cell_centers
@@ -373,7 +399,11 @@ def main():
     require(int(state.ts.count) == steps, f"ts.count {int(state.ts.count)}")
 
     # -- 3. window-advection kernel vs window_interp ------------------------
-    def k1_check(src, px, py, pz, dom, ok, want_minmax):
+    def k1_check(src, px, py, pz, dom, ok, want_minmax, scaled=False):
+        """K1 against window_interp: abs 1e-6; ``scaled``: 1e-6 times
+        max(1, max|src|), the same few ulps for a field of any magnitude
+        (the kernel contracts multiply-adds, the plain version does not:
+        the 2D plume's velocities reach tens of cells a unit time)."""
         got = advk.window_pass(src, px, py, pz, dom, K, ok_mask=ok,
                                want_minmax=want_minmax)
         ref = window_interp(src, px, py, pz, dom, K, ok_mask=ok,
@@ -386,7 +416,8 @@ def main():
                 require(torch.equal(g, r), "window_advect: have differs")
             else:
                 err = max(err, float((g - r).abs().max()))
-        require(err < 1e-6, f"window_advect: max abs err {err} >= 1e-6")
+        tol = 1e-6 * (max(1.0, float(src.abs().max())) if scaled else 1.0)
+        require(err < tol, f"window_advect: max abs err {err} >= {tol}")
         return err, got
 
     rng = np.random.RandomState(0)
@@ -420,10 +451,9 @@ def main():
                            want_minmax=True)[0]
     passes.append((fwd, xx + c[0] * dt, yy + c[1] * dt, zz + c[2] * dt,
                    None, False))
-    for comp in range(3):
-        f = advk._face_positions(vel, dt, dom, comp)
-        passes.append((vel[comp], *f[:3], None, True))
-        passes.append((vel[comp], *f[3:], None, False))
+    for comp, (fpos, bpos) in enumerate(advk._face_traces(vel, dt, dom)):
+        passes.append((vel[comp], *fpos, None, True))
+        passes.append((vel[comp], *bpos, None, False))
     for p in passes:
         k1_err = max(k1_err, k1_check(p[0], p[1], p[2], p[3], dom, p[4],
                                       p[5])[0])
@@ -1740,37 +1770,416 @@ def main():
             center=(24 * 0.7, 24 * 0.28, 12.0), radius=24 * 0.15))}
     flat_numbers["card_vs_cpu_24"] = flat_card_cpu
 
+    # -- 17-19. the smoke model's other configurations ------------------------
+    smoke_paths = {}  # launches by path
+    new_numbers = {}
+
+    def drive_smoke(name, params_, dom_, state_, windows, per_step):
+        """Drive the smoke model from ``state_``: 1 warm step, then per
+        (pre, n) of ``windows`` ``pre`` steps and ``n`` timed ones (CUDA
+        events; the host reads of the multigrid solve included). The
+        kernels' counts are set to 0 just before the warm step and read
+        after the last; the launches per step, finite fields and ts.count
+        are checked. The CG iterations a step reports count the multigrid
+        start's V-cycles too: the recorded mg_richardson cycles are taken
+        out. Returns the numbers, the last state and the launches."""
+        cycles = []
+        mg_rich = prs.mg_richardson
+
+        def counted_richardson(*a, **k):
+            out = mg_rich(*a, **k)
+            cycles.append(out[1])
+            return out
+        prs.mg_richardson = counted_richardson
+        try:
+            torch.cuda.synchronize()
+            advk.window_pass.launches = 0
+            prk.cg_solve.launches = 0
+            st = smoke.smoke_step(state_, dom_, params_)  # warm
+            n_steps, timed_ = 1, []
+            for pre, n in windows:
+                st = smoke.smoke_run(st, dom_, params_, pre)
+                iters = torch.zeros((), dtype=torch.int64, device=dev)
+                mark = len(cycles)
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(n):
+                    st = smoke.smoke_step(st, dom_, params_)
+                    iters += st.cg_iters
+                t1.record()
+                torch.cuda.synchronize()
+                vc = sum(int(c) for c in cycles[mark:]) / n
+                timed_.append((t0.elapsed_time(t1) / n, int(iters) / n - vc,
+                               vc))
+                n_steps += pre + n
+            got = {"window_advect": advk.window_pass.launches,
+                   "cg_solve": prk.cg_solve.launches}
+        finally:
+            prs.mg_richardson = mg_rich
+        for k, want in per_step.items():
+            require(got[k] == want * n_steps,
+                    f"{name}: {k} launched {got[k]} times in {n_steps} steps "
+                    f"(expected {want * n_steps})")
+        for field in ("vel", "density", "pressure"):
+            require(bool(torch.isfinite(getattr(st, field)).all()),
+                    f"{name}: {field} not finite")
+        require(int(st.ts.count) == int(state_.ts.count) + n_steps,
+                f"{name}: ts.count {int(st.ts.count)}")
+        (cold_ms, cold_it, cold_vc), (dev_ms, dev_it, dev_vc) = \
+            timed_[0], timed_[-1]
+        mg_path = params_.preconditioner in (prs.PcMGStatic, prs.PcMGDynamic)
+        # host reads per step: one per V-cycle, and the CG tail's test
+        # before its loop and one per iteration
+        reads = dev_vc + dev_it + 1 if mg_path else 0
+        print(f"{name}: {n_steps} steps, {cold_ms:.2f} ms/step cold, "
+              f"{dev_ms:.2f} developed, CG {cold_it:.1f} / {dev_it:.1f} "
+              f"it/step, V-cycles {cold_vc:.1f} / {dev_vc:.1f} per step, "
+              f"host reads {reads:.1f} per developed step, launches {got}",
+              flush=True)
+        numbers = {"ms_per_step_cold": cold_ms, "ms_per_step_developed":
+                   dev_ms, "steps_per_s_developed": 1e3 / dev_ms,
+                   "cg_iters_per_step_cold": cold_it,
+                   "cg_iters_per_step_developed": dev_it,
+                   "vcycles_per_step_cold": cold_vc,
+                   "vcycles_per_step_developed": dev_vc,
+                   "host_reads_per_step_developed": reads,
+                   "steps_run": n_steps, "launches_per_step": per_step}
+        smoke_paths[name] = got
+        new_numbers[name] = numbers
+        return numbers, st
+
+    def record_step(st, dom_, params_):
+        """The window and CG kernel calls of one step from ``st``."""
+        calls = {"window_advect": [], "cg_solve": []}
+        with recording(advk, "window_pass", calls["window_advect"]), \
+                recording(prk, "cg_solve", calls["cg_solve"]):
+            smoke.smoke_step(st, dom_, params_)
+        torch.cuda.synchronize()
+        return calls
+
+    # 17. the exact-gather smoke (the JAX package's default advection)
+    exact_params = dataclasses.replace(params, window=0, clamp_mode=2)
+    dom, state = bench_state(smoke, Domain, Sphere, RES, dev)
+    _, est = drive_smoke("smoke_exact_128", exact_params, dom, state,
+                         [(0, 10), (30, 10)],
+                         {"window_advect": 0, "cg_solve": 1})
+    (cg_args, cg_kw), = record_step(est, dom, exact_params)["cg_solve"]
+    k2_err = max(k2_err, cg_check(cg_args[0], cg_args[1], cg_kw["fluid"],
+                                  cg_args[3], cg_args[4], dom))
+    del est, cg_args, cg_kw
+
+    # 18. multigrid (PcMGStatic, PcMGDynamic) and PcMIC at 128^3
+    builds = []
+    build_mg = smoke.multigrid.build_mg_hierarchy
+    smoke.multigrid.build_mg_hierarchy = \
+        lambda *a, **k: (builds.append(1), build_mg(*a, **k))[1]
+    try:
+        mg_params = dataclasses.replace(params,
+                                        preconditioner=prs.PcMGStatic)
+        dom, state = bench_state(smoke, Domain, Sphere, RES, dev, mg_params)
+        # five levels at 128^3 (128 -> 8)
+        levels = len(smoke.multigrid._levels(dom))
+        require(len(builds) == 1 and state.mg is not None
+                and len(state.mg.level_flags) == levels,
+                f"PcMGStatic: {len(builds)} hierarchy builds")
+        mg_numbers, mst = drive_smoke(
+            "smoke_mg_128", mg_params, dom, state, [(0, 10), (10, 10)],
+            {"window_advect": 8, "cg_solve": 0})
+        require(len(builds) == 1, f"PcMGStatic: {len(builds)} hierarchy "
+                "builds in the run (one expected)")
+    finally:
+        smoke.multigrid.build_mg_hierarchy = build_mg
+    # post-projection divergence on interior fluid: the JAX package's bound
+    # at cg_accuracy 1e-3 (tests/test_pressure.py:36,49)
+    mg_div = float(prs.make_rhs(mst.flags, mst.vel, dom).abs().max())
+    require(mg_div < 2e-3, f"PcMGStatic: post-projection max|div| {mg_div}")
+    mg_numbers["post_projection_max_div"] = mg_div
+    del mst
+    # PcMGDynamic through the smoke model: the same hierarchy, the same
+    # steps bit for bit
+    dyn = {}
+    for pc in (prs.PcMGStatic, prs.PcMGDynamic):
+        p_ = dataclasses.replace(params, preconditioner=pc)
+        dom, st_ = bench_state(smoke, Domain, Sphere, RES, dev, p_)
+        dyn[pc] = smoke.smoke_run(st_, dom, p_, 5)
+    require(all(torch.equal(getattr(dyn[prs.PcMGStatic], k),
+                            getattr(dyn[prs.PcMGDynamic], k))
+                for k in ("vel", "density", "pressure", "cg_iters")),
+            "PcMGDynamic differs from PcMGStatic")
+    print("smoke 128^3: 5 PcMGDynamic steps equal 5 PcMGStatic steps bit "
+          "for bit", flush=True)
+    del dyn, st_
+    # PcMIC: plain CG with 12 times PcNone's budget, driven as a run of its
+    # own (its launches counted over that run alone); every solve of the run
+    # is given the 12-fold budget
+    mic_params = dataclasses.replace(params, preconditioner=prs.PcMIC)
+    budget = int(params.cg_max_iter_fac * RES)
+    dom, state = bench_state(smoke, Domain, Sphere, RES, dev)
+    mic_budgets = []
+    cg = prk.cg_solve
+
+    def mic_counted(*a, **k):
+        mic_budgets.append(a[4])
+        return cg(*a, **k)
+    # the wrapper counts its launches on its module's name, mic_counted here
+    mic_counted.launches = 0
+    prk.cg_solve = mic_counted
+    try:
+        mic_numbers, mst = drive_smoke(
+            "smoke_mic_128", mic_params, dom, state, [(0, 10), (30, 10)],
+            {"window_advect": 8, "cg_solve": 1})
+    finally:
+        prk.cg_solve = cg
+    require(mic_budgets == [12 * budget] * mic_numbers["steps_run"],
+            f"PcMIC budgets {sorted(set(mic_budgets))} (expected "
+            f"{12 * budget})")
+
+    # outside the counted run: from the cold and from the developed state,
+    # PcMIC's step against PcNone's. Where PcNone converges inside its own
+    # budget the two are equal bit for bit; where it runs out (developed
+    # steps), PcMIC's solve runs on past the budget and K2 is held against
+    # cg_plain with the 12-fold budget on that step's system, by residual as
+    # the flat dams' solves are (an exit past ~20 iterations moves with
+    # rounding, tools/profile_cg_exit.py)
+    mic_same, mic_past, mic_solves = 0, 0, []
+    for start in (state, mst):
+        st_ = start
+        for _ in range(2):
+            none = smoke.smoke_step(st_, dom, params)
+            calls = {"cg_solve": []}
+            with recording(prk, "cg_solve", calls["cg_solve"]):
+                mic = smoke.smoke_step(st_, dom, mic_params)
+            (cg_args, cg_kw), = calls["cg_solve"]
+            require(cg_args[4] == 12 * budget,
+                    f"PcMIC: budget {cg_args[4]}")
+            n_none, n_mic = int(none.cg_iters), int(mic.cg_iters)
+            if n_none < budget:
+                require(n_mic == n_none
+                        and torch.equal(mic.pressure, none.pressure),
+                        "PcMIC differs from PcNone inside its budget")
+                mic_same += 1
+            else:
+                require(n_mic >= budget, f"PcMIC: {n_mic} it where PcNone "
+                        f"used its budget of {budget}")
+                mic_past += 1
+                k2_err = max(k2_err, cg_check_by_residual(
+                    cg_args[0], cg_args[1], cg_kw["fluid"], cg_args[3],
+                    cg_args[4], dom))
+            mic_solves.append((n_none, n_mic))
+            st_ = mic
+            del cg_args, cg_kw, calls, none
+    require(mic_past > 0, "PcMIC: PcNone converged inside its budget on "
+            "every developed step, so the 12-fold budget was not exercised")
+    mic_numbers.update({
+        "cg_budget": 12 * budget, "pcnone_budget": budget,
+        "steps_equal_to_pcnone": mic_same,
+        "steps_past_pcnone_budget": mic_past,
+        "pcnone_vs_pcmic_iterations": mic_solves})
+    print(f"smoke PcMIC 128^3: budget {12 * budget} ({budget} PcNone); "
+          f"PcNone / PcMIC iterations from the cold and the developed state "
+          f"{mic_solves}: {mic_same} steps equal to PcNone's bit for bit, "
+          f"{mic_past} past PcNone's budget held against cg_plain",
+          flush=True)
+    del state, mst, mic, st_
+
+    # 19. the 2D plume (scenes/plume_2d.py: open "yY" bounds, window 3,
+    # MacCormack, PcNone) at PLUME_RES^2; adaptive dt keeps the window's
+    # CFL bound at this resolution (the buoyancy grows with 1 / dx)
+    plume_params = smoke.SmokeParams(buoyancy=(0.0, -4e-3, 0.0),
+                                     open_bound="yY", window=K,
+                                     adaptive_dt=True, cfl=float(K))
+    pdom = Domain(size=(PLUME_RES, PLUME_RES, 1), dim=2)
+    pst = smoke.make_smoke_state(pdom, plume_params, source_shape=Sphere(
+        center=(PLUME_RES * 0.5, PLUME_RES * 0.1, 0.5),
+        radius=PLUME_RES * 0.14), device=dev)
+    plume_path = f"plume2d_{PLUME_RES}"
+    _, pst = drive_smoke(
+        plume_path, plume_params, pdom, pst, [(0, 10), (30, 10)],
+        {"window_advect": 6, "cg_solve": 1})
+    require(0.1 < float(pst.density.max()) <= 1.01,
+            f"plume: density max {float(pst.density.max())}")
+    pcalls = record_step(pst, pdom, plume_params)
+    require(len(pcalls["window_advect"]) == 6
+            and len(pcalls["cg_solve"]) == 1,
+            f"plume: {len(pcalls['window_advect'])} window passes, "
+            f"{len(pcalls['cg_solve'])} solves in a step")
+    k1_2d_err = 0.0
+    for a, kw in pcalls["window_advect"]:
+        k1_2d_err = max(k1_2d_err, k1_check(
+            a[0], a[1], a[2], a[3], pdom, kw.get("ok_mask"),
+            kw.get("want_minmax", False), scaled=True)[0])
+    (cg_args, cg_kw), = pcalls["cg_solve"]
+    plume_err = cg_check(cg_args[0], cg_args[1], cg_kw["fluid"], cg_args[3],
+                         cg_args[4], pdom, units=(False,))
+    k2_err = max(k2_err, plume_err)
+    # K1's 2D instances, <kMinMax, kWithOk, false>, on the step's passes
+    k1_2d_names = sorted({"window_advect_kernel<%s,%s,false>" % (
+        str(kw.get("want_minmax", False)).lower(),
+        str(kw.get("ok_mask") is not None).lower())
+        for _, kw in pcalls["window_advect"]})
+    nw = len(pcalls["window_advect"])
+    k1_2d_ms, k1_2d_call_ms, k1_2d_timed_by = timed_launches(
+        torch, replay(pcalls["window_advect"], advk.window_pass), 20,
+        k1_2d_names, nw)
+    k1_2d_plain_ms = cuda_ms(torch, replay(pcalls["window_advect"],
+                                           window_interp), 1) / nw
+    pn = pdom.num_cells
+    # src, px, py read (no pz in 2D), the ok mask, the value written, and
+    # with the min/max its two grids and the have mask
+    k1_2d_bytes = sum(pn * (12 + (1 if kw.get("ok_mask") is not None else 0)
+                            + 4 + (9 if kw.get("want_minmax") else 0))
+                      for _, kw in pcalls["window_advect"]) / nw
+    k1_2d_ops = pn * 34  # 2 axis setups (~8 each) + 4-corner blend (~18)
+    k1_2d_bound = (k1_2d_bytes / HBM_BYTES_PER_S * 1e3,
+                   k1_2d_ops / FP32_OPS_PER_S * 1e3)
+    plume_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+    time_kernel("cg_solve_plume", "cg_kernel<false>", pcalls["cg_solve"],
+                prk.cg_solve, prs.cg_plain, 6 * 4 * pn, plume_it * 24 * pn,
+                f"2D plume developed solve, {plume_it} it")
+    fk["cg_solve_plume"]["iterations"] = plume_it
+    print(f"window_advect 2D {PLUME_RES}^2 step passes: max abs err "
+          f"{k1_2d_err:.3g}", flush=True)
+    del pst, pcalls, cg_args, cg_kw
+
+    # -- 20. the new configurations on the card vs the port on the CPU -------
+    def smoke_card_vs_cpu(name, params_, size):
+        """3 steps on the card and on the CPU: flags and ts.count exact,
+        grids abs 2e-4."""
+        dom_ = Domain(size=size, dim=3 if size[2] > 1 else 2)
+        src = Sphere(center=(size[0] / 2.0, size[1] * 0.1, size[2] / 2.0),
+                     radius=size[0] * 0.14)
+        g_, c_ = (smoke.smoke_run(smoke.make_smoke_state(
+            dom_, params_, source_shape=src, device=d_), dom_, params_, 3)
+            for d_ in (dev, "cpu"))
+        require(torch.equal(g_.flags.cpu(), c_.flags)
+                and int(g_.ts.count) == int(c_.ts.count) == 3,
+                f"{name} card vs CPU: flags or ts differ")
+        err = max(float((getattr(g_, k).cpu() - getattr(c_, k)).abs().max())
+                  for k in ("vel", "density", "pressure"))
+        require(err < 2e-4, f"{name} card vs CPU: grids {err}")
+        print(f"{name} x3 steps, card vs CPU: grids {err:.3g}", flush=True)
+        return err
+
+    new_card_cpu = {
+        "exact_clamp1_24": smoke_card_vs_cpu(
+            "exact clamp 1 24^3", dataclasses.replace(exact_params,
+                                                      clamp_mode=1),
+            (24, 24, 24)),
+        "exact_clamp2_24": smoke_card_vs_cpu(
+            "exact clamp 2 24^3", exact_params, (24, 24, 24)),
+        "mg_32": smoke_card_vs_cpu("PcMGStatic 32^3", mg_params,
+                                   (32, 32, 32)),
+        "mic_32": smoke_card_vs_cpu("PcMIC 32^3", mic_params, (32, 32, 32)),
+        "plume_32": smoke_card_vs_cpu("2D plume 32^2", plume_params,
+                                      (32, 32, 1))}
+
+    def branch_card_vs_cpu(name, **kw):
+        """One solve_pressure at 24^3 (walls, an obstacle sphere, an empty
+        slab) on the card and on the CPU: iterations within +-10,
+        max|dp|/max|p| < 5e-3, velocities abs 2e-4."""
+        n_ = 24
+        bdom = Domain(size=(n_,) * 3)
+        x_, y_, z_ = _cell_centers(bdom, "cpu")
+        bf = fl.fill_grid(fl.init_domain(bdom, 1, device="cpu"))
+        bf = torch.where(((x_ - 0.3 * n_) ** 2 + (y_ - 0.2 * n_) ** 2
+                          + (z_ - 0.5 * n_) ** 2).sqrt() < 0.12 * n_,
+                         fl.TypeObstacle, bf)
+        g = torch.Generator(device="cpu").manual_seed(7)
+        bv = torch.randn((3,) + bdom.shape, generator=g) * 0.1
+        fields = {"fractions": 0.3 + 0.7 * torch.rand(
+            (3,) + bdom.shape, generator=g),
+            "obvel": torch.randn((3,) + bdom.shape, generator=g) * 0.05,
+            "phi": y_ - 0.7 * n_ + 1.5 * torch.sin(x_ / 3.0) + 0.3}
+        if "phi" in kw:
+            bf = fl.update_from_levelset(
+                fl.fill_grid(fl.init_domain(bdom, 1, device="cpu"),
+                             fl.TypeEmpty), fields["phi"], 1e10)
+            kw["curv"] = get_curvature(fields["phi"], bdom)
+        else:
+            bf = torch.where((y_ > 0.8 * n_) & fl.is_fluid(bf),
+                             fl.TypeEmpty, bf)
+        def on(v, d_):
+            v = fields[v] if isinstance(v, str) else v
+            return v.to(d_) if isinstance(v, torch.Tensor) else v
+
+        out = []
+        for d_ in (dev, "cpu"):
+            a_ = {k: on(v, d_) for k, v in kw.items()}
+            out.append(prs.solve_pressure(bv.to(d_), bf.to(d_), bdom,
+                                          max_iter=400, **a_))
+        (gv, gp, _, git, _), (cv, cp, _, cit, _) = out
+        rel = float((gp.cpu() - cp).abs().max()) / (float(cp.abs().max())
+                                                     + 1e-30)
+        verr = float((gv.cpu() - cv).abs().max())
+        require(abs(int(git) - int(cit)) <= 10 and rel < 5e-3
+                and verr < 2e-4, f"{name} card vs CPU: {int(git)} vs "
+                f"{int(cit)} it, rel {rel}, vel {verr}")
+        print(f"solve_pressure {name} 24^3 card vs CPU: {int(git)} / "
+              f"{int(cit)} it, rel {rel:.3g}, vel {verr:.3g}", flush=True)
+        return rel
+
+    for name, kw in (("l2", dict(cg_accuracy=1e-6, use_l2_norm=True)),
+                     ("compatibility", dict(cg_accuracy=1e-4,
+                                            enforce_compatibility=True)),
+                     ("fractions_obvel", dict(cg_accuracy=1e-4,
+                                              fractions="fractions",
+                                              obvel="obvel")),
+                     ("phi_curv", dict(cg_accuracy=1e-4, phi="phi",
+                                       surf_tens=0.05))):
+        new_card_cpu[f"solve_{name}_24"] = branch_card_vs_cpu(name, **kw)
+    new_numbers["card_vs_cpu"] = new_card_cpu
+
     flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
                   "obstacle_128": b_launches, "flip_zshard_128": z_launches,
                   "flat_128": flat_launches, "apic_128": apic_launches}
+    # the smoke paths: the bench path (phase 2) and phases 17-19's
+    smoke_paths = {"smoke_128": launches, **smoke_paths}
+    k1_3d_by_path = {k: v["window_advect"] for k, v in smoke_paths.items()
+                     if k != plume_path}
     kernels = [
         {"name": "window_advect", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
          "replaces": "mantaflow_tpu/ops/advection_pallas.py:284",
-         "launches": launches["window_advect"], "max_abs_err": k1_err,
+         "launches": sum(k1_3d_by_path.values()),
+         "launches_by_path": k1_3d_by_path, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": max(k1_bound_bytes, k1_bound_ops),
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops
          else "operations", "library_ms": None, "call_ms": k1_call_ms,
          "timed_by": k1_timed_by},
+        # K1's 2D instances (k3d = false), on the 2D plume's passes
+        {"name": "window_advect_2d", "route": "cuda",
+         "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
+         "replaces": "mantaflow_tpu/ops/advection_pallas.py:284",
+         "launches": smoke_paths[plume_path]["window_advect"],
+         "launches_by_path": {plume_path:
+                              smoke_paths[plume_path]["window_advect"]},
+         "max_abs_err": k1_2d_err, "ms": k1_2d_ms,
+         "plain_ms": k1_2d_plain_ms, "bound_ms": max(k1_2d_bound),
+         "bound_by": "bytes" if k1_2d_bound[0] >= k1_2d_bound[1]
+         else "operations", "library_ms": None, "call_ms": k1_2d_call_ms,
+         "timed_by": k1_2d_timed_by, "instances": k1_2d_names},
         {"name": "cg_solve", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/cg_solve.cu",
          "replaces": "mantaflow_tpu/ops/pressure_pallas.py:88",
-         "launches": launches["cg_solve"] + sum(
-             v["cg_solve"] for v in flip_paths.values()),
+         "launches": sum(v["cg_solve"] for v in smoke_paths.values())
+         + sum(v["cg_solve"] for v in flip_paths.values()),
          "max_abs_err": max(k2_err, errs["cg_solve"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": max(k2_bound_bytes, k2_bound_ops),
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
          else "operations", "library_ms": None,
          "call_ms": k2_call_ms, "timed_by": k2_timed_by, "iterations": k2_it,
-         "launches_by_path": {"smoke_128": launches["cg_solve"],
+         "launches_by_path": {**{k: v["cg_solve"]
+                                 for k, v in smoke_paths.items()},
                               **{k: v["cg_solve"]
                                  for k, v in flip_paths.items()}},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
          "iteration_floor": k2_iter_floor,
          "bench_dam_solve": fk["cg_solve_bench"],
-         "flat_dam_solve": fk["cg_solve_flat"]},
+         "flat_dam_solve": fk["cg_solve_flat"],
+         "plume_2d_solve": fk["cg_solve_plume"]},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function
@@ -1829,7 +2238,8 @@ def main():
         "flip_128": flip_numbers, "flip01_128": a_numbers,
         "obstacle_128": b_numbers, "flip_zshard_128": zshard_numbers,
         "flat_128": flat_numbers, "apic_128": apic_numbers,
-        "build_s": build_s, "total_s": time.perf_counter() - t_start}))
+        **new_numbers, "build_s": build_s,
+        "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,9 +183,20 @@ def test_guards_match_reference():
         tflip.make_dam_state_bucketed(
             dom, tflip.FlipParams(ring_only_obstacles=True), obstacle=object(),
             device="cpu")
-    # what is still not ported says where it is queued
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tflip.flip_step_bucketed(st, dom, tflip.FlipParams(preconditioner=1))
+    # PcMIC (plain CG with 12 times the budget) steps as the JAX
+    # package's does
+    jdom = JDomain(size=(12,) * 3)
+    jp = jflip.FlipParams(preconditioner=1)
+    ref = _jax_to_numpy(jax.jit(lambda s: jflip.flip_step_bucketed(
+        s, jdom, jp))(jflip.make_dam_state_bucketed(jdom, jflip.FlipParams())))
+    got = tflip.state_to_numpy(tflip.flip_step_bucketed(
+        st, dom, tflip.FlipParams(preconditioner=1)))
+    np.testing.assert_array_equal(got["flags"], ref["flags"])
+    np.testing.assert_array_equal(got["buckets"]["valid"],
+                                  ref["buckets"]["valid"])
+    for field in ("vel", "pressure", "phi"):
+        np.testing.assert_allclose(got[field], ref[field], atol=1e-4,
+                                   err_msg=field)
 
 
 @pytest.mark.parametrize("params,route", [

@@ -70,9 +70,13 @@ def test_reset_outflow_and_dissolve(system):
     jdom, dom, flags, _, dens = system
     jf, _, jd = jext.reset_outflow_grids(jnp.asarray(flags), jdom, None,
                                          jnp.asarray(dens))
-    tf, td = text.reset_outflow_grids(torch.tensor(flags), torch.tensor(dens))
+    tf, tphi, td = text.reset_outflow_grids(torch.tensor(flags), dom, None,
+                                            torch.tensor(dens))
+    assert tphi is None
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     _close(jd, td)
     for log_falloff in (True, False):
         ref, _ = jext.dissolve_smoke(jf, jd, jdom, None, 4, log_falloff)
-        _close(ref, text.dissolve_smoke(tf, td, 4, log_falloff))
+        got, heat = text.dissolve_smoke(tf, td, dom, None, 4, log_falloff)
+        assert heat is None
+        _close(ref, got)

@@ -11,9 +11,14 @@ Tolerances: the window kernel blends the same 8 corners in the same order as
 the plain CG, so iterations within +-10 and max|dp|/max|p| < 5e-3
 (tests/test_pressure_pallas.py's tolerances), on a 37x29x23 system, a 2D
 one, a grid larger than the kernel keeps on chip, at max_iter, and two
-solves bitwise equal. The unmarked cases run on the CPU: a wrapper never
-hands a tensor it cannot launch on to the plain version; the CG's launch
-plan (rows per block, what stays on chip) is host code.
+solves bitwise equal; a fraction-weighted and a diffusion system; PcMIC's
+12-fold budget. The pressure branches that run without the CG kernel
+(``pressure.cg_loop``: the l2 exit, compatibility, multigrid) and the smoke
+model in its configurations (the exact gathers, multigrid, PcMIC, the 2D
+plume) on the card against the CPU, within the CPU tests' tolerances. The
+unmarked cases run on the CPU: a wrapper never hands a tensor it cannot
+launch on to the plain version; the CG's launch plan (rows per block, what
+stays on chip) is host code.
 """
 
 import numpy as np
@@ -58,6 +63,15 @@ def _window_fixture(device):
 def _obstacle_slab_system(n, device, size=None):
     """A walled n^3 system (or of ``size`` (x, y, z)) with an obstacle
     sphere and an empty slab."""
+    dom, flags = _obstacle_slab_flags(n, device, size)
+    nx, ny, nz = dom.size
+    vel = torch.tensor(np.random.RandomState(7).randn(3, nz, ny, nx)
+                       .astype(np.float32) * 0.1, device=device)
+    return (dom, prs.make_rhs(flags, vel, dom),
+            prs.make_laplace_stencil(flags, dom), fl.is_fluid(flags))
+
+
+def _obstacle_slab_flags(n, device, size=None):
     nx, ny, nz = size or (n, n, n)
     dom = Domain(size=(nx, ny, nz))
     flags = fl.fill_grid(fl.init_domain(dom, 1, device=device), fl.TypeFluid)
@@ -67,12 +81,8 @@ def _obstacle_slab_system(n, device, size=None):
     obs = ((xc - 0.3 * nx) ** 2 + (yc - 0.2 * ny) ** 2
            + (zc - 0.5 * nz) ** 2).sqrt() < 0.12 * min(nx, ny, nz)
     flags = torch.where(obs, fl.TypeObstacle, flags)
-    flags = torch.where((yc > 0.8 * ny) & fl.is_fluid(flags), fl.TypeEmpty,
-                        flags)
-    vel = torch.tensor(np.random.RandomState(7).randn(3, nz, ny, nx)
-                       .astype(np.float32) * 0.1, device=device)
-    return (dom, prs.make_rhs(flags, vel, dom),
-            prs.make_laplace_stencil(flags, dom), fl.is_fluid(flags))
+    return dom, torch.where((yc > 0.8 * ny) & fl.is_fluid(flags),
+                            fl.TypeEmpty, flags)
 
 
 def _check_cg(dom, rhs, stencil, fluid, acc, max_iter, unit=False):
@@ -257,7 +267,7 @@ def test_smoke_steps_on_card_match_cpu(cuda):
     dom = Domain(size=(res,) * 3)
     params = smoke.SmokeParams(buoyancy=(0.0, -6e-4, 0.0),
                                vorticity_confinement=0.1, cg_accuracy=1e-3,
-                               window=3, adaptive_dt=True,
+                               window=3, use_pallas=True, adaptive_dt=True,
                                cfl=3.0, dt_max=2.0)
     src = Sphere(center=(res / 2.0, res * 0.1, res / 2.0), radius=res * 0.14)
     states = [smoke.smoke_run(smoke.make_smoke_state(dom, params, src,
@@ -279,3 +289,130 @@ def test_wrapper_raises_off_cpu_and_cuda(which):
             advk.window_pass(t, t, t, t, dom, K)
         else:
             prk.cg_solve(t, (t, t, t, t), dom, 1e-3, 10)
+
+
+def _fraction_system(n, device):
+    """tests/test_torch_pressure_branches.py's: the obstacle-slab flags
+    with face fractions in [0.3, 1] and an obstacle velocity."""
+    dom, flags = _obstacle_slab_flags(n, device)
+    rng = np.random.RandomState(11)
+    fractions = torch.tensor((0.3 + 0.7 * rng.rand(3, n, n, n))
+                             .astype(np.float32), device=device)
+    obvel = torch.tensor((rng.randn(3, n, n, n) * 0.05).astype(np.float32),
+                         device=device)
+    vel = torch.tensor((rng.randn(3, n, n, n) * 0.1).astype(np.float32),
+                       device=device)
+    return dom, flags, vel, fractions, obvel
+
+
+@pytest.mark.gpu
+def test_cg_kernel_fraction_system_matches_plain(cuda):
+    dom, flags, vel, fractions, obvel = _fraction_system(24, cuda)
+    rhs = prs.make_rhs(flags, vel, dom, fractions=fractions, obvel=obvel)
+    stencil = prs.make_laplace_stencil(flags, dom, fractions=fractions)
+    _check_cg(dom, rhs, stencil, fl.is_fluid(flags), 1e-4, 400)
+
+
+@pytest.mark.gpu
+def test_diffusion_solves_on_card_match_cpu(cuda):
+    dom, flags, _, _, _ = _fraction_system(24, cuda)
+    grid = torch.tensor(np.random.RandomState(9).rand(3, 24, 24, 24)
+                        .astype(np.float32), device=cuda)
+    before = prk.cg_solve.launches
+    got = prs.cg_solve_diffusion(flags, grid, dom, alpha=0.5)
+    torch.cuda.synchronize()
+    assert prk.cg_solve.launches == before + 3
+    ref = prs.cg_solve_diffusion(flags.cpu(), grid.cpu(), dom, alpha=0.5)
+    assert float((got.cpu() - ref).abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["l2", "compatibility", "multigrid",
+                                    "no_kernel"])
+def test_loop_cg_on_card_matches_cpu(cuda, branch):
+    """The XLA-form CG (``cg_loop``: no kernel launch) on the card against
+    the CPU: iterations within +-10, max|dp|/max|p| < 5e-3."""
+    n = 24
+    dom = Domain(size=(n,) * 3)
+    flags = fl.fill_grid(fl.init_domain(dom, 1, device=cuda), fl.TypeFluid)
+    vel = torch.tensor(np.random.RandomState(7).randn(3, n, n, n)
+                       .astype(np.float32) * 0.1, device=cuda)
+    from mantaflow_tpu_torch.ops import extforces as ext
+    vel = ext.set_wall_bcs(flags, vel, dom)
+    kw = {"l2": dict(cg_accuracy=1e-6, use_l2_norm=True, max_iter=400),
+          "compatibility": dict(cg_accuracy=1e-4, max_iter=400,
+                                enforce_compatibility=True),
+          "multigrid": dict(cg_accuracy=1e-4,
+                            preconditioner=prs.PcMGDynamic),
+          "no_kernel": dict(cg_accuracy=1e-4, use_pallas_cg=False,
+                            max_iter=400)}[branch]
+    before = prk.cg_solve.launches
+    gv, gp, _, git, grn = prs.solve_pressure(vel, flags, dom, **kw)
+    torch.cuda.synchronize()
+    assert prk.cg_solve.launches == before
+    cv, cp, _, cit, _ = prs.solve_pressure(vel.cpu(), flags.cpu(), dom, **kw)
+    assert abs(int(git) - int(cit)) <= 10
+    assert float(grn) < kw["cg_accuracy"]
+    assert float((gp.cpu() - cp).abs().max()) <= 5e-3 * float(cp.abs().max())
+    assert float((gv.cpu() - cv).abs().max()) < 2e-4
+
+
+@pytest.mark.gpu
+def test_pcmic_budget_on_card(cuda):
+    """PcMIC: one kernel launch with 12 times PcNone's budget, the same
+    solve bit for bit as PcNone given that budget."""
+    n = 24
+    dom, rhs, stencil, _ = _obstacle_slab_system(n, cuda)
+    flags = _obstacle_slab_flags(n, cuda)[1]
+    budgets = []
+    orig = prk.cg_solve
+
+    def rec(*a, **k):
+        budgets.append(a[4])
+        return orig(*a, **k)
+    rec.launches = 0  # the wrapper counts on its module's name
+    prk.cg_solve = rec
+    try:
+        mic = prs.solve_pressure_system(rhs, flags, dom, stencil, 1e-4, 0.5,
+                                        prs.PcMIC, use_pallas=True)
+        none = prs.solve_pressure_system(rhs, flags, dom, stencil, 1e-4,
+                                         0.5, prs.PcNone,
+                                         max_iter=12 * int(0.5 * n),
+                                         use_pallas=True)
+    finally:
+        prk.cg_solve = orig
+    assert budgets == [12 * int(0.5 * n)] * 2 and rec.launches == 2
+    assert int(mic[1]) > int(0.5 * n)
+    for a, b in zip(mic, none):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["exact_clamp1", "exact_clamp2",
+                                    "multigrid", "pcmic", "plume_2d"])
+def test_smoke_configs_on_card_match_cpu(cuda, config):
+    size = (32, 32, 1) if config == "plume_2d" else (16, 16, 16)
+    dom = Domain(size=size, dim=2 if size[2] == 1 else 3)
+    base = dict(buoyancy=(0.0, -6e-4, 0.0), vorticity_confinement=0.1,
+                cg_accuracy=1e-3, adaptive_dt=True, cfl=3.0, dt_max=2.0)
+    kw = {"exact_clamp1": dict(base, window=0, clamp_mode=1),
+          "exact_clamp2": dict(base, window=0, clamp_mode=2),
+          "multigrid": dict(base, window=0, preconditioner=prs.PcMGStatic),
+          "pcmic": dict(base, window=0, preconditioner=prs.PcMIC),
+          "plume_2d": dict(buoyancy=(0.0, -4e-3, 0.0), open_bound="yY",
+                           window=3)}[config]
+    params = smoke.SmokeParams(**kw)
+    src = Sphere(center=(size[0] / 2.0, size[1] * 0.1, size[2] / 2.0),
+                 radius=size[0] * 0.14)
+    w0, c0 = advk.window_pass.launches, prk.cg_solve.launches
+    states = [smoke.smoke_run(smoke.make_smoke_state(dom, params, src,
+                                                     device=d), dom, params, 3)
+              for d in (cuda, "cpu")]
+    torch.cuda.synchronize()
+    assert advk.window_pass.launches - w0 == \
+        (6 * 3 if config == "plume_2d" else 0)
+    assert prk.cg_solve.launches - c0 == (0 if config == "multigrid" else 3)
+    assert torch.equal(states[0].flags.cpu(), states[1].flags)
+    for name in ("density", "vel"):
+        diff = getattr(states[0], name).cpu() - getattr(states[1], name)
+        assert float(diff.abs().max()) < 2e-4, name

@@ -129,13 +129,3 @@ def test_fixed_pressure_closed_domain():
         jrhs, jf, jdom, jst, cg_accuracy=ACC, max_iter=max_iter)
     p, it, _ = tprk.cg_solve(trhs, tst, dom, ACC, max_iter)
     _agree(p, it, p_ref, it_ref)
-
-
-def test_unported_branches_raise(system):
-    vel, flags = torch.tensor(system["vel"]), torch.tensor(system["flags"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tprs.solve_pressure(vel, flags, system["dom"], fractions=vel)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tprs.solve_pressure(vel, flags, system["dom"],
-                            preconditioner=tprs.PcMGStatic)
-

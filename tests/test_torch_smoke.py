@@ -44,7 +44,7 @@ def runs():
         jst = step(jst)
 
     dom = Domain(size=(RES,) * 3)
-    tp = tsmoke.SmokeParams(**BENCH)
+    tp = tsmoke.SmokeParams(**BENCH, use_pallas=True)
     tst = tsmoke.make_smoke_state(dom, tp, source_shape=Sphere(**SOURCE),
                                   device="cpu")
     tst3 = tsmoke.smoke_run(tst, dom, tp, 3)
@@ -92,11 +92,3 @@ def test_make_smoke_state_needs_cuda_or_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsmoke.make_smoke_state(Domain(size=(8, 8, 8)),
                                 tsmoke.SmokeParams(**BENCH))
-
-
-def test_unported_options_raise():
-    dom = Domain(size=(8, 8, 8))
-    for kw in ({"preconditioner": 3}, {"window": 0}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsmoke.make_smoke_state(dom, tsmoke.SmokeParams(**kw),
-                                    device="cpu")

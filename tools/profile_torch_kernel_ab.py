@@ -125,8 +125,8 @@ def make_inputs(path, only):
     res = 128
     params = smoke.SmokeParams(buoyancy=(0.0, -6e-4, 0.0),
                                vorticity_confinement=0.1, cg_accuracy=1e-3,
-                               window=3, adaptive_dt=True, cfl=3.0,
-                               dt_max=2.0)
+                               window=3, use_pallas=True, adaptive_dt=True,
+                               cfl=3.0, dt_max=2.0)
     dom = Domain(size=(res,) * 3, dim=3)
     st = smoke.make_smoke_state(
         dom, params, source_shape=Sphere(center=(res / 2.0, res * 0.1,
