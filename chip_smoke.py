@@ -102,13 +102,36 @@ Phases (any failed check raises, and the script exits non-zero):
    exact gathers at 24^3 in both clamp modes, PcMGStatic and PcMIC at
    32^3, the 2D plume at 32^2), and one solve_pressure at 24^3 for each of
    the l2 exit, compatibility, fractions with an obstacle velocity and
-   ghost fluid with surface tension.
+   ghost fluid with surface tension;
+21. the z-sharded bench smoke at 128^3 over 4 z-slabs of 32 planes
+   (``smoke_step(..., zshard=mesh)``: every window pass one launch of the
+   window kernel's z-slab instance per shard, 32 a step, no one-domain
+   window launch, 1 CG): 1 warm step, 10 timed, 30 more, 10 timed, each
+   timed window bit for bit the 10 one-domain steps from its first state;
+   every slab launch of a cold and a developed step against its plain
+   version, the slab launch's time, bound and grid_sample's time, the halo
+   copies' ms a step; 3 steps at 16^3 over 4 slabs of k+1 planes on the
+   card against the CPU;
+22. the 2D flat FLIP dam (tests/test_torch_flat_flip.py's dam_2d,
+   scenes/flip01_simple.py in 2D) at 512^2: 1 warm step, 10 timed, 20 more,
+   10 timed, 6 launches of the layer kernel's 2D instance and 1 CG a step,
+   no particle lost; every layer and the CG of a developed step against
+   their plain versions, the layer's time; 3 steps at 64^2 on the card
+   against the CPU;
+23. the scene API's FLIP functions (averaged and improved particle
+   levelsets, combine_grid_vel, adjust_number) and the extrapolation
+   options (extrapolate_mac_simple with phi_obs and into_obs,
+   extrapolate_vec3_simple, through the layer kernel) on the developed flat
+   128^3 dam, timed, and at 24^3 on the card against the CPU.
 
-Prints the card, a ``{"kernels": [...]}`` line and a timing line, and as its
-last line ``{"ok": true, "device": {...}}``. Needs one CUDA device. A
+Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
+last line ``{"ok": true, "device": {...}}``. K1's entries carry
+torch.nn.functional.grid_sample's time on the same passes (``library_ms``:
+the passes without the min/max, held to K1 within the window). Needs one CUDA device. A
 kernel's time is its device time from a torch.profiler trace that holds
-exactly its launches, else from CUDA events around its wrapper calls; each
-entry says which (``timed_by``).
+exactly its launches, else (K1, K14) from a CUDA graph replay of the same
+launches or from CUDA events around its wrapper calls; each entry says
+which (``timed_by``).
 """
 
 import contextlib
@@ -130,6 +153,8 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
 FLIP_RES = 128
 PLUME_RES = 512  # the 2D plume (scenes/plume_2d.py's 64^2 occupies no card)
+FLAT2D_RES = 512  # the 2D flat dam (tests/test_torch_flat_flip.py's 40^2
+                  # occupies no card)
 FLIP_CHUNK = 10  # bench.py's n_steps: timed window and runner chunk
 ZSHARDS = 4      # z-slabs of the sharded path
 
@@ -192,6 +217,100 @@ def valid_bytes_read(bk):
     return int((bk.valid.sum(dim=0) + 1).clamp(max=bk.ppc).sum())
 
 
+def grid_sample_inputs(torch, src, px, py, pz, is3d, z_base=0, halo=0):
+    """The input and the normalised grid of
+    torch.nn.functional.grid_sample (align_corners=True, border padding)
+    that sample ``src`` trilinearly (bilinearly in 2D) at the window
+    kernel's positions: cell centres at +0.5. ``z_base`` and ``halo``: a
+    z-slab's positions and its haloed source (the border clamp at the
+    haloed ends reads the end planes' copies, which the global clamp
+    reads too)."""
+    def norm(p, size, off=0.0):
+        return (p - (0.5 + off)) * (2.0 / (size - 1)) - 1.0
+    sz, sy, sx = src.shape
+    axes = [norm(px, sx), norm(py, sy)]
+    if not is3d:
+        return src[0][None, None], torch.stack(axes, dim=-1)[0][None]
+    axes.append(norm(pz, sz, z_base - halo))
+    return src[None, None], torch.stack(axes, dim=-1)[None]
+
+
+def grid_sample(torch, inp, grid):
+    """The one PyTorch call that computes a window pass without the
+    MacCormack min/max where every displacement is within the window."""
+    return torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="border",
+        align_corners=True)
+
+
+def within_window(torch, px, py, pz, k, is3d, z_base=0):
+    """Cells whose displacement lies within +-k on every axis (where the
+    window clamp leaves the sample as it is)."""
+    lz, sy, sx = px.shape
+    dev = px.device
+    cx = torch.arange(sx, dtype=torch.float32, device=dev).view(1, 1, sx)
+    cy = torch.arange(sy, dtype=torch.float32, device=dev).view(1, sy, 1)
+    m = ((px - 0.5 - cx).abs() <= k) & ((py - 0.5 - cy).abs() <= k)
+    if is3d:
+        cz = (torch.arange(lz, dtype=torch.float32, device=dev)
+              + z_base).view(lz, 1, 1)
+        m = m & ((pz - 0.5 - cz).abs() <= k)
+    return m
+
+
+def library_vs_window(torch, calls, kernel, is3d, tol_scale=False,
+                      slab=False):
+    """grid_sample on the non-min/max window passes among ``calls``, the
+    recorded arguments of ``kernel`` (the window wrapper, or with ``slab``
+    the z-slab wrapper), and its ms per call (CUDA events, the float32 call
+    alone). That it computes the kernel's function is checked in float64:
+    its output on the cells within the window must lie within 1e-5 (times
+    max(1, max|src|) with ``tol_scale``) of the kernel's. In float32 its
+    normalised coordinates carry an error of about (n - 1) / 2 float32
+    ulps of 1 (1.5e-5 cells at 512 cells), so that difference is only
+    reported. Returns the numbers and the least share of cells within the
+    window."""
+    prepared, err, err32, share = [], 0.0, 0.0, []
+    for a, kw in calls:
+        if slab:
+            src, px, py, pz, _, k, z_base, _, mm = a
+            halo = k + 1
+        else:
+            src, px, py, pz, _, k = a[:6]
+            mm, z_base, halo = kw.get("want_minmax", False), 0, 0
+        if mm:
+            continue
+        kern = kernel(*a, **kw)
+        inside = within_window(torch, px, py, pz, k, is3d, z_base)
+        inp, grid = grid_sample_inputs(torch, src, px, py, pz, is3d, z_base,
+                                       halo)
+        lib32 = grid_sample(torch, inp, grid).reshape(px.shape)
+        inp64, grid64 = grid_sample_inputs(
+            torch, src.double(), px.double(), py.double(), pz.double(), is3d,
+            z_base, halo)
+        lib64 = grid_sample(torch, inp64, grid64).reshape(px.shape)
+        e = float(torch.where(inside, (lib64 - kern.double()).abs(),
+                              0.0).max())
+        tol = 1e-5 * (max(1.0, float(src.abs().max())) if tol_scale else 1.0)
+        require(e < tol, f"grid_sample (float64) vs the window kernel: {e} "
+                f">= {tol}")
+        err = max(err, e)
+        err32 = max(err32, float(torch.where(inside, (lib32 - kern).abs(),
+                                             0.0).max()))
+        share.append(float(inside.float().mean()))
+        prepared.append((inp, grid))
+    require(prepared, "no window pass without the min/max to time")
+
+    def go():
+        for inp, grid in prepared:
+            grid_sample(torch, inp, grid)
+    ms = cuda_ms(torch, go, 5) / len(prepared)
+    return {"library_ms": ms, "library_max_abs_diff_float64": err,
+            "library_max_abs_diff_float32": err32,
+            "library_calls": len(prepared),
+            "library_cells_within_window": min(share)}
+
+
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -240,7 +359,8 @@ def kernel_key_matches(key, names):
     (anonymous namespace)::union_levelset_kernel<3>((anonymous
     namespace)::LevelsetArgs)``), is one of the instances ``names``: a
     function name whole, with its template arguments where it has them
-    (``union_levelset_kernel<3>``, ``window_advect_kernel<true,false,true>``),
+    (``union_levelset_kernel<3>``,
+    ``window_advect_kernel<true,false,true,false>``),
     so that no other kernel and no other instance of a template matches."""
     key = key.replace(", ", ",")
     return any(re.search(r"(?:^|[\s:])" + re.escape(n.replace(" ", ""))
@@ -284,30 +404,63 @@ def kernel_device_ms(torch, fn, reps, names, launches):
     return None
 
 
-def timed_launches(torch, fn, reps, names, launches):
+def graph_ms(torch, fn, reps, launches):
+    """Mean milliseconds per launch of the kernels of fn() captured once in
+    a CUDA graph and replayed ``reps`` times between CUDA events: the
+    kernels back to back with no host between them. For wrappers that do
+    nothing but allocate their outputs and launch (no host read)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps / launches
+
+
+def timed_launches(torch, fn, reps, names, launches, graph=False):
     """(ms, call_ms, timed_by) per launch of the kernel instances ``names``:
     ``ms`` the profiler's device time (kernel_device_ms), ``call_ms`` CUDA
-    events around the wrapper calls (host gaps included). ``ms`` is the
-    events time, ``timed_by`` says which and the line printed says so,
-    where no trace was accepted, where the profiler reads more than 1.05 of
-    the events time (records that are not these launches'), or where a
-    kernel of more than 0.2 ms reads under 0.8 of it (host gaps cannot
-    explain that much)."""
+    events around the wrapper calls (host gaps included). Where no trace
+    was accepted, where the profiler reads more than 1.05 of the events
+    time (records that are not these launches'), or where a kernel of more
+    than 0.2 ms reads under 0.8 of it (host gaps cannot explain that much),
+    ``ms`` is the time of the launches replayed from a CUDA graph
+    (``graph``: wrappers that only launch) or else the events time;
+    ``timed_by`` says which and the line printed says so."""
     if isinstance(names, str):
         names = (names,)
     what = "/".join(names)
     dev = kernel_device_ms(torch, fn, reps, names, launches)
     call = cuda_ms(torch, fn, reps) / launches
-    if dev is None:
-        print(f"{what}: no profiler trace accepted; timed with CUDA "
-              f"events, {call * 1e3:.1f} us/launch", flush=True)
-        return call, call, "events"
-    if dev > 1.05 * call or (call > 0.2 and dev < 0.8 * call):
-        print(f"{what}: the profiler reads {dev * 1e3:.1f} us/launch, "
-              f"CUDA events {call * 1e3:.1f}; timed with CUDA events",
+    if dev is not None and not (dev > 1.05 * call
+                                or (call > 0.2 and dev < 0.8 * call)):
+        return dev, call, "profiler"
+    why = ("no profiler trace accepted" if dev is None else
+           f"the profiler reads {dev * 1e3:.1f} us/launch, CUDA events "
+           f"{call * 1e3:.1f}")
+    if graph:
+        ms = graph_ms(torch, fn, reps, launches)
+        print(f"{what}: {why}; timed from a CUDA graph, {ms * 1e3:.1f} "
+              f"us/launch (events around the calls {call * 1e3:.1f})",
               flush=True)
-        return call, call, "events"
-    return dev, call, "profiler"
+        return ms, call, "graph"
+    print(f"{what}: {why}; timed with CUDA events, {call * 1e3:.1f} "
+          "us/launch", flush=True)
+    return call, call, "events"
 
 
 def main():
@@ -325,7 +478,9 @@ def main():
     from mantaflow_tpu_torch.ops import advect_bucket_kernels as fadk
     from mantaflow_tpu_torch.ops import advection_kernels as advk
     from mantaflow_tpu_torch.ops import blend_kernels as blk
+    from mantaflow_tpu_torch.ops import extrapolation as xtr
     from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
+    from mantaflow_tpu_torch.ops import flip as fo
     from mantaflow_tpu_torch.ops import flip_bucket as fb
     from mantaflow_tpu_torch.ops import levelset_kernels as lsk
     from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
@@ -363,6 +518,7 @@ def main():
     dom, state = bench_state(smoke, Domain, Sphere, RES, dev)
     torch.cuda.synchronize()
     advk.window_pass.launches = 0
+    advk.window_pass_slab.launches = 0
     prk.cg_solve.launches = 0
 
     def timed(state, n_steps):
@@ -384,10 +540,14 @@ def main():
     state, dev_sps, dev_it = timed(state, 10)
     torch.cuda.synchronize()
     launches = {"window_advect": advk.window_pass.launches,
+                "window_advect_zshard": advk.window_pass_slab.launches,
                 "cg_solve": prk.cg_solve.launches}
     steps = 51
     require(launches["window_advect"] == 8 * steps,
             f"window_advect launched {launches['window_advect']} times")
+    require(launches["window_advect_zshard"] == 0,
+            f"window_advect_zshard launched "
+            f"{launches['window_advect_zshard']} times")
     require(launches["cg_solve"] == steps,
             f"cg_solve launched {launches['cg_solve']} times")
 
@@ -402,8 +562,7 @@ def main():
     def k1_check(src, px, py, pz, dom, ok, want_minmax, scaled=False):
         """K1 against window_interp: abs 1e-6; ``scaled``: 1e-6 times
         max(1, max|src|), the same few ulps for a field of any magnitude
-        (the kernel contracts multiply-adds, the plain version does not:
-        the 2D plume's velocities reach tens of cells a unit time)."""
+        (the 2D plume's velocities reach tens of cells a unit time)."""
         got = advk.window_pass(src, px, py, pz, dom, K, ok_mask=ok,
                                want_minmax=want_minmax)
         ref = window_interp(src, px, py, pz, dom, K, ok_mask=ok,
@@ -466,8 +625,9 @@ def main():
                 fn(s_, px, py, pz, dom, K, ok_mask=o, want_minmax=mm)
         return go
 
-    # the template instances the passes launch: <kMinMax, kWithOk, k3d>
-    k1_names = sorted({"window_advect_kernel<%s,%s,true>" % (
+    # the template instances the passes launch: <kMinMax, kWithOk, k3d,
+    # kSlab>
+    k1_names = sorted({"window_advect_kernel<%s,%s,true,false>" % (
         str(mm).lower(), str(mm and o is not None).lower())
         for *_, o, mm in passes})
     k1_ms, k1_call_ms, k1_timed_by = timed_launches(
@@ -480,6 +640,17 @@ def main():
     k1_ops = n * 60  # 3 axis setups (~8 each) + 8-corner blend (~36)
     k1_bound_bytes = k1_bytes / HBM_BYTES_PER_S * 1e3
     k1_bound_ops = k1_ops / FP32_OPS_PER_S * 1e3
+    # the library yardstick: grid_sample computes the passes without the
+    # min/max wherever the displacement lies within the window
+    k1_library = library_vs_window(
+        torch, [((s_, px, py, pz, dom, K), {"ok_mask": o, "want_minmax": mm})
+                for s_, px, py, pz, o, mm in passes], advk.window_pass, True)
+    print(f"grid_sample on the 128^3 step's {k1_library['library_calls']} "
+          f"passes without the min/max: {k1_library['library_ms'] * 1e3:.1f}"
+          " us/call, max abs diff from K1 within the window "
+          f"{k1_library['library_max_abs_diff_float64']:.3g} (float64), "
+          f"{k1_library['library_max_abs_diff_float32']:.3g} (float32)",
+          flush=True)
 
     # -- 4. CG kernel vs plain CG -------------------------------------------
     def cg_check(rhs, stencil, fluid, acc, max_iter, dom_,
@@ -990,8 +1161,9 @@ def main():
         the function needs for these inputs."""
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = nops / FP32_OPS_PER_S * 1e3
-        ms, call_ms, timed_by = timed_launches(torch, replay(calls, fn), 5,
-                                               kname, len(calls))
+        ms, call_ms, timed_by = timed_launches(
+            torch, replay(calls, fn), 5, kname, len(calls),
+            graph=kname.startswith("extrap_layer"))
         fk[kind] = {
             "ms": ms, "call_ms": call_ms, "timed_by": timed_by,
             "plain_ms": cuda_ms(torch, replay(calls, plain), 1) / len(calls),
@@ -1059,7 +1231,7 @@ def main():
     for kind, kname in (("advect_bucket", "advect_live_kernel<false>"),
                         ("rebin_fused", "rebin_fused_kernel<false>"),
                         ("p2g_levelset", "p2g_levelset_kernel"),
-                        ("extrap_layer", "extrap_layer_kernel")):
+                        ("extrap_layer", "extrap_layer_kernel<true>")):
         time_kernel(kind, kname, dev_calls[kind], getattr(*sites[kind]),
                     plain_of[kind], fbytes[kind], fops[kind],
                     f"P {P}, {live} live")
@@ -1562,15 +1734,16 @@ def main():
     # the particles as (N, 3) tensors, their transfers PyTorch's scatters
     # and gathers; per step 10 K14 launches and 1 K2 and nothing else
     every_kernel = {**flip_kernels, "window_advect": advk.window_pass,
+                    "window_advect_zshard": advk.window_pass_slab,
                     "advect_bucket_zshard": fadk.advect_blend_slab_live,
                     "advect_bucket_zshard_public": fadk.advect_blend_slab,
                     "p2g_levelset_zshard": p2gk.p2g_union_slab}
     flat_per_step = {"extrap_layer": 10, "cg_solve": 1}
     flat_sites = {k: sites[k] for k in flat_per_step}
 
-    def flat_checks(name, st, n_parts):
-        """No particle lost, every field finite, every active particle in
-        [0, n) on every axis."""
+    def flat_checks(name, st, n_parts, dom_=fdom):
+        """No particle lost, every field finite, every active particle
+        inside the domain on every axis."""
         active = st.parts.active_mask()
         require(int(active.sum()) == n_parts,
                 f"{name}: {int(active.sum())} active particles, had "
@@ -1580,23 +1753,27 @@ def main():
             require(bool(torch.isfinite(getattr(st, field)).all()),
                     f"{name}: {field} not finite")
         pos = st.parts.pos[active]
+        size = torch.tensor(dom_.size, dtype=torch.float32, device=dev)
         require(bool(torch.isfinite(pos).all()) and bool((pos >= 0).all())
-                and bool((pos < FLIP_RES).all()),
-                f"{name}: a position outside [0, {FLIP_RES})")
+                and bool((pos < size).all()),
+                f"{name}: a position outside the domain {dom_.size}")
 
-    def drive_flat(name, params_, windows):
-        """A flat dam at 128^3 set up by make_dam_state (bench.py:37-40), 1
-        warm step, then for each (pre, n) of ``windows`` pre untimed steps
-        (flip_run) and n timed ones (CUDA events). Every kernel's count is
-        set to 0 just before the warm step and read after the last; the
-        launches per step, the particles and the fields are checked.
-        Returns the run's numbers, the state after the warm step (the cold
-        inputs) and the last state, and the launches."""
+    def drive_flat(name, params_, windows, dom_=fdom, disc=2,
+                   per_step=flat_per_step):
+        """A flat dam (the 128^3 bench dam unless ``dom_`` says otherwise)
+        set up by make_dam_state (bench.py:37-40), 1 warm step, then for
+        each (pre, n) of ``windows`` pre untimed steps (flip_run) and n
+        timed ones (CUDA events). Every kernel's count is set to 0 just
+        before the warm step and read after the last; the launches per step
+        (``per_step``, every other kernel 0), the particles and the fields
+        are checked. Returns the run's numbers, the state after the warm
+        step (the cold inputs) and the last state, and the launches."""
         t0 = time.perf_counter()
-        st = flip.make_dam_state(fdom, params_, discretization=2, device=dev)
+        st = flip.make_dam_state(dom_, params_, discretization=disc,
+                                 device=dev)
         n_parts = int(st.parts.count)
         setup_s = time.perf_counter() - t0
-        require(n_parts == flip_numbers["particles"],
+        require(dom_ is not fdom or n_parts == flip_numbers["particles"],
                 f"{name}: {n_parts} particles, the bucketed dam has "
                 f"{flip_numbers['particles']}")
         require(st.parts.capacity == -(-int(n_parts * 1.02) // 1024) * 1024,
@@ -1604,16 +1781,16 @@ def main():
         torch.cuda.synchronize()
         for fn in every_kernel.values():
             fn.launches = 0
-        st = flip.flip_step(st, fdom, params_)  # warm
+        st = flip.flip_step(st, dom_, params_)  # warm
         cold_state, n_steps, timed_ = st, 1, []
         for pre, n in windows:
-            st = flip.flip_run(st, fdom, params_, pre)
+            st = flip.flip_run(st, dom_, params_, pre)
             iters = torch.zeros((), dtype=torch.int64, device=dev)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
             for _ in range(n):
-                st = flip.flip_step(st, fdom, params_)
+                st = flip.flip_step(st, dom_, params_)
                 iters += st.cg_iters
             t1.record()
             torch.cuda.synchronize()
@@ -1621,13 +1798,13 @@ def main():
             n_steps += pre + n
         launches = {k: fn.launches for k, fn in every_kernel.items()}
         for k, got in launches.items():
-            want = flat_per_step.get(k, 0) * n_steps
+            want = per_step.get(k, 0) * n_steps
             require(got == want, f"{name}: {k} launched {got} times in "
                     f"{n_steps} steps (expected {want})")
-        flat_checks(name, st, n_parts)
+        flat_checks(name, st, n_parts, dom_)
         require(int(st.ts.count) == n_steps, f"{name}: ts.count")
         (cold_ms, cold_it), (dev_ms, dev_it) = timed_[0], timed_[-1]
-        print(f"{name} {FLIP_RES}^3: {n_steps} steps, {n_parts} particles "
+        print(f"{name} {dom_.size}: {n_steps} steps, {n_parts} particles "
               f"(capacity {st.parts.capacity}), {cold_ms:.2f} ms/step cold, "
               f"{dev_ms:.2f} developed, CG {cold_it:.1f} / {dev_it:.1f} "
               f"it/step, launches {launches}", flush=True)
@@ -1637,7 +1814,7 @@ def main():
                    "cg_iters_per_step_cold": cold_it,
                    "cg_iters_per_step_developed": dev_it,
                    "particles": n_parts, "capacity": st.parts.capacity,
-                   "steps_run": n_steps, "launches_per_step": flat_per_step,
+                   "steps_run": n_steps, "launches_per_step": per_step,
                    "setup_s": setup_s}
         return numbers, cold_state, st, launches
 
@@ -1682,28 +1859,29 @@ def main():
               f"exits at {exits[0]}, plain at {exits[1]}", flush=True)
         return err
 
-    def flat_kernel_check(name, st, params_, what):
+    def flat_kernel_check(name, st, params_, what, dom_=fdom,
+                          per_step=flat_per_step, layer_key="extrap_layer"):
         """K14 and K2 against their plain versions on every call of one
-        flat step from ``st``: the layers exact, the CG by
-        cg_check_by_residual."""
+        flat step from ``st``: the layers exact (their error under
+        ``layer_key``), the CG by cg_check_by_residual."""
         calls = {k: [] for k in flat_sites}
         with contextlib.ExitStack() as stack:
             for k, (mod, fname) in flat_sites.items():
                 stack.enter_context(recording(mod, fname, calls[k]))
-            flip.flip_step(st, fdom, params_)
+            flip.flip_step(st, dom_, params_)
         torch.cuda.synchronize()
-        for k, n in flat_per_step.items():
+        for k, n in per_step.items():
             require(len(calls[k]) == n,
                     f"{name}: {len(calls[k])} {k} calls in one step")
         for args, kwargs in calls["extrap_layer"]:
-            errs["extrap_layer"] = max(errs["extrap_layer"], check_call(
+            errs[layer_key] = max(errs.get(layer_key, 0.0), check_call(
                 "extrap_layer", args, kwargs))
         for args, kwargs in calls["cg_solve"]:
-            rhs, stencil, dom_, acc, max_iter = args
+            rhs, stencil, _, acc, max_iter = args
             errs["cg_solve"] = max(errs["cg_solve"], cg_check_by_residual(
                 rhs, stencil, kwargs["fluid"], acc, max_iter, dom_))
-        print(f"{name} {FLIP_RES}^3 {what} step, kernels vs plain: "
-              f"extrap_layer {errs['extrap_layer']:.3g}, cg_solve "
+        print(f"{name} {dom_.size} {what} step, kernels vs plain: "
+              f"{layer_key} {errs[layer_key]:.3g}, cg_solve "
               f"{errs['cg_solve']:.3g}", flush=True)
         return calls
 
@@ -1714,7 +1892,7 @@ def main():
     flat_kernel_check("flat", flat_cold, flat_params, "cold")
     flat_calls = flat_kernel_check("flat", flat_last, flat_params,
                                    "developed")
-    del flat_cold, flat_last
+    del flat_cold  # flat_last: phase 23's developed state
     # K2 and K14 on the developed flat step's inputs
     (cg_args, cg_kw), = flat_calls["cg_solve"]
     flat_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
@@ -1726,7 +1904,7 @@ def main():
     # the bytes and operations of phase 7's layers
     layer_calls = flat_calls["extrap_layer"]
     pairs = sum(len(a[0]) for a, _ in layer_calls) / len(layer_calls)
-    time_kernel("extrap_layer_flat", "extrap_layer_kernel", layer_calls,
+    time_kernel("extrap_layer_flat", "extrap_layer_kernel<true>", layer_calls,
                 xk.extrap_layer, xk.extrap_layer_plain, pairs * 16 * T,
                 pairs * 20 * T, "flat dam developed step's layers")
     del flat_calls, layer_calls, cg_args, cg_kw
@@ -1739,12 +1917,13 @@ def main():
     del apic_cold, apic_last
 
     # -- 16. the flat dams on the card vs the port on the CPU ---------------
-    def flat_card_vs_cpu(name, params_, obstacle=None):
-        """3 steps at 24^3 on the card and on the CPU: flags, particle
-        flags and counts exact, grids to abs 2e-4, particles to 1e-4."""
+    def flat_card_vs_cpu(name, params_, obstacle=None, dom_=sdom, disc=2):
+        """3 steps (at 24^3 unless ``dom_`` says otherwise) on the card and
+        on the CPU: flags, particle flags and counts exact, grids to abs
+        2e-4, particles to 1e-4."""
         g_, c_ = (flip.flip_run(flip.make_dam_state(
-            sdom, params_, obstacle=obstacle, device=d_), sdom, params_, 3)
-            for d_ in (dev, "cpu"))
+            dom_, params_, discretization=disc, obstacle=obstacle,
+            device=d_), dom_, params_, 3) for d_ in (dev, "cpu"))
         for what, a_, b_ in (("flags", g_.flags, c_.flags),
                              ("particle flags", g_.parts.flags,
                               c_.parts.flags),
@@ -1757,9 +1936,10 @@ def main():
         perr = max(float((a_.cpu() - b_).abs().max()) for a_, b_ in (
             (g_.parts.pos, c_.parts.pos), (g_.pvel, c_.pvel),
             (g_.cpx, c_.cpx), (g_.cpy, c_.cpy), (g_.cpz, c_.cpz)))
+        size = "x".join(str(n) for n in dom_.size if n > 1)
         require(gerr < 2e-4 and perr < 1e-4,
-                f"24^3 {name} card vs CPU: grids {gerr}, particles {perr}")
-        print(f"24^3 {name} x3 steps, card vs CPU: grids {gerr:.3g}, "
+                f"{size} {name} card vs CPU: grids {gerr}, particles {perr}")
+        print(f"{size} {name} x3 steps, card vs CPU: grids {gerr:.3g}, "
               f"particles {perr:.3g}", flush=True)
         return {"grids": gerr, "particles": perr}
 
@@ -1774,15 +1954,26 @@ def main():
     smoke_paths = {}  # launches by path
     new_numbers = {}
 
-    def drive_smoke(name, params_, dom_, state_, windows, per_step):
-        """Drive the smoke model from ``state_``: 1 warm step, then per
-        (pre, n) of ``windows`` ``pre`` steps and ``n`` timed ones (CUDA
-        events; the host reads of the multigrid solve included). The
-        kernels' counts are set to 0 just before the warm step and read
-        after the last; the launches per step, finite fields and ts.count
-        are checked. The CG iterations a step reports count the multigrid
-        start's V-cycles too: the recorded mg_richardson cycles are taken
-        out. Returns the numbers, the last state and the launches."""
+    def drive_smoke(name, params_, dom_, state_, windows, per_step,
+                    zshard=None, window_states=None):
+        """Drive the smoke model from ``state_`` (``zshard``: over that
+        mesh's z-slabs): 1 warm step, then per (pre, n) of ``windows``
+        ``pre`` steps and ``n`` timed ones (CUDA events; the host reads of
+        the multigrid solve included). The kernels' counts are set to 0
+        just before the warm step and read after the last; the launches per
+        step (``per_step``, every other kernel 0), finite fields and
+        ts.count are checked. The CG iterations a step reports count the
+        multigrid start's V-cycles too: the recorded mg_richardson cycles
+        are taken out. ``window_states``: a list that takes each timed
+        window's first and last state. Returns the numbers and the last
+        state."""
+        def run(st, n):
+            if zshard is None:
+                return smoke.smoke_run(st, dom_, params_, n)
+            for _ in range(n):
+                st = smoke.smoke_step(st, dom_, params_, zshard=zshard)
+            return st
+
         cycles = []
         mg_rich = prs.mg_richardson
 
@@ -1794,30 +1985,36 @@ def main():
         try:
             torch.cuda.synchronize()
             advk.window_pass.launches = 0
+            advk.window_pass_slab.launches = 0
             prk.cg_solve.launches = 0
-            st = smoke.smoke_step(state_, dom_, params_)  # warm
+            st = run(state_, 1)  # warm
             n_steps, timed_ = 1, []
             for pre, n in windows:
-                st = smoke.smoke_run(st, dom_, params_, pre)
+                st = run(st, pre)
+                first = st
                 iters = torch.zeros((), dtype=torch.int64, device=dev)
                 mark = len(cycles)
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
                 for _ in range(n):
-                    st = smoke.smoke_step(st, dom_, params_)
+                    st = smoke.smoke_step(st, dom_, params_, zshard=zshard)
                     iters += st.cg_iters
                 t1.record()
                 torch.cuda.synchronize()
+                if window_states is not None:
+                    window_states.append((first, st))
                 vc = sum(int(c) for c in cycles[mark:]) / n
                 timed_.append((t0.elapsed_time(t1) / n, int(iters) / n - vc,
                                vc))
                 n_steps += pre + n
             got = {"window_advect": advk.window_pass.launches,
+                   "window_advect_zshard": advk.window_pass_slab.launches,
                    "cg_solve": prk.cg_solve.launches}
         finally:
             prs.mg_richardson = mg_rich
-        for k, want in per_step.items():
+        for k in got:
+            want = per_step.get(k, 0)
             require(got[k] == want * n_steps,
                     f"{name}: {k} launched {got[k]} times in {n_steps} steps "
                     f"(expected {want * n_steps})")
@@ -2014,14 +2211,14 @@ def main():
                          cg_args[4], pdom, units=(False,))
     k2_err = max(k2_err, plume_err)
     # K1's 2D instances, <kMinMax, kWithOk, false>, on the step's passes
-    k1_2d_names = sorted({"window_advect_kernel<%s,%s,false>" % (
+    k1_2d_names = sorted({"window_advect_kernel<%s,%s,false,false>" % (
         str(kw.get("want_minmax", False)).lower(),
         str(kw.get("ok_mask") is not None).lower())
         for _, kw in pcalls["window_advect"]})
     nw = len(pcalls["window_advect"])
     k1_2d_ms, k1_2d_call_ms, k1_2d_timed_by = timed_launches(
         torch, replay(pcalls["window_advect"], advk.window_pass), 20,
-        k1_2d_names, nw)
+        k1_2d_names, nw, graph=True)
     k1_2d_plain_ms = cuda_ms(torch, replay(pcalls["window_advect"],
                                            window_interp), 1) / nw
     pn = pdom.num_cells
@@ -2033,6 +2230,16 @@ def main():
     k1_2d_ops = pn * 34  # 2 axis setups (~8 each) + 4-corner blend (~18)
     k1_2d_bound = (k1_2d_bytes / HBM_BYTES_PER_S * 1e3,
                    k1_2d_ops / FP32_OPS_PER_S * 1e3)
+    k1_2d_library = library_vs_window(torch, pcalls["window_advect"],
+                                      advk.window_pass, False,
+                                      tol_scale=True)
+    print(f"grid_sample on the 2D plume step's "
+          f"{k1_2d_library['library_calls']} passes without the min/max: "
+          f"{k1_2d_library['library_ms'] * 1e3:.1f} us/call, max abs diff "
+          "from K1 within the window "
+          f"{k1_2d_library['library_max_abs_diff_float64']:.3g} (float64), "
+          f"{k1_2d_library['library_max_abs_diff_float32']:.3g} (float32)",
+          flush=True)
     plume_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
     time_kernel("cg_solve_plume", "cg_kernel<false>", pcalls["cg_solve"],
                 prk.cg_solve, prs.cg_plain, 6 * 4 * pn, plume_it * 24 * pn,
@@ -2130,6 +2337,263 @@ def main():
         new_card_cpu[f"solve_{name}_24"] = branch_card_vs_cpu(name, **kw)
     new_numbers["card_vs_cpu"] = new_card_cpu
 
+    # -- 21. the z-sharded bench smoke at 128^3 over ZSHARDS z-slabs -------
+    # every window pass through window_pass_zshard: per pass one launch of
+    # the window kernel's z-slab instance per shard, the rest of the step
+    # whole on the lead
+    smesh = shd.make_zmesh(ZSHARDS, devices=[
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    dom, state = bench_state(smoke, Domain, Sphere, RES, dev)
+    zs_windows = []
+    zs_numbers, zst = drive_smoke(
+        "smoke_zshard_128", params, dom, state, [(0, 10), (30, 10)],
+        {"window_advect_zshard": 8 * ZSHARDS, "cg_solve": 1}, zshard=smesh,
+        window_states=zs_windows)
+    del state
+    # each timed window against 10 one-domain steps from its first state
+    for (first, last), what in zip(zs_windows, ("cold", "developed")):
+        one = smoke.smoke_run(first, dom, params, 10)
+        for f in ("density", "vel", "pressure", "cg_iters"):
+            require(torch.equal(getattr(one, f), getattr(last, f)),
+                    f"smoke zshard ({what} window): {f} differs from the "
+                    "one-domain steps")
+    zs_numbers["equal_to_one_domain_bitwise"] = True
+    print(f"smoke zshard {RES}^3 over {smesh.n} shards: both timed windows "
+          "bit for bit the one-domain steps (density, vel, pressure)",
+          flush=True)
+    zs_cold = zs_windows[0][0]
+    del zs_windows, one, first, last
+
+    zs_sites = {"window_advect_zshard": (advk, "window_pass_slab"),
+                "halo_z": (shd, "halo_z"), "scatter_z": (shd, "scatter_z")}
+
+    def record_zstep(st):
+        calls = {k: [] for k in zs_sites}
+        with contextlib.ExitStack() as stack:
+            for k, (mod, name) in zs_sites.items():
+                stack.enter_context(recording(mod, name, calls[k]))
+            smoke.smoke_step(st, dom, params, zshard=smesh)
+        torch.cuda.synchronize()
+        # the slab calls without their output views (a replay writes new
+        # tensors)
+        calls["window_advect_zshard"] = [
+            (a[:9], {}) for a, _ in calls["window_advect_zshard"]]
+        return calls
+
+    k1z_err = 0.0
+    for st_, what in ((zs_cold, "cold"), (zst, "developed")):
+        zc = record_zstep(st_)
+        require(len(zc["window_advect_zshard"]) == 8 * smesh.n,
+                f"smoke zshard: {len(zc['window_advect_zshard'])} slab "
+                "calls in a step")
+        for a, _ in zc["window_advect_zshard"]:
+            got = advk.window_pass_slab(*a)
+            ref = advk.window_slab_plain(*a)
+            if not a[8]:
+                got, ref = (got,), (ref,)
+            for g, r in zip(got, ref):
+                if r.dtype == torch.bool:
+                    require(torch.equal(g, r), "window_advect_zshard: have "
+                            "differs")
+                else:
+                    k1z_err = max(k1z_err, float((g - r).abs().max()))
+        require(k1z_err <= 1e-6,
+                f"window_advect_zshard: max abs err {k1z_err}")
+        print(f"window_advect_zshard {what} step's {len(zc['window_advect_zshard'])}"
+              f" slab launches vs plain: max abs err {k1z_err:.3g}",
+              flush=True)
+    del zs_cold
+    # the developed step's slab launches: time, bound, library
+    zslab = zc["window_advect_zshard"]
+    k1z_names = sorted({"window_advect_kernel<%s,%s,true,true>" % (
+        str(a[8]).lower(), str(a[8] and a[7] is not None).lower())
+        for a, _ in zslab})
+    k1z_ms, k1z_call_ms, k1z_timed_by = timed_launches(
+        torch, replay(zslab, advk.window_pass_slab), 5, k1z_names,
+        len(zslab), graph=True)
+    k1z_plain_ms = cuda_ms(torch, replay(zslab, advk.window_slab_plain),
+                           1) / len(zslab)
+    k1z_bytes = sum(a[1].numel() * (12 + 4 + (9 if a[8] else 0))
+                    + a[0].numel() * (4 + (1 if a[7] is not None else 0))
+                    for a, _ in zslab) / len(zslab)
+    k1z_ops = sum(a[1].numel() * 60 for a, _ in zslab) / len(zslab)
+    k1z_bound = (k1z_bytes / HBM_BYTES_PER_S * 1e3,
+                 k1z_ops / FP32_OPS_PER_S * 1e3)
+    k1z_library = library_vs_window(torch, zslab, advk.window_pass_slab,
+                                    True, slab=True)
+    zs_copies = {k: cuda_ms(torch, replay(zc[k], getattr(*zs_sites[k])), 5)
+                 for k in ("halo_z", "scatter_z")}
+    zs_numbers["copies_ms_per_step"] = zs_copies
+    print(f"window_advect_zshard: {k1z_ms * 1e3:.1f} us/launch (bound "
+          f"{max(k1z_bound) * 1e3:.1f} us), plain {k1z_plain_ms:.2f} ms, "
+          f"grid_sample {k1z_library['library_ms'] * 1e3:.1f} us; copies per "
+          "step (ms): " + ", ".join(f"{k} {v:.3f} ({len(zc[k])} calls)"
+                                    for k, v in zs_copies.items()),
+          flush=True)
+    del zc, zslab, zst
+    # 3 steps at 16^3 over 4 slabs of k+1 planes on the card against the CPU
+    xs = []
+    for d_ in (dev, "cpu"):
+        m_ = shd.make_zmesh(ZSHARDS, devices=smesh.devices if d_ is dev
+                            else [d_])
+        xdom_, s_ = bench_state(smoke, Domain, Sphere, 16, d_)
+        require(xdom_.shape[0] // m_.n == K + 1, "16^3 zshard: slab planes")
+        for _ in range(3):
+            s_ = smoke.smoke_step(s_, xdom_, params, zshard=m_)
+        xs.append(s_)
+    zs16 = max(float((getattr(xs[0], f).cpu() - getattr(xs[1], f))
+                     .abs().max()) for f in ("vel", "density", "pressure"))
+    require(torch.equal(xs[0].flags.cpu(), xs[1].flags) and zs16 < 2e-4,
+            f"16^3 smoke zshard card vs CPU: grids {zs16}")
+    zs_numbers["card_vs_cpu_16"] = zs16
+    print(f"16^3 smoke zshard x3 steps over {ZSHARDS} slabs of {K + 1} "
+          f"planes, card vs CPU: grids {zs16:.3g}", flush=True)
+    del xs
+
+    # -- 22. the 2D flat FLIP dam at FLAT2D_RES^2 ---------------------------
+    # tests/test_torch_flat_flip.py's dam_2d (scenes/flip01_simple.py in 2D:
+    # no ghost fluid, discretization 3) grown to the 2D plume's size; per
+    # step 6 layers of the layer kernel's 2D instance (2 pairs each) and 1 CG
+    d2params = flip.FlipParams(gravity=(0.0, -0.002, 0.0))
+    d2dom = Domain(size=(FLAT2D_RES, FLAT2D_RES, 1), dim=2)
+    d2_per_step = {"extrap_layer": 6, "cg_solve": 1}
+    d2_numbers, _, d2_last, d2_launches = drive_flat(
+        "flat_2d", d2params, [(0, FLIP_CHUNK), (20, FLIP_CHUNK)],
+        dom_=d2dom, disc=3, per_step=d2_per_step)
+    d2_calls = flat_kernel_check("flat_2d", d2_last, d2params, "developed",
+                                 dom_=d2dom, per_step=d2_per_step,
+                                 layer_key="extrap_layer_2d")
+    del d2_last
+    d2_layers = d2_calls["extrap_layer"]
+    pairs = sum(len(a[0]) for a, _ in d2_layers) / len(d2_layers)
+    require(pairs == 2, f"flat_2d: {pairs} pairs a layer")
+    T2 = d2dom.num_cells
+    time_kernel("extrap_layer_2d", "extrap_layer_kernel<false>", d2_layers,
+                xk.extrap_layer, xk.extrap_layer_plain, pairs * 16 * T2,
+                pairs * 14 * T2, "2D dam developed step's layers")
+    del d2_calls, d2_layers
+    d2_numbers["card_vs_cpu_64"] = flat_card_vs_cpu(
+        "dam 2D", d2params, dom_=Domain(size=(64, 64, 1), dim=2), disc=3)
+
+    # -- 23. the scene API's FLIP functions and extrapolation options -------
+    # on the flat 128^3 dam's developed state (phase 14), with an obstacle
+    # sphere's levelset (and its cells as obstacles for into_obs); the two
+    # extrapolations through the layer kernel: 4 three-pair layers, then a
+    # marker-only layer and 3 three-pair ones
+    def scene_functions(st, dom_, phi_obs, avg=None):
+        """The functions on ``st``: the averaged levelset (or ``avg``)
+        feeds combine_grid_vel, adjust_number and the Vec3 extrapolation,
+        so that each is held alone."""
+        flags_obs = torch.where(phi_obs < 0.0, fl.TypeObstacle, st.flags)
+        weight = fo.map_parts_to_mac(st.parts, st.pvel, st.flags, dom_)[1]
+        levelsets = {"averaged_particle_levelset": lambda:
+                     fo.averaged_particle_levelset(st.parts, st.flags, dom_),
+                     "improved_particle_levelset": lambda:
+                     fo.improved_particle_levelset(st.parts, st.flags, dom_)}
+        res = {k: f() for k, f in levelsets.items()}
+        phi = res["averaged_particle_levelset"] if avg is None else avg
+        others = {
+            "combine_grid_vel": lambda: fo.combine_grid_vel(
+                st.vel, weight, st.vel_old, dom_, phi=phi, narrow_band=2.0),
+            "adjust_number": lambda: fo.adjust_number(
+                st.parts, st.vel, st.flags, dom_, 8, 12, phi),
+            "extrapolate_mac_simple_obs": lambda: xtr.extrapolate_mac_simple(
+                flags_obs, st.vel, dom_, 4, phi_obs=phi_obs, into_obs=True),
+            "extrapolate_vec3_simple": lambda: xtr.extrapolate_vec3_simple(
+                st.vel, phi, dom_, 4)}
+        res.update({k: f() for k, f in others.items()})
+        return res, {**levelsets, **others}
+
+    def obstacle_phi(dom_, d_):
+        n_ = dom_.size[0]
+        return Sphere(center=(n_ * 0.7, n_ * 0.3, n_ * 0.5),
+                      radius=n_ * 0.12).compute_levelset(dom_, d_)
+
+    torch.cuda.synchronize()
+    xk.extrap_layer.launches = 0
+    sc_res, sc_fns = scene_functions(flat_last, fdom,
+                                     obstacle_phi(fdom, dev))
+    torch.cuda.synchronize()
+    require(xk.extrap_layer.launches == 4 + 4,
+            f"scene functions: {xk.extrap_layer.launches} layer launches")
+    for k in ("averaged_particle_levelset", "improved_particle_levelset"):
+        phi_ = sc_res[k]
+        require(bool(torch.isfinite(phi_).all()) and bool((phi_ < 0).any())
+                and bool((phi_ > 0).any()), f"{k}: not a levelset")
+    adj = sc_res["adjust_number"]
+    adj_active = adj.active_mask()
+    require(int(adj.count) == adj.capacity
+            and bool(torch.isfinite(adj.pos[adj_active]).all()),
+            "adjust_number: count or positions")
+    for k in ("combine_grid_vel", "extrapolate_mac_simple_obs",
+              "extrapolate_vec3_simple"):
+        r_ = sc_res[k]
+        require(all(bool(torch.isfinite(t).all())
+                    for t in (r_ if isinstance(r_, tuple) else (r_,))),
+                f"{k}: not finite")
+    scene_ms = {k: cuda_ms(torch, f, 1) for k, f in sc_fns.items()}
+    scene_numbers = {"ms_at_128": scene_ms,
+                     "active_after_adjust_number": int(adj_active.sum()),
+                     "active_before": int(flat_last.parts.active_mask()
+                                          .sum())}
+    print(f"scene functions on the developed flat {FLIP_RES}^3 dam (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in scene_ms.items())
+          + f"; adjust_number: {scene_numbers['active_before']} -> "
+          f"{scene_numbers['active_after_adjust_number']} active",
+          flush=True)
+    del sc_res, sc_fns, adj, flat_last
+    # at 24^3 on the card and on the CPU, from one state (3 CPU steps) and
+    # one averaged levelset (the CPU's): the averaged levelset to abs 1e-5
+    # (the card's scatter-adds sum in another order), the extrapolations to
+    # 1e-6, combine_grid_vel and adjust_number exact. The improved levelset
+    # is held in its two stages: its sums are the averaged levelset's, and
+    # its correction from the card's sums, on the card and on the CPU, to
+    # 1e-5; end to end it is only reported (its eigenvalue jumps where the
+    # cubic's discriminant changes sign, so sums in another order move a
+    # few cells by up to a radius)
+    c_st = flip.flip_run(flip.make_dam_state(sdom, flat_params,
+                                             device="cpu"), sdom,
+                         flat_params, 3)
+    g_st = flip.flat_state_from_numpy(flip.flat_state_to_numpy(c_st),
+                                      device=dev)
+    c_res, _ = scene_functions(c_st, sdom, obstacle_phi(sdom, "cpu"))
+    g_res, _ = scene_functions(g_st, sdom, obstacle_phi(sdom, dev),
+                               avg=c_res["averaged_particle_levelset"].to(dev))
+    scene_cpu = {}
+    radius = 0.5 * fo._radius_factor(sdom, 1.0)
+    have_g, pavg_g = fo._averaged_positions(g_st.parts, sdom, radius, None,
+                                            0)
+    corr_args = (sdom, radius, 1, 1, 0.4, 3.5)
+    e = float((fo._corrected_levelset(have_g, pavg_g, *corr_args).cpu()
+               - fo._corrected_levelset(have_g.cpu(), pavg_g.cpu(),
+                                        *corr_args)).abs().max())
+    require(e <= 1e-5, f"24^3 improved levelset's correction card vs CPU: "
+            f"{e}")
+    scene_cpu["improved_particle_levelset_correction"] = e
+    scene_cpu["improved_particle_levelset_end_to_end"] = float(
+        (g_res["improved_particle_levelset"].cpu()
+         - c_res["improved_particle_levelset"]).abs().max())
+    del have_g, pavg_g
+    for k, tol in (("averaged_particle_levelset", 1e-5),
+                   ("extrapolate_mac_simple_obs", 1e-6),
+                   ("extrapolate_vec3_simple", 1e-6),
+                   ("combine_grid_vel", 0.0)):
+        g_, c_ = g_res[k], c_res[k]
+        g_, c_ = (g_, c_) if isinstance(g_, tuple) else ((g_,), (c_,))
+        e = max(float((a_.cpu() - b_).abs().max()) for a_, b_ in zip(g_, c_))
+        require(e <= tol, f"24^3 {k} card vs CPU: {e} > {tol}")
+        scene_cpu[k] = e
+    ga, ca = g_res["adjust_number"], c_res["adjust_number"]
+    require(torch.equal(ga.pos.cpu(), ca.pos)
+            and torch.equal(ga.flags.cpu(), ca.flags)
+            and int(ga.count) == int(ca.count),
+            "24^3 adjust_number card vs CPU: particles differ")
+    scene_cpu["adjust_number"] = 0.0
+    scene_numbers["card_vs_cpu_24"] = scene_cpu
+    print("24^3 scene functions card vs CPU: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in scene_cpu.items()), flush=True)
+    del c_st, g_st, c_res, g_res, ga, ca
+
     flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
                   "obstacle_128": b_launches, "flip_zshard_128": z_launches,
                   "flat_128": flat_launches, "apic_128": apic_launches}
@@ -2146,7 +2610,7 @@ def main():
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": max(k1_bound_bytes, k1_bound_ops),
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops
-         else "operations", "library_ms": None, "call_ms": k1_call_ms,
+         else "operations", **k1_library, "call_ms": k1_call_ms,
          "timed_by": k1_timed_by},
         # K1's 2D instances (k3d = false), on the 2D plume's passes
         {"name": "window_advect_2d", "route": "cuda",
@@ -2158,13 +2622,28 @@ def main():
          "max_abs_err": k1_2d_err, "ms": k1_2d_ms,
          "plain_ms": k1_2d_plain_ms, "bound_ms": max(k1_2d_bound),
          "bound_by": "bytes" if k1_2d_bound[0] >= k1_2d_bound[1]
-         else "operations", "library_ms": None, "call_ms": k1_2d_call_ms,
+         else "operations", **k1_2d_library, "call_ms": k1_2d_call_ms,
          "timed_by": k1_2d_timed_by, "instances": k1_2d_names},
+        # K1's z-slab instances (kSlab = true), on the z-sharded smoke's
+        # passes: one launch per shard and pass
+        {"name": "window_advect_zshard", "route": "cuda",
+         "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
+         "replaces": "mantaflow_tpu/ops/advection_pallas.py:284",
+         "replaces_call": "mantaflow_tpu/ops/advection_pallas.py:530",
+         "launches": smoke_paths["smoke_zshard_128"]["window_advect_zshard"],
+         "launches_by_path": {k: v["window_advect_zshard"]
+                              for k, v in smoke_paths.items()},
+         "max_abs_err": k1z_err, "ms": k1z_ms, "plain_ms": k1z_plain_ms,
+         "bound_ms": max(k1z_bound),
+         "bound_by": "bytes" if k1z_bound[0] >= k1z_bound[1]
+         else "operations", **k1z_library, "call_ms": k1z_call_ms,
+         "timed_by": k1z_timed_by, "instances": k1z_names},
         {"name": "cg_solve", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/cg_solve.cu",
          "replaces": "mantaflow_tpu/ops/pressure_pallas.py:88",
          "launches": sum(v["cg_solve"] for v in smoke_paths.values())
-         + sum(v["cg_solve"] for v in flip_paths.values()),
+         + sum(v["cg_solve"] for v in flip_paths.values())
+         + d2_launches["cg_solve"],
          "max_abs_err": max(k2_err, errs["cg_solve"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": max(k2_bound_bytes, k2_bound_ops),
@@ -2174,7 +2653,8 @@ def main():
          "launches_by_path": {**{k: v["cg_solve"]
                                  for k, v in smoke_paths.items()},
                               **{k: v["cg_solve"]
-                                 for k, v in flip_paths.items()}},
+                                 for k, v in flip_paths.items()},
+                              "flat_2d": d2_launches["cg_solve"]},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
          "iteration_floor": k2_iter_floor,
          "bench_dam_solve": fk["cg_solve_bench"],
@@ -2213,6 +2693,15 @@ def main():
         if kind == "extrap_layer":
             entry["flat_path"] = fk["extrap_layer_flat"]
         kernels.append(entry)
+    # the layer kernel's 2D instance, on the 2D flat dam's layers
+    kernels.append({
+        "name": "extrap_layer_2d", "route": "cuda",
+        "source": "mantaflow_tpu_torch/csrc/extrap_layer.cu",
+        "replaces": "mantaflow_tpu/ops/extrapolation_pallas.py:45",
+        "launches": d2_launches["extrap_layer"],
+        "launches_by_path": {"flat_2d": d2_launches["extrap_layer"]},
+        "max_abs_err": errs["extrap_layer_2d"], "library_ms": None,
+        **fk["extrap_layer_2d"]})
     # the z-slab kernels: the slab rebin, K9, and the z-slab forms of K3
     # and K10, each its own __global__ function or template instance (in
     # the one-domain kernel's source for the slab rebin, K3 and K10)
@@ -2238,7 +2727,8 @@ def main():
         "flip_128": flip_numbers, "flip01_128": a_numbers,
         "obstacle_128": b_numbers, "flip_zshard_128": zshard_numbers,
         "flat_128": flat_numbers, "apic_128": apic_numbers,
-        **new_numbers, "build_s": build_s,
+        **new_numbers, "flat_2d": d2_numbers,
+        "scene_functions": scene_numbers, "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

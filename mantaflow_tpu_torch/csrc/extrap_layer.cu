@@ -22,6 +22,11 @@
 // never read. The arithmetic is the plain version's, in its order (built
 // with -fmad=false), so the two agree exactly.
 //
+// The 2D instance (k3d = false) takes the four in-plane neighbours (x+1,
+// x-1, y+1, y-1) and no z interior test, on (1, sy, sx) grids, for 1, 2 or 3
+// pairs: the JAX package runs 2D in its XLA layer loops
+// (extrapolation.py:_nb_avg), whose update rule it is.
+//
 // Layout: contiguous float32 (sz, sy, sx) grids, x fastest.
 
 #include <cuda_runtime.h>
@@ -41,6 +46,7 @@ struct LayerArgs {
   int update_values;
 };
 
+template <bool k3d>
 __global__ void __launch_bounds__(kThreads) extrap_layer_kernel(LayerArgs a) {
   const long long n = static_cast<long long>(a.sx) * a.sy * a.sz;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads +
@@ -58,13 +64,13 @@ __global__ void __launch_bounds__(kThreads) extrap_layer_kernel(LayerArgs a) {
   const float m = M[i];
   const float v = V[i];
   const bool inter = x >= 1 && x <= a.sx - 2 && y >= 1 && y <= a.sy - 2 &&
-                     z >= 1 && z <= a.sz - 2;
+                     (!k3d || (z >= 1 && z <= a.sz - 2));
   float om = m, ov = v;
   if (inter && static_cast<int>(m) == 0) {
     const long long nb[6] = {i + 1, i - 1, i + a.sx, i - a.sx, i + sxy,
                              i - sxy};
     float acc = 0.f, nbs = 0.f;
-    for (int k = 0; k < 6; ++k) {
+    for (int k = 0; k < (k3d ? 6 : 4); ++k) {
       const float hit = static_cast<int>(M[nb[k]]) == a.d ? 1.f : 0.f;
       acc = acc + hit * V[nb[k]];
       nbs = nbs + hit;
@@ -82,12 +88,13 @@ __global__ void __launch_bounds__(kThreads) extrap_layer_kernel(LayerArgs a) {
 
 }  // namespace
 
-// m/v/om/ov: arrays of n_pairs device pointers each.
+// m/v/om/ov: arrays of n_pairs device pointers each; is3d = 0 runs the 2D
+// instance on (1, sy, sx) grids.
 extern "C" int extrap_layer_launch(const float* const* m,
                                    const float* const* v, float* const* om,
                                    float* const* ov, int n_pairs, int sx,
                                    int sy, int sz, int d, float direction,
-                                   int update_values, int device,
+                                   int update_values, int is3d, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -108,7 +115,13 @@ extern "C" int extrap_layer_launch(const float* const* m,
   const long long n = static_cast<long long>(sx) * sy * sz;
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
                   n_pairs);
-  extrap_layer_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (!is3d && sz != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is3d) {
+    extrap_layer_kernel<true><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    extrap_layer_kernel<false><<<grid, kThreads, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

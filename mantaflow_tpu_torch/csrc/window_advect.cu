@@ -14,6 +14,16 @@
 //
 // Layout: every grid is a contiguous float32 (sz, sy, sx) array, x fastest.
 // ok (optional) and have are one byte per cell (torch.bool).
+//
+// The z-slab instance (kSlab) replaces the same TPU kernel as it is called by
+// advection_pallas.py:window_pass_zshard (_window_pass_dyn_call with z_base,
+// prehalo=True and sz_clamp): one z-slab of a z-sharded grid. Its positions
+// and outputs hold the slab's own sz planes; src (and ok) arrive with k+1
+// halo planes on each side (sz + 2(k+1) planes). A cell at slab plane z has
+// global plane z_base + z, and the window clamps against the global extent
+// sz_clamp, so its corner planes are read at slab plane z + (k+1) + base.
+// The arithmetic is the one-domain instance's, in its order: a slab's output
+// equals the one-domain output on its planes bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -38,7 +48,7 @@ __device__ __forceinline__ void rel_base_frac(float pos, int coord, int n,
   frac = rel - static_cast<float>(base);
 }
 
-template <bool kMinMax, bool kWithOk, bool k3d>
+template <bool kMinMax, bool kWithOk, bool k3d, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 window_advect_kernel(const float* __restrict__ src,
                      const float* __restrict__ px,
@@ -47,7 +57,7 @@ window_advect_kernel(const float* __restrict__ src,
                      const unsigned char* __restrict__ ok,
                      float* __restrict__ out, float* __restrict__ minv,
                      float* __restrict__ maxv, unsigned char* __restrict__ have,
-                     int sx, int sy, int sz, int k) {
+                     int sx, int sy, int sz, int k, int z_base, int sz_clamp) {
   const long long n = static_cast<long long>(sx) * sy * sz;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
@@ -61,11 +71,20 @@ window_advect_kernel(const float* __restrict__ src,
   float fx, fy, fz = 0.0f;
   rel_base_frac(px[idx], x, sx, k, bx, fx);
   rel_base_frac(py[idx], y, sy, k, by, fy);
-  if (k3d) rel_base_frac(pz[idx], z, sz, k, bz, fz);
+  if (k3d) {
+    if (kSlab) {
+      rel_base_frac(pz[idx], z_base + z, sz_clamp, k, bz, fz);
+    } else {
+      rel_base_frac(pz[idx], z, sz, k, bz, fz);
+    }
+  }
+  // the plane of src (and ok) that holds this cell's plane: past the halo
+  // in the slab form
+  const int zsrc = kSlab ? z + k + 1 : z;
 
   const long long sxy = static_cast<long long>(sx) * sy;
-  const long long c0 = (static_cast<long long>(z + bz) * sy + (y + by)) * sx
-                       + (x + bx);
+  const long long c0 = (static_cast<long long>(zsrc + bz) * sy + (y + by))
+                       * sx + (x + bx);
   const float wz[2] = {k3d ? 1.0f - fz : 1.0f, fz};
   const float wy[2] = {1.0f - fy, fy};
   const float wx[2] = {1.0f - fx, fx};
@@ -100,43 +119,59 @@ window_advect_kernel(const float* __restrict__ src,
 }
 
 template <bool kMinMax, bool kWithOk>
-void launch3(bool is3d, dim3 grid, cudaStream_t stream, const float* src,
-             const float* px, const float* py, const float* pz,
-             const unsigned char* ok, float* out, float* minv, float* maxv,
-             unsigned char* have, int sx, int sy, int sz, int k) {
-  if (is3d) {
-    window_advect_kernel<kMinMax, kWithOk, true><<<grid, kThreads, 0, stream>>>(
-        src, px, py, pz, ok, out, minv, maxv, have, sx, sy, sz, k);
+void launch3(bool is3d, bool slab, dim3 grid, cudaStream_t stream,
+             const float* src, const float* px, const float* py,
+             const float* pz, const unsigned char* ok, float* out, float* minv,
+             float* maxv, unsigned char* have, int sx, int sy, int sz, int k,
+             int z_base, int sz_clamp) {
+  if (slab) {
+    window_advect_kernel<kMinMax, kWithOk, true, true>
+        <<<grid, kThreads, 0, stream>>>(src, px, py, pz, ok, out, minv, maxv,
+                                        have, sx, sy, sz, k, z_base, sz_clamp);
+  } else if (is3d) {
+    window_advect_kernel<kMinMax, kWithOk, true, false>
+        <<<grid, kThreads, 0, stream>>>(src, px, py, pz, ok, out, minv, maxv,
+                                        have, sx, sy, sz, k, z_base, sz_clamp);
   } else {
-    window_advect_kernel<kMinMax, kWithOk, false><<<grid, kThreads, 0, stream>>>(
-        src, px, py, pz, ok, out, minv, maxv, have, sx, sy, sz, k);
+    window_advect_kernel<kMinMax, kWithOk, false, false>
+        <<<grid, kThreads, 0, stream>>>(src, px, py, pz, ok, out, minv, maxv,
+                                        have, sx, sy, sz, k, z_base, sz_clamp);
   }
 }
 
 }  // namespace
 
+// sz: the planes of px/py/pz and of the outputs. slab = 0: one domain, src
+// and ok of sz planes too (z_base and sz_clamp unused). slab = 1: a z-slab at
+// global plane z_base of a 3D grid sz_clamp planes deep, src and ok of
+// sz + 2(k+1) planes.
 extern "C" int window_advect_launch(const float* src, const float* px,
                                     const float* py, const float* pz,
                                     const unsigned char* ok, float* out,
                                     float* minv, float* maxv,
                                     unsigned char* have, int sx, int sy,
-                                    int sz, int k, int want_minmax,
-                                    int device, void* stream) {
+                                    int sz, int k, int want_minmax, int slab,
+                                    int z_base, int sz_clamp, int device,
+                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (slab && (z_base < 0 || z_base + sz > sz_clamp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long n = static_cast<long long>(sx) * sy * sz;
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  const bool is3d = sz > 1;
+  const bool is3d = slab || sz > 1;
+  const bool sl = slab != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!want_minmax) {
-    launch3<false, false>(is3d, grid, s, src, px, py, pz, ok, out, minv, maxv,
-                          have, sx, sy, sz, k);
+    launch3<false, false>(is3d, sl, grid, s, src, px, py, pz, ok, out, minv,
+                          maxv, have, sx, sy, sz, k, z_base, sz_clamp);
   } else if (ok == nullptr) {
-    launch3<true, false>(is3d, grid, s, src, px, py, pz, ok, out, minv, maxv,
-                         have, sx, sy, sz, k);
+    launch3<true, false>(is3d, sl, grid, s, src, px, py, pz, ok, out, minv,
+                         maxv, have, sx, sy, sz, k, z_base, sz_clamp);
   } else {
-    launch3<true, true>(is3d, grid, s, src, px, py, pz, ok, out, minv, maxv,
-                        have, sx, sy, sz, k);
+    launch3<true, true>(is3d, sl, grid, s, src, px, py, pz, ok, out, minv,
+                        maxv, have, sx, sy, sz, k, z_base, sz_clamp);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,11 +29,13 @@ SOURCES = ("window_advect", "cg_solve", "extrap_layer", "rebin",
            "flip_blend", "rebin_zshard", "rebin_fused")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# the FLIP kernels keep their plain versions' rounding: no a*b+c contracted
-# into one fused multiply-add
+# the FLIP kernels and the window advection keep their plain versions'
+# rounding: no a*b+c contracted into one fused multiply-add (the window
+# advection's z-slab instance equals its one-domain instance bit for bit
+# whatever the compiler makes of either)
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
-               ("extrap_layer", "advect_bucket", "p2g_levelset", "p2g_mac",
-                "union_levelset", "flip_blend")}
+               ("window_advect", "extrap_layer", "advect_bucket",
+                "p2g_levelset", "p2g_mac", "union_levelset", "flip_blend")}
 
 # the shared memory one block may opt in to on an H100 (227 KB); the launch
 # plans of the kernels that stage in shared memory fit within it

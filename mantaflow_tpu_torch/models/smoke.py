@@ -6,7 +6,8 @@ scenes/simpleplume.py, plume_2d.py), in every configuration its
 three branches: the window passes through the CUDA window kernel
 (``window > 0``, with or without ``use_pallas``: ``ops/advection_kernels.py``,
 ``ops/advection_fast.py``) or the exact gathers (``window == 0``,
-``ops/advection.py``). The pressure solve goes to the CUDA CG kernel
+``ops/advection.py``); the window passes of the first may run over z-slabs
+(``zshard``). The pressure solve goes to the CUDA CG kernel
 (PcNone, PcMIC) or to multigrid V-cycles and a CG tail (PcMGStatic,
 PcMGDynamic: ``ops/multigrid.py``). On the CPU the kernels run their plain
 PyTorch versions. The window and PcNone/PcMIC steps read nothing back to the
@@ -112,11 +113,21 @@ def make_smoke_state(dom: Domain, params: SmokeParams, source_shape=None,
     )
 
 
-def smoke_step(state: SmokeState, dom: Domain,
-               params: SmokeParams) -> SmokeState:
+def smoke_step(state: SmokeState, dom: Domain, params: SmokeParams,
+               zshard=None) -> SmokeState:
     """One simulation step, following mantaflow_tpu/models/smoke.py:105-176
     (the reference scene loops, scenes/simpleplume.py:40-55,
-    plume_2d.py:34-53)."""
+    plume_2d.py:34-53).
+
+    ``zshard`` (a ``parallel.sharding.ZMesh``) runs the advection's window
+    passes over the mesh's z-slabs (``advection_kernels.window_pass_zshard``:
+    one launch of the window kernel's z-slab form per shard); the rest of the
+    step stays whole on the lead, as the z-sharded FLIP step's grids do. It
+    needs the Pallas window path (``window > 0``, ``use_pallas``, 3D)."""
+    if zshard is not None and not (params.window > 0 and params.use_pallas
+                                   and dom.is3d):
+        raise ValueError("zshard needs window > 0, use_pallas and a 3D "
+                         "domain")
     flags, vel, density = state.flags, state.vel, state.density
     ts = state.ts
 
@@ -132,10 +143,12 @@ def smoke_step(state: SmokeState, dom: Domain,
     order = params.advection_order
     if params.window > 0 and params.use_pallas and dom.is3d:
         density = advk.advect_real_pl(flags, vel, density, dt, dom,
-                                      params.window, order=order)
+                                      params.window, order=order,
+                                      zshard=zshard)
         vel = advk.advect_mac_pl(flags, vel, vel, dt, dom, params.window,
                                  order=order, strength=params.mac_strength,
-                                 has_outflow=bool(params.open_bound))
+                                 has_outflow=bool(params.open_bound),
+                                 zshard=zshard)
     elif params.window > 0:
         density = advf.advect_real_fast(flags, vel, density, dt, dom,
                                         params.window, order=order)

@@ -18,8 +18,17 @@ MacCormackClamp clampMode=2 path EXCEPT:
 - corner bases use floor instead of C truncation (differs only for
   out-of-grid negative positions, which border clamping masks).
 
-The drivers, every pass of which goes through ``window_pass``: the JAX
-package's ``advection_fast.py`` ``advect_real_fast`` / ``advect_mac_fast``
+``window_pass_zshard`` is the port of ``advection_pallas.py:
+window_pass_zshard`` (the z-sharded smoke step's form): the grids cut into
+the z-slabs of a ``parallel.sharding.ZMesh``, each slab's source haloed by
+k+1 planes, one launch of the kernel's z-slab instance per shard
+(``window_pass_slab``; on a CPU tensor its plain version
+``window_slab_plain``).
+
+The semi-Lagrangian / MacCormack functions, every pass of which goes
+through ``window_pass`` (or with ``zshard`` through
+``window_pass_zshard``): the JAX package's
+``advection_fast.py`` ``advect_real_fast`` / ``advect_mac_fast``
 (re-exported by ``ops/advection_fast.py``) and ``advection_pallas.py``'s
 ``advect_real_pl`` / ``advect_mac_pl``. ``advect_mac_fast`` always applies
 the outflow boundary condition, as the JAX package's does;
@@ -37,6 +46,7 @@ from ..core import mac as macops
 from ..core.domain import Domain
 from ..core.masks import interior_mask, shift
 from ..kernels import _build
+from ..parallel import sharding as shd
 from .advection import (_BIG, _axis_coord, _cell_centers,
                         _maccormack_correct, _maccormack_correct_mac,
                         apply_outflow_bc)
@@ -58,42 +68,27 @@ def _rel_weights(pos, coord, n: int, k: int):
     return base, frac
 
 
-def window_interp(src, pos_x, pos_y, pos_z, dom: Domain, k: int,
-                  ok_mask=None, want_minmax: bool = False):
-    """Trilinear interpolation by window select. Optionally returns
-    (value, minv, maxv, have) over corners passing ok_mask (for the
-    MacCormack clamp, doClampComponent mode-2 corner set)."""
-    sz, sy, sx = dom.shape
-    dev = src.device
-    cx = torch.arange(sx, dtype=torch.float32, device=dev).reshape(1, 1, sx)
-    cy = torch.arange(sy, dtype=torch.float32, device=dev).reshape(1, sy, 1)
-    cz = torch.arange(sz, dtype=torch.float32, device=dev).reshape(sz, 1, 1)
-    nx, fx = _rel_weights(pos_x, cx, sx, k)
-    ny, fy = _rel_weights(pos_y, cy, sy, k)
-    if dom.is3d:
-        nz, fz = _rel_weights(pos_z, cz, sz, k)
-        z_offsets = range(-k, k + 2)
-    else:
-        z_offsets = [0]
-
-    out = torch.zeros(dom.shape, dtype=torch.float32, device=dev)
+def _window_select(planes, nx, fx, ny, fy, nz, fz, shape, k: int,
+                   want_minmax: bool):
+    """The window select of ``window_interp`` over the (source, mask)
+    planes that ``planes(oz)`` gives at each z offset (``nz`` None: 2D, the
+    offset 0 alone)."""
+    dev = nx.device
+    out = torch.zeros(shape, dtype=torch.float32, device=dev)
     if want_minmax:
-        minv = torch.full(dom.shape, _BIG, device=dev)
-        maxv = torch.full(dom.shape, -_BIG, device=dev)
-        have = torch.zeros(dom.shape, dtype=torch.bool, device=dev)
+        minv = torch.full(shape, _BIG, device=dev)
+        maxv = torch.full(shape, -_BIG, device=dev)
+        have = torch.zeros(shape, dtype=torch.bool, device=dev)
 
-    for oz in z_offsets:
-        if dom.is3d:
+    for oz in (range(-k, k + 2) if nz is not None else [0]):
+        rz, okz = planes(oz)
+        if nz is not None:
             wz = torch.where(nz == oz, 1.0 - fz,
                              torch.where(nz == oz - 1, fz, 0.0))
             sel_z = (nz == oz) | (nz == oz - 1)
-            rz = shift(src, oz, "z")
-            okz = shift(ok_mask, oz, "z") if ok_mask is not None else None
         else:
             wz = 1.0
             sel_z = True
-            rz = src
-            okz = ok_mask
         for oy in range(-k, k + 2):
             wy = torch.where(ny == oy, 1.0 - fy,
                              torch.where(ny == oy - 1, fy, 0.0))
@@ -101,7 +96,7 @@ def window_interp(src, pos_x, pos_y, pos_z, dom: Domain, k: int,
             ry = shift(rz, oy, "y")
             oky = shift(okz, oy, "y") if okz is not None else None
             # x-inner: value select + (optional) corner min/max
-            acc_x = torch.zeros(dom.shape, dtype=torch.float32, device=dev)
+            acc_x = torch.zeros(shape, dtype=torch.float32, device=dev)
             for ox in range(-k, k + 2):
                 wx = torch.where(nx == ox, 1.0 - fx,
                                  torch.where(nx == ox - 1, fx, 0.0))
@@ -120,41 +115,107 @@ def window_interp(src, pos_x, pos_y, pos_z, dom: Domain, k: int,
     return out
 
 
+def _xy_weights(pos_x, pos_y, sx: int, sy: int, k: int):
+    dev = pos_x.device
+    cx = torch.arange(sx, dtype=torch.float32, device=dev).reshape(1, 1, sx)
+    cy = torch.arange(sy, dtype=torch.float32, device=dev).reshape(1, sy, 1)
+    return _rel_weights(pos_x, cx, sx, k) + _rel_weights(pos_y, cy, sy, k)
 
-_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
-
-def _window_pass_cuda(src, px, py, pz, dom: Domain, k: int, ok_mask,
-                      want_minmax: bool):
-    for name, t in (("src", src), ("px", px), ("py", py), ("pz", pz)):
-        if (t.dtype != torch.float32 or tuple(t.shape) != dom.shape
-                or not t.is_contiguous() or t.device != src.device):
-            raise ValueError(f"window_pass: {name} must be a contiguous "
-                             f"float32 {dom.shape} tensor on {src.device}")
-    if ok_mask is not None and (ok_mask.dtype != torch.bool
-                                or tuple(ok_mask.shape) != dom.shape
-                                or not ok_mask.is_contiguous()
-                                or ok_mask.device != src.device):
-        raise ValueError("window_pass: ok_mask must be a contiguous bool "
-                         f"{dom.shape} tensor on {src.device}")
-    out = torch.empty_like(src)
-    if want_minmax:
-        minv, maxv = torch.empty_like(src), torch.empty_like(src)
-        have = torch.empty(dom.shape, dtype=torch.bool, device=src.device)
+def window_interp(src, pos_x, pos_y, pos_z, dom: Domain, k: int,
+                  ok_mask=None, want_minmax: bool = False):
+    """Trilinear interpolation by window select. Optionally returns
+    (value, minv, maxv, have) over corners passing ok_mask (for the
+    MacCormack clamp, doClampComponent mode-2 corner set)."""
     sz, sy, sx = dom.shape
+    nx, fx, ny, fy = _xy_weights(pos_x, pos_y, sx, sy, k)
+    nz = fz = None
+    if dom.is3d:
+        cz = torch.arange(sz, dtype=torch.float32,
+                          device=src.device).reshape(sz, 1, 1)
+        nz, fz = _rel_weights(pos_z, cz, sz, k)
+
+    def planes(oz):
+        return (shift(src, oz, "z"),
+                shift(ok_mask, oz, "z") if ok_mask is not None else None)
+    return _window_select(planes, nx, fx, ny, fy, nz, fz, dom.shape, k,
+                          want_minmax)
+
+
+def window_slab_plain(src_h, pos_x, pos_y, pos_z, dom: Domain, k: int,
+                      z_base: int, ok_h=None, want_minmax: bool = False):
+    """``window_interp`` of one z-slab of a 3D grid, from the slab alone:
+    the positions hold the slab's ``lz`` planes at global plane ``z_base``,
+    ``src_h`` (and ``ok_h``) the slab with k+1 halo planes on each side. The
+    window clamps against the global extent ``dom.shape[0]``, and the z
+    offsets read the haloed planes (the JAX package's
+    ``_window_pass_dyn_call(..., z_base, prehalo=True, sz_clamp)``). Equal
+    bit for bit to ``window_interp`` of the whole grid on the slab's
+    planes."""
+    sz, sy, sx = dom.shape
+    lz = pos_x.shape[0]
+    halo = k + 1
+    if tuple(src_h.shape) != (lz + 2 * halo, sy, sx):
+        raise ValueError(f"window_slab_plain: src_h of shape "
+                         f"{tuple(src_h.shape)}, want {(lz + 2 * halo, sy, sx)}")
+    nx, fx, ny, fy = _xy_weights(pos_x, pos_y, sx, sy, k)
+    cz = (torch.arange(lz, dtype=torch.float32, device=src_h.device)
+          + float(z_base)).reshape(lz, 1, 1)
+    nz, fz = _rel_weights(pos_z, cz, sz, k)
+
+    def planes(oz):
+        lo = halo + oz
+        return (src_h[lo:lo + lz],
+                ok_h[lo:lo + lz] if ok_h is not None else None)
+    return _window_select(planes, nx, fx, ny, fy, nz, fz, (lz, sy, sx), k,
+                          want_minmax)
+
+
+_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+
+
+def _check_grid(name, t, shape, dtype, dev):
+    if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+            or t.device != dev):
+        kind = str(dtype).removeprefix("torch.")
+        raise ValueError(f"window_pass: {name} must be a contiguous {kind} "
+                         f"{shape} tensor on {dev}")
+
+
+def _window_launch(src, px, py, pz, k: int, ok_mask, want_minmax: bool,
+                   slab, out):
+    """One launch of the window kernel over the cells of ``px``. ``slab``
+    None: one domain; else (z_base, global z extent), and ``src`` and
+    ``ok_mask`` carry k+1 halo planes each side. ``out``: the tensors to
+    write (None: new ones)."""
+    dev = px.device
+    shape = tuple(px.shape)
+    sz, sy, sx = shape
+    src_shape = shape if slab is None else (sz + 2 * (k + 1), sy, sx)
+    _check_grid("src", src, src_shape, torch.float32, dev)
+    for name, t in (("px", px), ("py", py), ("pz", pz)):
+        _check_grid(name, t, shape, torch.float32, dev)
+    if ok_mask is not None:
+        _check_grid("ok_mask", ok_mask, src_shape, torch.bool, dev)
+    if out is None:
+        out = (torch.empty(shape, dtype=torch.float32, device=dev),)
+        if want_minmax:
+            out += (torch.empty(shape, dtype=torch.float32, device=dev),
+                    torch.empty(shape, dtype=torch.float32, device=dev),
+                    torch.empty(shape, dtype=torch.bool, device=dev))
+    elif not want_minmax:
+        out = (out,)
+    for name, t, dtype in zip(("out", "minv", "maxv", "have"), out,
+                              (torch.float32,) * 3 + (torch.bool,)):
+        _check_grid(name, t, shape, dtype, dev)
+    z_base, sz_clamp = slab if slab is not None else (0, sz)
     _build.launcher("window_advect", _ARGS)(
         src.data_ptr(), px.data_ptr(), py.data_ptr(), pz.data_ptr(),
         ok_mask.data_ptr() if ok_mask is not None else None,
-        out.data_ptr(),
-        minv.data_ptr() if want_minmax else None,
-        maxv.data_ptr() if want_minmax else None,
-        have.data_ptr() if want_minmax else None,
-        sx, sy, sz, k, int(want_minmax), src.device.index,
-        torch.cuda.current_stream(src.device).cuda_stream)
-    window_pass.launches += 1
-    if want_minmax:
-        return out, minv, maxv, have
-    return out
+        *(t.data_ptr() for t in out), *(None,) * (4 - len(out)),
+        sx, sy, sz, k, int(want_minmax), int(slab is not None), z_base,
+        sz_clamp, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return out if want_minmax else out[0]
 
 
 def window_pass(src, px, py, pz, dom: Domain, k: int, ok_mask=None,
@@ -170,11 +231,98 @@ def window_pass(src, px, py, pz, dom: Domain, k: int, ok_mask=None,
                              want_minmax=want_minmax)
     if src.device.type != "cuda":
         raise ValueError(f"window_pass: unsupported device {src.device}")
-    return _window_pass_cuda(src, px, py, pz, dom, k, ok_mask, want_minmax)
+    if tuple(px.shape) != dom.shape:
+        raise ValueError(f"window_pass: positions of shape "
+                         f"{tuple(px.shape)} on a {dom.shape} domain")
+    got = _window_launch(src, px, py, pz, k, ok_mask, want_minmax, None, None)
+    window_pass.launches += 1
+    return got
 
 
 window_pass.launches = 0  # kernel launches (CUDA only)
 
+
+def window_pass_slab(src_h, px, py, pz, dom: Domain, k: int, z_base: int,
+                     ok_h=None, want_minmax: bool = False, out=None):
+    """``window_pass`` of one z-slab of the 3D domain ``dom``: the slab's
+    cells are those of ``px`` (its planes at global plane ``z_base``),
+    ``src_h`` and ``ok_h`` hold the slab with k+1 halo planes each side.
+    CUDA tensors run the kernel's z-slab instance, writing into ``out``
+    where it is given (the output tensor, or with ``want_minmax`` the four);
+    CPU tensors run ``window_slab_plain``."""
+    if not dom.is3d:
+        raise ValueError("window_pass_slab needs a 3D domain")
+    lz = px.shape[0]
+    if z_base < 0 or z_base + lz > dom.shape[0]:
+        raise ValueError(f"window_pass_slab: planes {z_base}..{z_base + lz}"
+                         f" outside the domain's {dom.shape[0]}")
+    dev = src_h.device
+    if dev.type == "cpu":
+        got = window_slab_plain(src_h, px, py, pz, dom, k, z_base, ok_h,
+                                want_minmax)
+        if out is None:
+            return got
+        for o, g in zip(out if want_minmax else (out,),
+                        got if want_minmax else (got,)):
+            o.copy_(g)
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"window_pass_slab: unsupported device {dev}")
+    got = _window_launch(src_h, px, py, pz, k, ok_h, want_minmax,
+                         (z_base, dom.shape[0]), out)
+    window_pass_slab.launches += 1
+    return got
+
+
+window_pass_slab.launches = 0  # kernel launches (CUDA only)
+
+
+def window_pass_zshard(src, px, py, pz, dom: Domain, k: int, mesh,
+                       ok_mask=None, want_minmax: bool = False):
+    """``window_pass`` over the z-slabs of ``mesh`` (a ``ZMesh``): the port
+    of ``advection_pallas.py:window_pass_zshard`` and its ``_spmd`` wrapper
+    (:530-602). The whole grids on the lead are cut into the shards'
+    slabs, each slab's source and mask take k+1 planes from each neighbour
+    (``halo_z``; past the domain's ends the source takes its end plane and
+    the mask zeros, as :551-563 do), and one ``window_pass_slab`` launch
+    per shard writes the shard's planes of the lead's whole outputs. For a
+    shard on the lead's device the positions and outputs are views of the
+    whole grids, so only the haloed sources are copies."""
+    if not dom.is3d:
+        raise ValueError("window_pass_zshard needs a 3D domain")
+    halo = k + 1
+    lz = mesh.planes(dom.shape[0])
+    if lz < halo:
+        raise ValueError(f"z shard of {lz} planes < halo {halo}")
+    src_h = shd.halo_z(shd.scatter_z(src, mesh, 0), halo, 0, edge=True)
+    ok_h = ([None] * mesh.n if ok_mask is None else
+            shd.halo_z(shd.scatter_z(ok_mask, mesh, 0), halo, 0))
+    pos = [shd.scatter_z(p, mesh, 0) for p in (px, py, pz)]
+    lead = src.device
+    outs = (torch.empty(dom.shape, dtype=torch.float32, device=lead),)
+    if want_minmax:
+        outs += (torch.empty_like(outs[0]), torch.empty_like(outs[0]),
+                 torch.empty(dom.shape, dtype=torch.bool, device=lead))
+    for i in range(mesh.n):
+        views = tuple(o.narrow(0, i * lz, lz) for o in outs)
+        args = (src_h[i], pos[0][i], pos[1][i], pos[2][i], dom, k, i * lz,
+                ok_h[i], want_minmax)
+        if mesh.device(i) == lead:
+            window_pass_slab(*args, views if want_minmax else views[0])
+        else:  # a shard on another card: its slab copied to the lead
+            got = window_pass_slab(*args)
+            for v, g in zip(views, got if want_minmax else (got,)):
+                v.copy_(g)
+    return outs if want_minmax else outs[0]
+
+
+def _wp(zshard):
+    """The window pass of an advection function: the one-domain kernel, or
+    with a ``ZMesh`` its z-slab form over the mesh's shards."""
+    if zshard is None:
+        return window_pass
+    return lambda src, px, py, pz, dom, k, **kw: window_pass_zshard(
+        src, px, py, pz, dom, k, zshard, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -193,17 +341,19 @@ def _trace_centered_fast(vel, dt, dom: Domain):
 
 
 def advect_real_fast(flags, vel, grid, dt, dom: Domain, k: int,
-                     order: int = 2, strength: float = 1.0):
-    """Order-1/2 scalar advection (clampMode=2) on the window path."""
+                     order: int = 2, strength: float = 1.0, zshard=None):
+    """Order-1/2 scalar advection (clampMode=2) on the window path; with
+    ``zshard`` (a ``ZMesh``) every pass over the mesh's z-slabs."""
+    wp = _wp(zshard)
     inter = interior_mask(dom, 1, grid.device)
     (px, py, pz), (bx, by, bz) = _trace_centered_fast(vel, dt, dom)
     if order == 1:
-        return torch.where(inter, window_pass(grid, px, py, pz, dom, k), 0.0)
+        return torch.where(inter, wp(grid, px, py, pz, dom, k), 0.0)
     ok = (flags & (fl.TypeFluid | fl.TypeEmpty)) != 0
-    fwd, minv, maxv, have = window_pass(grid, px, py, pz, dom, k,
-                                         ok_mask=ok, want_minmax=True)
+    fwd, minv, maxv, have = wp(grid, px, py, pz, dom, k, ok_mask=ok,
+                               want_minmax=True)
     fwd = torch.where(inter, fwd, 0.0)
-    bwd = torch.where(inter, window_pass(fwd, bx, by, bz, dom, k), 0.0)
+    bwd = torch.where(inter, wp(fwd, bx, by, bz, dom, k), 0.0)
     new = _maccormack_correct(flags, grid, fwd, bwd, strength)
     out_of = (new < minv) | (new > maxv) | ~have
     return torch.where(inter, torch.where(out_of, fwd, new), new)
@@ -223,18 +373,18 @@ def _face_traces(vel, dt, dom: Domain):
 
 
 def _sl_mac_fast(src, positions, inter, dom: Domain, k: int,
-                 want_minmax: bool):
+                 want_minmax: bool, zshard=None):
     """Per-component MAC semi-Lagrange on the window path
     (SemiLagrangeMAC orderTrace=1 semantics) at each component's
     ``positions``; zero outside ``inter``. Returns (dst, [(min, max)])."""
+    wp = _wp(zshard)
     comps, mms = [], []
     for c, (px, py, pz) in enumerate(positions):
         if want_minmax:
-            v, mn, mx, _ = window_pass(src[c], px, py, pz, dom, k,
-                                        want_minmax=True)
+            v, mn, mx, _ = wp(src[c], px, py, pz, dom, k, want_minmax=True)
             mms.append((mn, mx))
         else:
-            v = window_pass(src[c], px, py, pz, dom, k)
+            v = wp(src[c], px, py, pz, dom, k)
         comps.append(v)
     if not dom.is3d:
         comps.append(torch.zeros_like(comps[0]))
@@ -242,17 +392,18 @@ def _sl_mac_fast(src, positions, inter, dom: Domain, k: int,
 
 
 def _advect_mac_window(flags, vel, grid, dt, dom: Domain, k: int, order: int,
-                       strength: float, has_outflow: bool):
+                       strength: float, has_outflow: bool, zshard=None):
     dev = grid.device
     inter = interior_mask(dom, 1, dev)
     traces = _face_traces(vel, dt, dom)
     fwd_pos = [t[0] for t in traces]
     if order == 1:
-        fwd, _ = _sl_mac_fast(grid, fwd_pos, inter, dom, k, False)
+        fwd, _ = _sl_mac_fast(grid, fwd_pos, inter, dom, k, False, zshard)
         return apply_outflow_bc(flags, fwd, grid, dt, dom) \
             if has_outflow else fwd
-    fwd, mms = _sl_mac_fast(grid, fwd_pos, inter, dom, k, True)
-    bwd, _ = _sl_mac_fast(fwd, [t[1] for t in traces], inter, dom, k, False)
+    fwd, mms = _sl_mac_fast(grid, fwd_pos, inter, dom, k, True, zshard)
+    bwd, _ = _sl_mac_fast(fwd, [t[1] for t in traces], inter, dom, k, False,
+                          zshard)
     new = _maccormack_correct_mac(flags, grid, fwd, bwd, strength, dom)
     # clamp (doClampComponentMAC mode 2: min/max over the fwd corners, then
     # the front check at the face's two adjacent cells)
@@ -277,16 +428,19 @@ def advect_mac_fast(flags, vel, grid, dt, dom: Domain, k: int,
 
 
 def advect_real_pl(flags, vel, grid, dt, dom: Domain, k: int,
-                   order: int = 2, strength: float = 1.0):
-    """Order-1/2 scalar advection (clampMode=2) through the window kernel."""
-    return advect_real_fast(flags, vel, grid, dt, dom, k, order, strength)
+                   order: int = 2, strength: float = 1.0, zshard=None):
+    """Order-1/2 scalar advection (clampMode=2) through the window kernel;
+    ``zshard`` (a ``ZMesh``) routes every pass through its z-slab form over
+    the mesh's shards (advection_pallas.py:_wp)."""
+    return advect_real_fast(flags, vel, grid, dt, dom, k, order, strength,
+                            zshard)
 
 
 def advect_mac_pl(flags, vel, grid, dt, dom: Domain, k: int,
                   order: int = 2, strength: float = 1.0,
-                  has_outflow: bool = True):
+                  has_outflow: bool = True, zshard=None):
     """Order-1/2 MAC self-advection (clampMode=2) through the window kernel;
     has_outflow=False skips the convective outflow extrapolation for domains
-    with no outflow cells."""
+    with no outflow cells; ``zshard`` as in ``advect_real_pl``."""
     return _advect_mac_window(flags, vel, grid, dt, dom, k, order, strength,
-                              has_outflow)
+                              has_outflow, zshard)

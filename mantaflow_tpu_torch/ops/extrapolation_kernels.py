@@ -1,12 +1,14 @@
 """BFS extrapolation layers through the hand-written CUDA kernel.
 
 ``extrap_layer`` is the port of ``mantaflow_tpu/ops/extrapolation_pallas.py:
-_extrap_layer_kernel``: one BFS layer for 1 or 3 (marker, value) float32
-grid pairs, in one launch (``csrc/extrap_layer.cu``). On a CPU tensor it
-runs the plain PyTorch version, ``extrap_layer_plain``. The loops
-``extrap_layers`` and ``extrap_ls_layers`` follow ``extrap_layers_pallas``
-and ``extrap_ls_layers_pallas`` (extrapolation_pallas.py:127-169): the MAC
-extrapolations run all three components per launch, the levelset
+_extrap_layer_kernel``: one BFS layer for 1, 2 or 3 (marker, value) float32
+grid pairs, in one launch (``csrc/extrap_layer.cu``), 3D or 2D (the kernel's
+2D instance: four neighbours; the JAX package runs 2D in its XLA layer loops,
+``extrapolation.py:_nb_avg``). On a CPU tensor it runs the plain PyTorch
+version, ``extrap_layer_plain``. The loops ``extrap_layers`` and
+``extrap_ls_layers`` follow ``extrap_layers_pallas`` and
+``extrap_ls_layers_pallas`` (extrapolation_pallas.py:127-169): the MAC
+extrapolations run all their components per launch, the levelset
 extrapolation a marker-only first layer and then value layers with the
 direction offset.
 """
@@ -29,12 +31,14 @@ def extrap_layer_plain(ms, vs, dom: Domain, d: int, direction: float = 0.0,
     neighbour whose marker truncates to d take the neighbours' mean plus
     ``direction`` (when ``update_values``) and marker d+1."""
     inter = interior_mask(dom, 1, ms[0].device)
+    dirs = [("x", 1), ("x", -1), ("y", 1), ("y", -1)]
+    if dom.is3d:
+        dirs += [("z", 1), ("z", -1)]
     out_m, out_v = [], []
     for m, v in zip(ms, vs):
         acc = torch.zeros_like(v)
         nbs = torch.zeros_like(v)
-        for ax, dd in (("x", 1), ("x", -1), ("y", 1), ("y", -1), ("z", 1),
-                       ("z", -1)):
+        for ax, dd in dirs:
             hit = (shift(m, dd, ax).to(torch.int32) == d).to(torch.float32)
             acc = acc + hit * shift(v, dd, ax)
             nbs = nbs + hit
@@ -46,7 +50,7 @@ def extrap_layer_plain(ms, vs, dom: Domain, d: int, direction: float = 0.0,
 
 
 _ARGS = ((ctypes.POINTER(ctypes.c_void_p),) * 4 + (ctypes.c_int,) * 5
-         + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+         + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 
 
 def _extrap_layer_cuda(ms, vs, dom: Domain, d: int, direction: float,
@@ -67,7 +71,7 @@ def _extrap_layer_cuda(ms, vs, dom: Domain, d: int, direction: float,
     sz, sy, sx = dom.shape
     _build.launcher("extrap_layer", _ARGS)(
         ptrs(ms), ptrs(vs), ptrs(out_m), ptrs(out_v), n, sx, sy, sz, int(d),
-        float(direction), int(update_values), dev.index,
+        float(direction), int(update_values), int(dom.is3d), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     extrap_layer.launches += 1
     return out_m, out_v
@@ -75,13 +79,12 @@ def _extrap_layer_cuda(ms, vs, dom: Domain, d: int, direction: float,
 
 def extrap_layer(ms, vs, dom: Domain, d: int, direction: float = 0.0,
                  update_values: bool = True):
-    """One BFS layer for the (marker, value) pairs ``zip(ms, vs)`` (1 or 3
-    pairs, 3D); returns (markers, values). CUDA tensors run the kernel, CPU
-    tensors ``extrap_layer_plain``."""
-    if len(ms) not in (1, 3) or len(vs) != len(ms):
-        raise ValueError("extrap_layer takes 1 or 3 (marker, value) pairs")
-    if not dom.is3d:
-        raise ValueError("extrap_layer needs a 3D domain")
+    """One BFS layer for the (marker, value) pairs ``zip(ms, vs)`` (1, 2 or
+    3 pairs, 3D or 2D); returns (markers, values). CUDA tensors run the
+    kernel, CPU tensors ``extrap_layer_plain``."""
+    if len(ms) not in (1, 2, 3) or len(vs) != len(ms):
+        raise ValueError("extrap_layer takes 1, 2 or 3 (marker, value) "
+                         "pairs")
     dev = ms[0].device
     if dev.type == "cpu":
         return extrap_layer_plain(ms, vs, dom, d, direction, update_values)
@@ -94,7 +97,7 @@ extrap_layer.launches = 0  # kernel launches (CUDA only)
 
 
 def extrap_layers(vcomps, mcomps, dom: Domain, d_start: int, n_layers: int):
-    """Advance the three (marker, value) pairs ``n_layers`` layers from layer
+    """Advance the (marker, value) pairs ``n_layers`` layers from layer
     ``d_start``; returns (values, markers)."""
     for d in range(d_start, d_start + n_layers):
         mcomps, vcomps = extrap_layer(mcomps, vcomps, dom, d)

@@ -17,10 +17,12 @@ Covered: mapPartsToMAC (:637), mapPartsToGrid[Vec3] (:682), mapGridToParts
 (:166), unionParticleLevelset (:356), setPartType (ptsplugins.cpp:62),
 addForcePvel/eulerStep/updateVelocityFromDeltaPos (ptsplugins.cpp:26-59),
 markIsolatedFluidCell (grid.cpp:988-1011), getLaplacian/getCurvature
-(commonkernels.h; the surface tension's curvature). Not ported yet
-(ROADMAP.md): the functions only the scene API calls,
-averagedParticleLevelset, improvedParticleLevelset, combineGridVel and
-adjustNumber.
+(commonkernels.h; the surface tension's curvature), and the functions the
+scene API calls: averagedParticleLevelset (:367-477),
+improvedParticleLevelset (:503-581, with the reference's Cardano eigenvalue
+solver and its smoothing passes), combineGridVel (:748-773) and
+adjustNumber (:204-271, its seeds drawn on the host from the reference's
+``RandomStream(9832)``, bit for bit).
 """
 
 from __future__ import annotations
@@ -28,15 +30,17 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..core import flags as fl
 from ..core.domain import Domain
 from ..core.interp import (_axis_weights, _base_and_weights, build_mac_pack,
-                           interpol_fast, interpol_mac_fast,
+                           interpol, interpol_fast, interpol_mac_fast,
                            interpol_mac_packed, scatter_rows2)
 from ..core.masks import axis_index, interior_mask, shift
-from ..core.particles import Particles, pos_columns
+from ..core.particles import PDELETE, PNEW, Particles, pos_columns
+from ..utils.mtrand import RandomStream
 
 VECTOR_EPSILON = 1e-6
 
@@ -373,6 +377,320 @@ def union_particle_levelset(parts: Particles, flags, dom: Domain,
         phi = phi_flat.reshape(dom.shape)
     # phi.setBound(0.5, 0): outermost layer
     return torch.where(interior_mask(dom, 1, device), phi, 0.5)
+
+
+def _div(a, d: float):
+    """``a / d`` by true division: PyTorch's CUDA division by a Python
+    scalar multiplies by the reciprocal."""
+    return a / torch.tensor(d, dtype=torch.float32, device=a.device)
+
+
+def _averaged_positions(parts: Particles, dom: Domain, radius: float, ptype,
+                        exclude: int):
+    """The Zhu-Bridson kernel sums of averagedParticleLevelset
+    (flip.cpp:367-440): per cell the weight sum and the weighted position
+    sum over the particles within ``int(radius) + 1`` cells, scattered one
+    window offset after another. Returns (have, pavg), pavg (n, 3)."""
+    r = int(1.0 * radius) + 1
+    sradius_inv = 1.0 / (4.0 * radius * radius)
+    sz, sy, sx = dom.shape
+    n = dom.num_cells
+    dev = parts.pos.device
+    active = _active(parts, ptype, exclude)
+    wacc = torch.zeros((n,), dtype=torch.float32, device=dev)
+    pacc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    pos = parts.pos
+    pi, pj, pk = (pos[:, c].to(torch.int32) for c in range(3))
+    for dz in (range(-r, r + 1) if dom.is3d else [0]):
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                ci, cj, ck = pi + dx, pj + dy, pk + dz
+                ok = active & (ci >= 0) & (ci < sx) & (cj >= 0) & (cj < sy)
+                if dom.is3d:
+                    ok &= (ck >= 0) & (ck < sz)
+                cik = torch.clamp(ci, 0, sx - 1)
+                cjk = torch.clamp(cj, 0, sy - 1)
+                ckk = (torch.clamp(ck, 0, sz - 1) if dom.is3d
+                       else torch.zeros_like(cik))
+                d2 = ((cik.to(torch.float32) + 0.5 - pos[:, 0]) ** 2
+                      + (cjk.to(torch.float32) + 0.5 - pos[:, 1]) ** 2)
+                if dom.is3d:
+                    d2 = d2 + (ckk.to(torch.float32) + 0.5 - pos[:, 2]) ** 2
+                w = torch.where(ok, torch.clamp(1.0 - d2 * sradius_inv,
+                                                min=0.0), 0.0)
+                flat = ((ckk * sy + cjk) * sx + cik).to(torch.int64)
+                wacc.index_add_(0, flat, w)
+                pacc.index_add_(0, flat, w[:, None] * pos)
+    return (wacc > VECTOR_EPSILON,
+            pacc / torch.clamp(wacc, min=1e-30)[:, None])
+
+
+def _centre_distance(pavg, dom: Domain):
+    """|cell centre - averaged position| per cell, pavg as (3, z, y, x)."""
+    sz, sy, sx = dom.shape
+    dev = pavg.device
+    gx = (torch.arange(sx, dtype=torch.float32, device=dev) + 0.5
+          ).reshape(1, 1, sx)
+    gy = (torch.arange(sy, dtype=torch.float32, device=dev) + 0.5
+          ).reshape(1, sy, 1)
+    d2 = (gx - pavg[0]) ** 2 + (gy - pavg[1]) ** 2
+    if dom.is3d:
+        gz = (torch.arange(sz, dtype=torch.float32, device=dev) + 0.5
+              ).reshape(sz, 1, 1)
+        d2 = d2 + (gz - pavg[2]) ** 2
+    return torch.sqrt(d2)
+
+
+def averaged_particle_levelset(parts: Particles, flags, dom: Domain,
+                               radius_factor: float = 1.0, smoothen: int = 1,
+                               smoothen_neg: int = 1, ptype=None,
+                               exclude: int = 0):
+    """averagedParticleLevelset (flip.cpp:367-477), Zhu & Bridson style:
+    weighted-average particle position and radius, then smoothing."""
+    radius = 0.5 * _radius_factor(dom, radius_factor)
+    have, pavg = _averaged_positions(parts, dom, radius, ptype, exclude)
+    pavg = pavg.t().reshape((3,) + dom.shape)
+    # racc / wacc == radius: every particle has the one radius
+    phi = torch.where(have.reshape(dom.shape),
+                      _centre_distance(pavg, dom) - radius, radius)
+    return _smooth_postprocess(phi, dom, smoothen, smoothen_neg,
+                               1.0 / (1.0 + 2.0 * dom.dim))
+
+
+def improved_particle_levelset(parts: Particles, flags, dom: Domain,
+                               radius_factor: float = 1.0, smoothen: int = 1,
+                               smoothen_neg: int = 1, t_low: float = 0.4,
+                               t_high: float = 3.5, ptype=None,
+                               exclude: int = 0):
+    """improvedParticleLevelset (flip.cpp:503-581, Solenthaler'07): the
+    averaged particle levelset with a radius correction from the largest
+    eigenvalue of the jacobian of the averaged positions
+    (``_max_eigenvalue_3x3``, the reference's Cardano solver)."""
+    radius = 0.5 * _radius_factor(dom, radius_factor)
+    have, pavg = _averaged_positions(parts, dom, radius, ptype, exclude)
+    return _corrected_levelset(have, pavg, dom, radius, smoothen,
+                               smoothen_neg, t_low, t_high)
+
+
+def _corrected_levelset(have, pavg, dom: Domain, radius: float,
+                        smoothen: int, smoothen_neg: int, t_low: float,
+                        t_high: float):
+    """improvedParticleLevelset from the kernel sums (``have``, ``pavg`` of
+    ``_averaged_positions``): the radius correction and the smoothing. The
+    largest eigenvalue jumps where the cubic's discriminant changes sign
+    (the complex pair reported as 0), so sums that differ in their last bits
+    can move a cell's levelset by up to a radius there."""
+    pavg = pavg.t().reshape((3,) + dom.shape)
+
+    # jacobian of the averaged positions (correctLevelset, flip.cpp:503-538)
+    def d1(a, ax):
+        return 0.5 * (shift(a, 1, ax) - shift(a, -1, ax))
+    zero = torch.zeros(dom.shape, dtype=torch.float32, device=pavg.device)
+    jac = torch.stack([torch.stack([
+        d1(pavg[row], "xyz"[col]) if (dom.is3d or col < 2) else zero
+        for col in range(3)], dim=-1) for row in range(3)], dim=-2)
+    max_ev = _max_eigenvalue_3x3(jac)
+
+    t = _div(t_high - max_ev, t_high - t_low)
+    corr = torch.where(max_ev >= t_low, t ** 3 - 3 * t ** 2 + 3 * t, 1.0)
+    corr = torch.clamp(corr, 0.0, 1.0)
+    corrected = torch.clamp(_centre_distance(pavg, dom) - radius * corr,
+                            max=radius)
+    phi = torch.where(have.reshape(dom.shape), corrected, radius)
+    return _smooth_postprocess(phi, dom, smoothen, smoothen_neg,
+                               1.0 / (7.0 if dom.is3d else 5.0))
+
+
+def _cbrt(x):
+    """The real cube root, negative operands included (computed in float64
+    and rounded once)."""
+    xd = x.double()
+    return (torch.sign(xd) * xd.abs().pow(1.0 / 3.0)).to(x.dtype)
+
+
+def _max_eigenvalue_3x3(jac):
+    """Matrix3x3::eigenvalues (util/matrixbase.h:184) by Cardano, over the
+    trailing (..., 3, 3). As the reference: when the characteristic cubic
+    has one real root (h > 0) the complex pair is reported as 0, so the
+    maximum is max(real root, 0)."""
+    v = jac.to(torch.float32)
+    v00, v01, v02 = v[..., 0, 0], v[..., 0, 1], v[..., 0, 2]
+    v10, v11, v12 = v[..., 1, 0], v[..., 1, 1], v[..., 1, 2]
+    v20, v21, v22 = v[..., 2, 0], v[..., 2, 1], v[..., 2, 2]
+    b = -v00 - v11 - v22
+    c = v00 * (v11 + v22) + v11 * v22 - v12 * v21 - v01 * v10 - v02 * v20
+    d = (-v00 * (v11 * v22 - v12 * v21) - v20 * (v01 * v12 - v11 * v02)
+         - v10 * (v02 * v21 - v22 * v01))
+    f = _div(3.0 * c - b * b, 3.0)
+    g = _div(2.0 * b ** 3 - 9.0 * b * c + 27.0 * d, 27.0)
+    h = g * g / 4.0 + _div(f ** 3, 27.0)
+
+    # h > 0: one real root
+    sqrt_h = torch.sqrt(torch.clamp(h, min=0.0))
+    e_single = _cbrt(-g / 2.0 + sqrt_h) + _cbrt(-g / 2.0 - sqrt_h) \
+        - _div(b, 3.0)
+    max_pos = torch.clamp(e_single, min=0.0)  # complex pair reported as 0
+
+    # h <= 0: three real roots (trigonometric form)
+    i_ = torch.sqrt(torch.clamp(g * g / 4.0 - h, min=1e-30))
+    j_ = _cbrt(i_)
+    k_ = torch.arccos(torch.clamp(-g / (2.0 * i_), -1.0, 1.0))
+    m_ = torch.cos(_div(k_, 3.0))
+    n_ = math.sqrt(3.0) * torch.sin(_div(k_, 3.0))
+    p_ = _div(-b, 3.0)
+    e0 = 2.0 * j_ * m_ + p_
+    e1 = -j_ * (m_ + n_) + p_
+    e2 = -j_ * (m_ - n_) + p_
+    max_tri = torch.maximum(e0, torch.maximum(e1, e2))
+    return torch.where(h > 0.0, max_pos, max_tri)
+
+
+def _smooth_grid(phi, dom: Domain, factor: float):
+    """knSmoothGrid (flip.cpp:445-459), bnd=1."""
+    val = _neighbor_sum(phi, dom) * factor
+    return torch.where(interior_mask(dom, 1, phi.device), val, phi)
+
+
+def _smooth_grid_neg(phi, dom: Domain, factor: float):
+    """knSmoothGridNeg (flip.cpp:461-475): the smoothed value only where it
+    lowers phi."""
+    val = _neighbor_sum(phi, dom) * factor
+    return torch.where(interior_mask(dom, 1, phi.device),
+                       torch.where(val < phi, val, phi), phi)
+
+
+def _smooth_postprocess(phi, dom: Domain, smoothen: int, smoothen_neg: int,
+                        factor: float):
+    """The particle levelsets' smoothing loop as the reference runs it
+    (flip.cpp:487-498): each iteration a fresh zero tmp; knSmoothGrid
+    writes tmp's interior and swaps (phi's ring becomes 0, tmp holds the
+    phi before smoothing); knSmoothGridNeg then compares against tmp's
+    current content (that phi after a smooth pass, zeros otherwise) and
+    swaps again (the ring back from tmp). Then setBound(0.5, 0)."""
+    inter = interior_mask(dom, 1, phi.device)
+    for i in range(max(smoothen, smoothen_neg)):
+        tmp = torch.zeros_like(phi)
+        if i < smoothen:
+            val = _neighbor_sum(phi, dom) * factor
+            phi, tmp = torch.where(inter, val, tmp), phi
+        if i < smoothen_neg:
+            val = _neighbor_sum(phi, dom) * factor
+            phi = torch.where(inter, torch.where(val < tmp, val, phi), tmp)
+    return torch.where(inter, phi, 0.5)
+
+
+# ---------------------------------------------------------------------------
+# narrow band, resampling
+
+def combine_grid_vel(vel, weight, combine_vel, dom: Domain, phi=None,
+                     narrow_band: float = 0.0, thresh: float = 0.0):
+    """combineGridVel (flip.cpp:748-773). Returns (vel, combine_vel)."""
+    sz, sy, sx = dom.shape
+    dev = vel.device
+    x = axis_index(dom, "x", dev).to(torch.float32).expand(dom.shape)
+    y = axis_index(dom, "y", dev).to(torch.float32).expand(dom.shape)
+    z = axis_index(dom, "z", dev).to(torch.float32).expand(dom.shape)
+    face_pos = [(x, y + 0.5, z + 0.5), (x + 0.5, y, z + 0.5),
+                (x + 0.5, y + 0.5, z)]
+    new_vel, new_cv = [], []
+    for c in range(3):
+        v, cv = vel[c], combine_vel[c]
+        filled = weight[c] > thresh
+        cv = torch.where(filled, v, cv)
+        v = torch.where(filled, -1.0, 0.0)
+        if phi is not None:
+            p = interpol(phi, *(q.reshape(-1) for q in face_pos[c]))
+            deep = p.reshape(dom.shape) < -narrow_band
+            v = torch.where(deep, 0.0, v)
+            cv = torch.where(deep, combine_vel[c], cv)
+        new_vel.append(v)
+        new_cv.append(cv)
+    return torch.stack(new_vel), torch.stack(new_cv)
+
+
+def adjust_number(parts: Particles, vel, flags, dom: Domain,
+                  min_particles: int, max_particles: int, phi,
+                  radius_factor: float = 1.0, narrow_band: float = -1.0,
+                  exclude=None, seed: int = 9832):
+    """adjustNumber (flip.cpp:204-271) on the fixed-capacity layout: kill
+    the particles out of the band and past ``max_particles`` in a cell
+    (flag bits), reseed the fluid cells under ``min_particles`` into dead
+    slots. The per-cell cull keeps the lowest indices (the reference's scan
+    order, by a stable sort); the seeds are a fresh
+    ``RandomStream(seed)``'s getVec3 draws in FOR_IJK cell order, drawn on
+    the host, so seeded positions equal the reference's bit for bit. Seeds
+    past the free slots are dropped (the reference's vector grows)."""
+    surface_ls = -1.0 * _radius_factor(dom, radius_factor)
+    n = dom.num_cells
+    cap = parts.capacity
+    dev = parts.pos.device
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+
+    alive = parts.active_mask()
+    flat, inb = _cell_of(parts, dom)
+    flat = flat.to(torch.int64)
+    phiv = interpol(phi, parts.pos[:, 0], parts.pos[:, 1], parts.pos[:, 2])
+    kill = ~inb | (phiv > 0.0)
+    if narrow_band > 0.0:
+        kill = kill | (phiv < -narrow_band)
+    at_surface = phiv > surface_ls
+    alive1 = alive & ~kill
+
+    # rank among a cell's survivors, in ascending index order
+    cells_key = torch.where(alive1, flat, n)
+    order = torch.argsort(cells_key, stable=True)
+    sorted_cells = cells_key[order]
+    new_run = torch.ones(cap, dtype=torch.bool, device=dev)
+    new_run[1:] = sorted_cells[1:] != sorted_cells[:-1]
+    run_start = torch.cummax(torch.where(new_run, idx, 0), 0).values
+    rank = torch.empty(cap, dtype=torch.int32, device=dev)
+    rank[order] = idx - run_start
+
+    # the reference kills at `num > maxParticles`, num the survivors so far:
+    # maxParticles + 1 non-surface particles survive per cell
+    alive2 = alive1 & ~(~at_surface & (rank > max_particles))
+    new_flags = torch.where(alive & ~alive2, parts.flags | PDELETE,
+                            parts.flags)
+    cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cnt.index_add_(0, flat, alive2.to(torch.int32))
+
+    # seed cells: fluid, in the band, under min_particles, not excluded
+    phi_flat = phi.reshape(-1)
+    seed_cell = (fl.is_fluid(flags).reshape(-1) & (phi_flat <= surface_ls)
+                 & (cnt < min_particles))
+    if narrow_band > 0.0:
+        seed_cell = seed_cell & (phi_flat >= -narrow_band)
+    if exclude is not None:
+        seed_cell = seed_cell & ~(exclude.reshape(-1) < 0.0)
+
+    # the draws on the host, in FOR_IJK order with the per-cell deficit loop
+    # inner (flip.cpp:239-257)
+    k_def = np.where(seed_cell.cpu().numpy(),
+                     np.maximum(0, min_particles - cnt.cpu().numpy()), 0)
+    cells = np.nonzero(k_def)[0]
+    counts = k_def[cells]
+    total = int(counts.sum())
+    if total == 0:
+        return dataclasses.replace(
+            parts, flags=new_flags,
+            count=torch.tensor(cap, dtype=torch.int32, device=dev))
+    draws = RandomStream(seed).get_vec3s(total)
+    czn, cyn, cxn = np.unravel_index(np.repeat(cells, counts), dom.shape)
+    cand = np.stack([cxn, cyn, czn], axis=1).astype(np.float32) + draws
+    if not dom.is3d:
+        cand[:, 2] = 0.5
+
+    # the seeds into the dead slots, in slot order
+    dead_slots = torch.nonzero(~alive2 | (idx >= parts.count)).reshape(-1)
+    m = min(total, dead_slots.numel())
+    dead_slots = dead_slots[:m]
+    new_pos = parts.pos.clone()
+    new_pos[dead_slots] = torch.tensor(cand[:m], device=dev)
+    new_flags = new_flags.clone()
+    new_flags[dead_slots] = PNEW
+    return dataclasses.replace(
+        parts, pos=new_pos, flags=new_flags,
+        count=torch.tensor(cap, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Z-slab decomposition of the bucketed FLIP state, in one process.
+"""Z-slab decomposition of the bucketed FLIP state and of the smoke step's
+window passes, in one process.
 
 Port of the bucket-state half of ``mantaflow_tpu/parallel/sharding.py``
 (``shard_flip_bucket_state``) and of the halo exchange
@@ -19,6 +20,11 @@ own contiguous ``(P, lz*sy*sx)`` tensors. The grids stay whole on the lead
 ``psum``; the lead hands grid slabs out with ``scatter_z`` and takes slabs
 back with ``gather_z``. Peer or collective copies would replace these four
 functions and nothing else.
+
+The z-sharded smoke step keeps its state whole on the lead too: its window
+passes cut the grids into slabs with ``scatter_z`` (views on one card) and
+halo the sources with ``halo_z(..., edge=True)``
+(``ops/advection_kernels.py:window_pass_zshard``).
 
 A ``ShardedBuckets`` answers ``whole()``, ``cell_counts()`` and
 ``from_whole()`` as ``ops.flip_bucket.Buckets`` does, so that code which
@@ -82,22 +88,27 @@ def make_zmesh(n: int, devices=None) -> ZMesh:
     return ZMesh(n=n, devices=tuple(devs))
 
 
-def halo_z(slabs, h: int, dim: int):
+def halo_z(slabs, h: int, dim: int, edge: bool = False):
     """Each shard's slab extended by ``h`` planes from each neighbour along
-    ``dim``, copied to its device; zeros past the domain's two ends, as
-    ``lax.ppermute`` leaves them (flip_bucket_pallas.py:_halo_z)."""
+    ``dim``, copied to its device. Past the domain's two ends: zeros, as
+    ``lax.ppermute`` leaves them (flip_bucket_pallas.py:_halo_z), or with
+    ``edge`` the end plane repeated (advection_pallas.py:551-556)."""
     n = len(slabs)
     out = []
     for i, s in enumerate(slabs):
         if s.shape[dim] < h:
             raise ValueError(f"halo_z: a slab of {s.shape[dim]} planes "
                              f"cannot give {h}")
-        edge = list(s.shape)
-        edge[dim] = h
+        shape = list(s.shape)
+        shape[dim] = h
+
+        def end(plane):
+            return (s.narrow(dim, plane, 1).expand(shape) if edge
+                    else s.new_zeros(shape))
         lo = (slabs[i - 1].narrow(dim, slabs[i - 1].shape[dim] - h, h)
-              .to(s.device) if i > 0 else s.new_zeros(edge))
+              .to(s.device) if i > 0 else end(0))
         hi = (slabs[i + 1].narrow(dim, 0, h).to(s.device) if i < n - 1
-              else s.new_zeros(edge))
+              else end(s.shape[dim] - 1))
         out.append(torch.cat([lo, s, hi], dim))
     return out
 

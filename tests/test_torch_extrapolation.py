@@ -1,16 +1,22 @@
 """BFS extrapolation of mantaflow_tpu_torch vs mantaflow_tpu.
 
-A walled 16x14x12 domain with a fluid block, random velocities and a
-p2g-like weight grid whose boundary ring keeps raw float weights (the
-float-ring quirk of extrapolateMACFromWeight: a ring weight in [d, d+1)
-counts as a layer-d neighbour). The port's functions run their plain layer
-loops on the CPU and are held against the JAX package's XLA forms. The
-layer kernel's plain version (``extrap_layer_plain``, what the CUDA kernel
-computes) is held, through the kernel route's layer loops, against the same XLA
-forms and against the Pallas layer kernel in interpret mode.
+A walled 16x14x12 domain (and a 16x14 2D one) with a fluid block, an
+obstacle block, random velocities, an obstacle levelset and a p2g-like
+weight grid whose boundary ring keeps raw float weights (the float-ring
+quirk of extrapolateMACFromWeight: a ring weight in [d, d+1) counts as a
+layer-d neighbour). The port's functions run their plain layer loops on the
+CPU and are held against the JAX package's XLA forms. The layer kernel's
+plain version (``extrap_layer_plain``, what the CUDA kernel computes, 2D
+included) is held, through the kernel route's layer loops (``_use_kernel``
+made true, as off the CPU), against the same XLA forms, and in 3D against
+the Pallas layer kernel in interpret mode.
 
 Every update is a mean of the same neighbour values in the same order, so
-results are exact.
+results are exact, but for the obstacle-normal projection of ``phi_obs``
+(``_unproject_normal_comp``): XLA contracts its dot product and its
+subtraction into fused multiply-adds on the CPU, so those values (and what
+the extrapolation copies of them) agree to abs 1e-6, a few float32 ulps
+of the O(1) velocities.
 """
 
 import jax.numpy as jnp
@@ -28,6 +34,7 @@ from mantaflow_tpu_torch.ops import extrapolation as txtr
 from mantaflow_tpu_torch.ops import extrapolation_kernels as txk
 
 SIZE = (16, 14, 12)
+SIZE_2D = (16, 14, 1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,22 +47,51 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def fields():
-    jdom, dom = JDomain(size=SIZE), Domain(size=SIZE)
+def _fields(size, dim):
+    jdom, dom = JDomain(size=size, dim=dim), Domain(size=size, dim=dim)
     rng = np.random.RandomState(5)
     flags = np.array(jfl.init_domain(jdom, 0))
     sz, sy, sx = jdom.shape
     block = np.zeros(jdom.shape, bool)
-    block[1:7, 1:9, 2:8] = True
+    block[slice(1, 7) if dim == 3 else 0, 1:9, 2:8] = True
     flags[block] = jfl.TypeFluid
     vel = rng.randn(3, sz, sy, sx).astype(np.float32)
+    if dim == 2:
+        vel[2] = 0.0
     weight = np.where(rng.rand(3, sz, sy, sx) < 0.3,
                       rng.rand(3, sz, sy, sx) * 3, 0.0).astype(np.float32)
     weight[:, :, :, 0] = np.float32(2.5)   # ring weights in [2, 3)
-    weight[:, 0] = np.float32(1.25)
+    weight[:, :, 0] = np.float32(0.75)     # in (0, 1): int 0, not 0.0
+    if dim == 3:
+        weight[:, 0] = np.float32(1.25)
     phi = (rng.randn(sz, sy, sx) * 2).astype(np.float32)
     return jdom, dom, flags, vel, weight, phi
+
+
+@pytest.fixture(scope="module")
+def fields():
+    return _fields(SIZE, 3)
+
+
+@pytest.fixture(scope="module")
+def fields_2d():
+    return _fields(SIZE_2D, 2)
+
+
+def _obstacle_case(f):
+    """``f``'s flags with an obstacle block beside the fluid, and an
+    obstacle levelset: the distance to a sphere around that block."""
+    jdom = f[0]
+    flags = f[2].copy()
+    sz, sy, sx = jdom.shape
+    z0, z1 = (0, sz) if sz == 1 else (2, 6)
+    flags[z0:z1, 2:8, 9:12] = jfl.TypeObstacle
+    zz, yy, xx = np.meshgrid(np.arange(sz) + 0.5, np.arange(sy) + 0.5,
+                             np.arange(sx) + 0.5, indexing="ij")
+    cz = 0.5 if sz == 1 else 4.0
+    phi_obs = (np.sqrt((xx - 10.5) ** 2 + (yy - 5.0) ** 2 + (zz - cz) ** 2)
+               - 3.0).astype(np.float32)
+    return flags, phi_obs
 
 
 def test_extrapolate_mac_simple_matches_reference(fields):
@@ -147,30 +183,142 @@ def test_layer_plain_matches_pallas_kernel(fields, n_pairs, d, direction,
                                       np.asarray(out[2 * c + 1]))
 
 
+@pytest.mark.parametrize("route", ["plain", "kernel"])
 @pytest.mark.parametrize("which", ["mac_simple", "mac_from_weight",
-                                   "ls_simple"])
-def test_2d_off_cpu_raises_not_ported(which):
-    """A 2D domain off the CPU has no layer kernel: the extrapolations
-    refuse it rather than running the plain loop there."""
-    dom = Domain(size=(8, 6, 1), dim=2)
-    vel = torch.empty((3,) + dom.shape, device="meta")
-    calls = {
-        "mac_simple": lambda: txtr.extrapolate_mac_simple(
-            torch.empty(dom.shape, dtype=torch.int32, device="meta"), vel,
-            dom),
-        "mac_from_weight": lambda: txtr.extrapolate_mac_from_weight(
-            vel, vel, dom),
-        "ls_simple": lambda: txtr.extrapolate_ls_simple(vel[0], dom),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        calls[which]()
+                                   "ls_outside", "ls_inside"])
+def test_2d_extrapolations_match_reference(fields_2d, monkeypatch, route,
+                                           which):
+    """The three extrapolations on a 2D domain, on the CPU's plain loops
+    and on the kernel's route (the layer kernel's 2D instance: two pairs a
+    launch for the MAC components, one for the levelset), against the JAX
+    package's 2D XLA loops, exactly. extrapolateMACFromWeight's ring holds
+    weights in (0, 1), which the kernel's int(marker) == 0 self test would
+    take for 0 where the loop's w == 0.0 does not: they agree because only
+    interior cells update, and those markers are integral."""
+    jdom, dom, flags, vel, weight, phi = fields_2d
+    calls = []
+    if route == "kernel":
+        orig = txk.extrap_layer
+
+        def counted(ms, *a, **k):
+            calls.append(len(ms))
+            return orig(ms, *a, **k)
+        monkeypatch.setattr(txtr, "_use_kernel", lambda t: True)
+        monkeypatch.setattr(txk, "extrap_layer", counted)
+    if which == "mac_simple":
+        ref = (jxtr.extrapolate_mac_simple(jnp.asarray(flags),
+                                           jnp.asarray(vel), jdom, 4),)
+        got = (txtr.extrapolate_mac_simple(torch.tensor(flags),
+                                           torch.tensor(vel), dom, 4),)
+        want = [2] * 4
+    elif which == "mac_from_weight":
+        ref = jxtr.extrapolate_mac_from_weight(jnp.asarray(vel),
+                                               jnp.asarray(weight), jdom, 3)
+        got = txtr.extrapolate_mac_from_weight(torch.tensor(vel),
+                                               torch.tensor(weight), dom, 3)
+        want = [2] * 3
+        inter = interior_mask(dom, 1, "cpu")
+        w = torch.tensor(weight)[:2]
+        marks = torch.where(inter & (w > 0.0), 1.0, torch.where(inter, 0.0, w))
+        assert torch.equal(marks[:, inter], marks[:, inter].round())
+        assert bool(((marks > 0) & (marks < 1)).any())
+    else:
+        inside = which == "ls_inside"
+        ref = (jxtr.extrapolate_ls_simple(jnp.asarray(phi), jdom, 4,
+                                          inside=inside),)
+        got = (txtr.extrapolate_ls_simple(torch.tensor(phi), dom, 4,
+                                          inside=inside),)
+        want = [1] * 4
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert calls == (want if route == "kernel" else [])
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("dim", [3, 2])
+@pytest.mark.parametrize("kw", [dict(into_obs=True), dict(phi_obs=True),
+                                dict(phi_obs=True, into_obs=True)],
+                         ids=["into_obs", "phi_obs", "both"])
+def test_mac_simple_obstacle_options_match_reference(fields, fields_2d,
+                                                     monkeypatch, route, dim,
+                                                     kw):
+    """extrapolate_mac_simple's into_obs (no extrapolation out of obstacle
+    faces) and phi_obs (the obstacle-normal component removed near the
+    obstacle), exactly."""
+    f = fields if dim == 3 else fields_2d
+    jdom, dom, _, vel, _, _ = f
+    flags, phi_obs = _obstacle_case(f)
+    if route == "kernel":
+        monkeypatch.setattr(txtr, "_use_kernel", lambda t: True)
+    jkw, tkw = {}, {}
+    if kw.get("into_obs"):
+        jkw["into_obs"] = tkw["into_obs"] = True
+    if kw.get("phi_obs"):
+        jkw["phi_obs"] = jnp.asarray(phi_obs)
+        tkw["phi_obs"] = torch.tensor(phi_obs)
+    ref = jxtr.extrapolate_mac_simple(jnp.asarray(flags), jnp.asarray(vel),
+                                      jdom, 3, **jkw)
+    got = txtr.extrapolate_mac_simple(torch.tensor(flags), torch.tensor(vel),
+                                      dom, 3, **tkw)
+    if "phi_obs" in tkw:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                                   rtol=0)
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    plain = txtr.extrapolate_mac_simple(torch.tensor(flags),
+                                        torch.tensor(vel), dom, 3)
+    assert not torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("dim", [3, 2])
+@pytest.mark.parametrize("max_dist", [2, 4])
+def test_unproject_normal_comp_matches_reference(fields, fields_2d, dim,
+                                                 max_dist):
+    f = fields if dim == 3 else fields_2d
+    jdom, dom, _, vel, _, _ = f
+    flags, phi_obs = _obstacle_case(f)
+    ref = jxtr._unproject_normal_comp(jnp.asarray(flags), jnp.asarray(vel),
+                                      jnp.asarray(phi_obs), jdom, max_dist)
+    got = txtr._unproject_normal_comp(torch.tensor(flags), torch.tensor(vel),
+                                      torch.tensor(phi_obs), dom, max_dist)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+    assert not torch.equal(got, torch.tensor(vel))
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("dim", [3, 2])
+@pytest.mark.parametrize("inside", [False, True])
+def test_extrapolate_vec3_simple_matches_reference(fields, fields_2d,
+                                                   monkeypatch, route, dim,
+                                                   inside):
+    """extrapolateVec3Simple, all three components in 2D too; on the
+    kernel's route a marker-only first layer, then one three-pair launch a
+    layer."""
+    f = fields if dim == 3 else fields_2d
+    jdom, dom, _, vel, _, phi = f
+    calls = []
+    if route == "kernel":
+        orig = txk.extrap_layer
+
+        def counted(ms, *a, **k):
+            calls.append(len(ms))
+            return orig(ms, *a, **k)
+        monkeypatch.setattr(txtr, "_use_kernel", lambda t: True)
+        monkeypatch.setattr(txk, "extrap_layer", counted)
+    ref = jxtr.extrapolate_vec3_simple(jnp.asarray(vel), jnp.asarray(phi),
+                                       jdom, 4, inside=inside)
+    got = txtr.extrapolate_vec3_simple(torch.tensor(vel), torch.tensor(phi),
+                                       dom, 4, inside=inside)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert not torch.equal(got, torch.tensor(vel))
+    assert calls == ([1, 3, 3, 3] if route == "kernel" else [])
 
 
 def test_unported_options_raise(fields):
-    _, dom, flags, vel, _, phi = fields
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        txtr.extrapolate_mac_simple(torch.tensor(flags), torch.tensor(vel),
-                                    dom, phi_obs=torch.tensor(phi))
-    with pytest.raises(ValueError, match="1 or 3"):
-        txk.extrap_layer([torch.tensor(phi)] * 2, [torch.tensor(phi)] * 2,
-                         dom, 1)
+    """What the layer wrapper does not take: no pair, or more than three."""
+    _, dom, _, _, _, phi = fields
+    for n in (0, 4):
+        with pytest.raises(ValueError, match="1, 2 or 3"):
+            txk.extrap_layer([torch.tensor(phi)] * n,
+                             [torch.tensor(phi)] * n, dom, 1)

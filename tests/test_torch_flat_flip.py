@@ -166,7 +166,7 @@ def test_state_numpy_round_trip(runs, name):
     (dict(ghost_fluid=False), 6)])
 def test_step_runs_through_the_kernel_wrappers(monkeypatch, kw, layers):
     """With the layer kernel's route taken (as on a GPU, where
-    ``_use_kernel`` is true for a 3D grid), a step reaches the extrapolation
+    ``_use_kernel`` is true), a step reaches the extrapolation
     layers and the CG through their kernel wrappers (which run the plain
     versions on CPU tensors): 2 + 4 layers for the velocities, 4 more for
     the levelset with ghost fluid, one solve; and the result is the plain
@@ -183,7 +183,7 @@ def test_step_runs_through_the_kernel_wrappers(monkeypatch, kw, layers):
             calls[_n] += 1
             return _o(*a, **k)
         monkeypatch.setattr(mod, name, counted)
-    monkeypatch.setattr(txtr, "_use_kernel", lambda t, d: True)
+    monkeypatch.setattr(txtr, "_use_kernel", lambda t: True)
     got = tflip.flip_step(st, dom, p)
     assert calls == {"extrap_layer": layers, "cg_solve": 1}
     for k in GRIDS + CHANNELS:

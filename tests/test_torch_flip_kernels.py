@@ -105,6 +105,30 @@ def test_extrap_layer_kernel_matches_plain(cuda, n_pairs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_pairs", [1, 2, 3])
+def test_extrap_layer_2d_kernel_matches_plain(cuda, n_pairs):
+    """The layer kernel's 2D instance (four neighbours, no z test) against
+    its plain version, exactly."""
+    dom = Domain(size=(37, 29, 1), dim=2)
+    rng = np.random.RandomState(1)
+    ms = [torch.tensor(rng.choice([0.0, 0.0, 1.0, 2.0, 2.5, 3.7],
+                                  size=dom.shape).astype(np.float32),
+                       device=cuda) for _ in range(n_pairs)]
+    vs = [torch.tensor(rng.randn(*dom.shape).astype(np.float32), device=cuda)
+          for _ in range(n_pairs)]
+    for d, direction, upd in ((1, 0.0, True), (2, -1.0, True),
+                              (1, -1.0, False), (3, 1.0, True)):
+        before = xk.extrap_layer.launches
+        gm, gv = xk.extrap_layer(ms, vs, dom, d, direction, upd)
+        torch.cuda.synchronize()
+        assert xk.extrap_layer.launches == before + 1
+        rm, rv = xk.extrap_layer_plain(ms, vs, dom, d, direction, upd)
+        for g, r in zip(gm + gv, rm + rv):
+            assert torch.equal(g, r)
+        assert any(not torch.equal(g, m) for g, m in zip(gm, ms))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("ring_only", [True, False])
 @pytest.mark.parametrize("pending", [True, False])

@@ -279,6 +279,102 @@ def test_smoke_steps_on_card_match_cpu(cuda):
     assert int(states[0].ts.count) == 3
 
 
+def _zshard_fixture(device):
+    """tests/test_advection_pallas.py's 32^3 z-shard fixture."""
+    res = 32
+    rng = np.random.RandomState(5)
+    src = rng.rand(res, res, res).astype(np.float32)
+    zz, yy, xx = np.meshgrid(np.arange(res), np.arange(res), np.arange(res),
+                             indexing="ij")
+    disp = np.stack([np.sin(yy * 0.2) * 2.5, np.cos(zz * 0.3) * 2.5,
+                     np.sin(xx * 0.15) * 2.5]).astype(np.float32)
+    pos = [torch.tensor((g + d).astype(np.float32), device=device)
+           for g, d in ((xx, disp[0]), (yy, disp[1]), (zz, disp[2]))]
+    ok = torch.tensor(rng.rand(res, res, res) > 0.3, device=device)
+    return (Domain(size=(res,) * 3), torch.tensor(src, device=device), ok,
+            pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("want_minmax,with_ok",
+                         [(False, False), (True, False), (True, True)])
+def test_window_slab_kernel_matches_plain(cuda, n, want_minmax, with_ok):
+    """The window kernel's z-slab instance, one launch a shard: each slab
+    against its plain version on the slab's own haloed inputs (abs 1e-6,
+    the one-domain instance's bound), the joined slabs against the
+    one-domain kernel bit for bit (the same arithmetic in the same
+    order)."""
+    from mantaflow_tpu_torch.parallel import sharding as shd
+    dom, src, ok, pos = _zshard_fixture(cuda)
+    ok = ok if with_ok else None
+    mesh = shd.make_zmesh(n, devices=[cuda])
+    calls = []
+    slab = advk.window_pass_slab
+
+    def recorded(*a, **k):
+        calls.append((a, k))
+        return slab(*a, **k)
+    recorded.launches = 0
+    before = advk.window_pass.launches
+    advk.window_pass_slab = recorded
+    try:
+        got = advk.window_pass_zshard(src, *pos, dom, K, mesh, ok_mask=ok,
+                                      want_minmax=want_minmax)
+    finally:
+        advk.window_pass_slab = slab
+    torch.cuda.synchronize()
+    # the wrapper counts on its module's name, recorded here
+    assert (advk.window_pass.launches, recorded.launches) == (before, n)
+    one = advk.window_pass(src, *pos, dom, K, ok_mask=ok,
+                           want_minmax=want_minmax)
+    if not want_minmax:
+        got, one = (got,), (one,)
+    for g, r in zip(got, one):
+        assert torch.equal(g, r)
+    for a, k in calls:
+        # the slab's inputs, without the output views it wrote into
+        src_h, px, py, pz, dom_, k_, z_base, ok_h, mm = a[:9]
+        kern = slab(src_h, px, py, pz, dom_, k_, z_base, ok_h, mm)
+        ref = advk.window_slab_plain(src_h, px, py, pz, dom_, k_, z_base,
+                                     ok_h, mm)
+        if not mm:
+            kern, ref = (kern,), (ref,)
+        for g, r in zip(kern, ref):
+            if r.dtype == torch.bool:
+                assert torch.equal(g, r)
+            else:
+                assert float((g - r).abs().max()) < 1e-6
+
+
+@pytest.mark.gpu
+def test_zshard_smoke_steps_on_card(cuda):
+    """Three bench smoke steps at 16^3 over 4 z-slabs of 4 planes (each
+    exactly the halo's k+1) on the card: bit for bit the one-domain steps
+    on the card, and the CPU's to abs 2e-4."""
+    from mantaflow_tpu_torch.parallel import sharding as shd
+    res = 16
+    dom = Domain(size=(res,) * 3)
+    params = smoke.SmokeParams(buoyancy=(0.0, -6e-4, 0.0),
+                               vorticity_confinement=0.1, cg_accuracy=1e-3,
+                               window=3, use_pallas=True, adaptive_dt=True,
+                               cfl=3.0, dt_max=2.0)
+    src = Sphere(center=(res / 2.0, res * 0.1, res / 2.0), radius=res * 0.14)
+    out = {}
+    for name, d, zs in (("card", cuda, shd.make_zmesh(4, devices=[cuda])),
+                        ("one", cuda, None),
+                        ("cpu", "cpu", shd.make_zmesh(4, devices=["cpu"]))):
+        st = smoke.make_smoke_state(dom, params, src, device=d)
+        for _ in range(3):
+            st = smoke.smoke_step(st, dom, params, zshard=zs)
+        out[name] = st
+    for name in ("density", "vel", "pressure"):
+        card = getattr(out["card"], name)
+        assert torch.equal(card, getattr(out["one"], name)), name
+        diff = card.cpu() - getattr(out["cpu"], name)
+        assert float(diff.abs().max()) < 2e-4, name
+
+
 @pytest.mark.parametrize("which", ["window_pass", "cg_solve"])
 def test_wrapper_raises_off_cpu_and_cuda(which):
     """A tensor on another device is refused, not computed on the CPU."""
