@@ -94,7 +94,8 @@ Phases (any failed check raises, and the script exits non-zero):
    with 12 times PcNone's budget), each equal to a PcNone step from the
    same state wherever PcNone converged inside its own budget;
 19. the 2D plume (scenes/plume_2d.py: open "yY" bounds, window 3,
-   MacCormack, PcNone; adaptive dt for the window's CFL bound) at 512^2:
+   MacCormack, PcNone, its Cylinder source; adaptive dt for the window's
+   CFL bound) at 512^2:
    1 warm step, 10 timed, 30 more, 10 timed, 6 passes of the window
    kernel's 2D instance and one CG a step; every window pass and the CG of
    a developed step against their plain versions, and their times;
@@ -122,7 +123,29 @@ Phases (any failed check raises, and the script exits non-zero):
    levelsets, combine_grid_vel, adjust_number) and the extrapolation
    options (extrapolate_mac_simple with phi_obs and into_obs,
    extrapolate_vec3_simple, through the layer kernel) on the developed flat
-   128^3 dam, timed, and at 24^3 on the card against the CPU.
+   128^3 dam, timed, and at 24^3 on the card against the CPU;
+24. scenes/surfaceTension.py's loop at 128^3 (a liquid box, dt 0.25): the
+   parallel redistancing with velocity transport, order-1 levelset
+   advection, the boundary Neumann copy, flags from the levelset, order-2
+   MAC advection, wall BCs, the curvature and the ghost-fluid PcMIC solve
+   with surface tension (K2, full mode), 1 warm step, 10 timed, 30 more,
+   10 timed, 1 K2 and no other kernel a step, then 10 steps under the
+   profiler (device busy, device launches and idle a step); on the
+   developed state the native fast march (the reference's serial heap, on
+   the host) against the card's transport in the band (the test's bounds
+   on the test's basin and drop; on the developed liquid the card's
+   transport and redistancing bit for bit the CPU's), marching cubes on
+   the host (timed, every edge in two triangles), K2 against cg_plain by
+   its residual and timed; 3 steps at 24^3 on the card against the CPU.
+   Cut: the scene's createMesh every step (marching cubes runs once);
+25. scenes/karman.py with dim = 3 at 256x128x128 (inflow x walls and the
+   wall SDF, the obstacle and inflow cylinders along z, fractions,
+   sec_order_bc, PcMIC at 1e-4; K2 on its spill path, more cells a block
+   than it keeps on chip), driven and traced as phase 24, 7 K14 (3 pairs)
+   and 1 K2 a step; K14 and K2 of a developed step against their plain
+   versions and timed (K2's us an iteration); 3 steps at 32x16x16 on the
+   card against the CPU. Cut: the initial y-noise (utils/noise.py is not
+   ported), the flow starts from the constant inflow.
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -157,6 +180,8 @@ FLAT2D_RES = 512  # the 2D flat dam (tests/test_torch_flat_flip.py's 40^2
                   # occupies no card)
 FLIP_CHUNK = 10  # bench.py's n_steps: timed window and runner chunk
 ZSHARDS = 4      # z-slabs of the sharded path
+SURF_RES = 128   # scenes/surfaceTension.py (its 40^3 occupies no card)
+KARMAN_RES = 128  # scenes/karman.py with dim = 3: 2 res x res x res cells
 
 
 def flip_bench_params(flip):
@@ -471,7 +496,10 @@ def main():
     from mantaflow_tpu_torch.core import flags as fl
     from mantaflow_tpu_torch.core import mac as macops
     from mantaflow_tpu_torch.core.domain import Domain
-    from mantaflow_tpu_torch.core.shapes import Sphere
+    from mantaflow_tpu_torch.core.shapes import Box, Cylinder, Sphere
+    from mantaflow_tpu_torch.core import mesh as trimesh
+    from mantaflow_tpu_torch.core.masks import axis_index, shift
+    from mantaflow_tpu_torch import native
     from mantaflow_tpu_torch.kernels import _build
     from mantaflow_tpu_torch.core import particles as cp
     from mantaflow_tpu_torch.models import flip, smoke
@@ -482,13 +510,16 @@ def main():
     from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
     from mantaflow_tpu_torch.ops import flip as fo
     from mantaflow_tpu_torch.ops import flip_bucket as fb
+    from mantaflow_tpu_torch.ops import levelset as lso
     from mantaflow_tpu_torch.ops import levelset_kernels as lsk
+    from mantaflow_tpu_torch.ops import obstacles as obs
     from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
     from mantaflow_tpu_torch.ops import rebin_kernels as rbk
     from mantaflow_tpu_torch.ops import extforces as ext
     from mantaflow_tpu_torch.ops.flip import get_curvature
     from mantaflow_tpu_torch.ops import pressure as prs
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    from mantaflow_tpu_torch.ops import advection as sladv
     from mantaflow_tpu_torch.ops.advection import _cell_centers
     from mantaflow_tpu_torch.ops.advection_fast import window_interp
     from mantaflow_tpu_torch.parallel import sharding as shd
@@ -2187,9 +2218,21 @@ def main():
                                      open_bound="yY", window=K,
                                      adaptive_dt=True, cfl=float(K))
     pdom = Domain(size=(PLUME_RES, PLUME_RES, 1), dim=2)
-    pst = smoke.make_smoke_state(pdom, plume_params, source_shape=Sphere(
-        center=(PLUME_RES * 0.5, PLUME_RES * 0.1, 0.5),
-        radius=PLUME_RES * 0.14), device=dev)
+    # scenes/plume_2d.py:23-24's source: a cylinder along y of half-height
+    # 0.02 res, in 2D a rectangle (a disc of its radius stood in before the
+    # Cylinder was ported)
+    plume_src = Cylinder(center=(PLUME_RES * 0.5, PLUME_RES * 0.1, 0.5),
+                         radius=PLUME_RES * 0.14,
+                         z=(0.0, PLUME_RES * 0.02, 0.0))
+    pst = smoke.make_smoke_state(pdom, plume_params, source_shape=plume_src,
+                                 device=dev)
+    disc_cells = int((Sphere(center=plume_src.center,
+                             radius=plume_src.radius).compute_levelset(
+                                 pdom, dev) <= 0).sum())
+    new_numbers["plume_source_cells"] = {"cylinder": int(pst.source.sum()),
+                                         "disc_of_its_radius": disc_cells}
+    print(f"plume source: {int(pst.source.sum())} cells of the cylinder "
+          f"(the disc that stood in: {disc_cells})", flush=True)
     plume_path = f"plume2d_{PLUME_RES}"
     _, pst = drive_smoke(
         plume_path, plume_params, pdom, pst, [(0, 10), (30, 10)],
@@ -2256,6 +2299,9 @@ def main():
         dom_ = Domain(size=size, dim=3 if size[2] > 1 else 2)
         src = Sphere(center=(size[0] / 2.0, size[1] * 0.1, size[2] / 2.0),
                      radius=size[0] * 0.14)
+        if not dom_.is3d:  # the 2D plume's own source, as in phase 19
+            src = Cylinder(center=src.center, radius=src.radius,
+                           z=(0.0, size[0] * 0.02, 0.0))
         g_, c_ = (smoke.smoke_run(smoke.make_smoke_state(
             dom_, params_, source_shape=src, device=d_), dom_, params_, 3)
             for d_ in (dev, "cpu"))
@@ -2532,14 +2578,14 @@ def main():
                     for t in (r_ if isinstance(r_, tuple) else (r_,))),
                 f"{k}: not finite")
     scene_ms = {k: cuda_ms(torch, f, 1) for k, f in sc_fns.items()}
-    scene_numbers = {"ms_at_128": scene_ms,
+    scene_fn_numbers = {"ms_at_128": scene_ms,
                      "active_after_adjust_number": int(adj_active.sum()),
                      "active_before": int(flat_last.parts.active_mask()
                                           .sum())}
     print(f"scene functions on the developed flat {FLIP_RES}^3 dam (ms): "
           + ", ".join(f"{k} {v:.2f}" for k, v in scene_ms.items())
-          + f"; adjust_number: {scene_numbers['active_before']} -> "
-          f"{scene_numbers['active_after_adjust_number']} active",
+          + f"; adjust_number: {scene_fn_numbers['active_before']} -> "
+          f"{scene_fn_numbers['active_after_adjust_number']} active",
           flush=True)
     del sc_res, sc_fns, adj, flat_last
     # at 24^3 on the card and on the CPU, from one state (3 CPU steps) and
@@ -2589,10 +2635,438 @@ def main():
             and int(ga.count) == int(ca.count),
             "24^3 adjust_number card vs CPU: particles differ")
     scene_cpu["adjust_number"] = 0.0
-    scene_numbers["card_vs_cpu_24"] = scene_cpu
+    scene_fn_numbers["card_vs_cpu_24"] = scene_cpu
     print("24^3 scene functions card vs CPU: " + ", ".join(
         f"{k} {v:.3g}" for k, v in scene_cpu.items()), flush=True)
     del c_st, g_st, c_res, g_res, ga, ca
+
+    # -- 24-25: a levelset liquid and an obstacle flow, scene loops --------
+    scene_kernels = {**flip_kernels, "window_advect": advk.window_pass,
+                     "window_advect_zshard": advk.window_pass_slab}
+    scene_paths = {}  # launches by path
+    scene_numbers = {}
+
+    def drive_scene(name, step, st, per_step):
+        """Drive a scene loop ``step`` (a function of the state dict, whose
+        "it" is the step's CG iterations) from ``st``: 1 warm step, 10
+        timed, 30 more, 10 timed (CUDA events). Every kernel's count is set
+        to 0 just before the warm step and read after the last; the
+        launches per step (``per_step``, every other kernel 0) are checked.
+        Then 10 developed steps under torch.profiler give the device busy
+        ms, the device launches (kernels, copies, fills) and the traced
+        wall per step. Returns the numbers and the last state."""
+        torch.cuda.synchronize()
+        for fn in scene_kernels.values():
+            fn.launches = 0
+        st = step(st)  # warm
+        timed_, n_steps = [], 1
+        for pre in (0, 30):
+            for _ in range(pre):
+                st = step(st)
+            iters = torch.zeros((), dtype=torch.int64, device=dev)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(10):
+                st = step(st)
+                iters += st["it"]
+            t1.record()
+            torch.cuda.synchronize()
+            timed_.append((t0.elapsed_time(t1) / 10, int(iters) / 10))
+            n_steps += pre + 10
+        got = {k: getattr(fn, "launches", 0)
+               for k, fn in scene_kernels.items()}
+        for k, n in got.items():
+            want = per_step.get(k, 0) * n_steps
+            require(n == want, f"{name}: {k} launched {n} times in {n_steps} "
+                    f"steps (expected {want})")
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                require(bool(torch.isfinite(v).all()), f"{name}: {k} not "
+                        "finite")
+        # the traced window: device busy, launches and idle per step
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(10):
+                st = step(st)
+            t1.record()
+            torch.cuda.synchronize()
+        traced_ms = t0.elapsed_time(t1) / 10
+        busy_us, count = 0.0, 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0:
+                busy_us += us
+                count += e.count
+        busy_ms = busy_us / 1e3 / 10
+        require(busy_ms > 0, f"{name}: the trace holds no device time")
+        (cold_ms, cold_it), (dev_ms, dev_it) = timed_
+        numbers = {"ms_per_step_cold": cold_ms, "ms_per_step_developed":
+                   dev_ms, "cg_iters_per_step_cold": cold_it,
+                   "cg_iters_per_step_developed": dev_it,
+                   "steps_run": n_steps, "kernel_launches_per_step": per_step,
+                   "traced_wall_ms_per_step": traced_ms,
+                   "device_busy_ms_per_step": busy_ms,
+                   "device_launches_per_step": count / 10,
+                   "idle_share_traced": 1.0 - busy_ms / traced_ms}
+        print(f"{name}: {n_steps} steps, {cold_ms:.2f} ms/step cold, "
+              f"{dev_ms:.2f} developed, CG {cold_it:.1f} / {dev_it:.1f} "
+              f"it/step; traced: {traced_ms:.2f} ms/step, device busy "
+              f"{busy_ms:.2f} ms, {count / 10:.0f} device launches a step, "
+              f"idle {100 * numbers['idle_share_traced']:.1f} %; kernel "
+              f"launches {dict((k, v) for k, v in got.items() if v)}",
+              flush=True)
+        scene_paths[name] = got
+        scene_numbers[name] = numbers
+        return numbers, st
+
+    def record_scene_step(step, st):
+        """The K2 and K14 calls of one step from ``st``."""
+        calls = {"cg_solve": [], "extrap_layer": []}
+        with recording(prk, "cg_solve", calls["cg_solve"]), \
+                recording(xk, "extrap_layer", calls["extrap_layer"]):
+            step(st)
+        torch.cuda.synchronize()
+        return calls
+
+    def tracked_iterations(rhs, stencil, fluid, dom_, most=10):
+        """How many CG iterations from zero (up to ``most``) the plain
+        float32 CG stays within rel 1e-6 of the float64 CG on this system,
+        and their distance at the first iteration past that: beyond it the
+        system amplifies float32 rounding (a ghost-fluid diagonal grows
+        like 1 / the clamped fraction), so two float32 CGs that sum in
+        another order part there too, and cg_check_by_residual holds K2 to
+        cg_plain over these iterations only."""
+        st64 = tuple(a.double() for a in stencil)
+        tracked, rel = 0, 0.0
+        for n in range(1, most + 1):
+            p32 = prs.cg_plain(rhs, stencil, dom_, 0.0, n, fluid)[0]
+            p64 = prs.cg_plain(rhs.double(), st64, dom_, 0.0, n, fluid)[0]
+            rel = float((p32.double() - p64).abs().max()) / (
+                float(p64.abs().max()) + 1e-300)
+            if rel > 1e-6:
+                break
+            tracked = n
+        require(tracked > 0, f"CG float32 vs float64 at 1 iteration: {rel}")
+        return tracked, rel
+
+    def scene_card_vs_cpu(name, setup, step, dom_, keys):
+        """3 steps on the card and on the CPU from the same setup: flags
+        exact, the grids ``keys`` abs 2e-4."""
+        out = []
+        for d_ in (dev, "cpu"):
+            st = setup(dom_, d_)
+            for _ in range(3):
+                st = step(st, dom_)
+            out.append(st)
+        g_, c_ = out
+        require(torch.equal(g_["flags"].cpu(), c_["flags"]),
+                f"{name} card vs CPU: flags differ")
+        err = max(float((g_[k].cpu() - c_[k]).abs().max()) for k in keys)
+        require(err < 2e-4, f"{name} card vs CPU: grids {err}")
+        print(f"{name} x3 steps, card vs CPU: grids {err:.3g}, CG "
+              f"{int(g_['it'])} / {int(c_['it'])} it", flush=True)
+        return err
+
+    # 24. scenes/surfaceTension.py at SURF_RES^3 (the scene's 40^3 occupies
+    # no card): a liquid box (0.25-0.75) pulled round by surface tension,
+    # dt 0.25; each call mirrors one line of the scene's loop. Cut: the
+    # scene's createMesh every step; marching_cubes runs once, on the
+    # developed state
+    def surface_setup(dom_, d_):
+        n_ = dom_.size[0]
+        phi = Box(p0=(n_ * 0.25,) * 3, p1=(n_ * 0.75,) * 3).compute_levelset(
+            dom_, d_)
+        flags = fl.update_from_levelset(fl.init_domain(dom_, 1, device=d_),
+                                        phi, 1e10)
+        z = torch.zeros(dom_.shape, device=d_)
+        return {"flags": flags, "phi": phi, "vel": torch.zeros(
+            (3,) + dom_.shape, device=d_), "pressure": z,
+            "it": torch.zeros((), dtype=torch.int32, device=d_)}
+
+    def set_bound_neumann(g, dom_, w):
+        """Grid.setBoundNeumann(w): the first interior layer copied into
+        the boundary shells (the JAX package's scene/api.py:306-326)."""
+        for ax, n_ in (("x", dom_.shape[2]), ("y", dom_.shape[1]),
+                       ("z", dom_.shape[0])):
+            idx = axis_index(dom_, ax, g.device)
+            for layer in range(w + 1):
+                g = torch.where(idx == w - layer, shift(g, 1, ax), g)
+                g = torch.where(idx == n_ - 1 - w + layer, shift(g, -1, ax),
+                                g)
+        return g
+
+    def surface_step(st, dom_):
+        flags, phi, vel = st["flags"], st["phi"], st["vel"]
+        phi, vel = lso.reinit_marching(phi, flags, dom_, vel=vel)
+        phi = sladv.advect_real(flags, vel, phi, 0.25, order=1)
+        phi = set_bound_neumann(phi, dom_, 1)
+        flags = fl.update_from_levelset(flags, phi, 1e10)
+        vel = sladv.advect_mac(flags, vel, vel, 0.25, order=2)
+        vel = ext.set_wall_bcs(flags, vel, dom_)
+        curv = get_curvature(phi, dom_)
+        vel, p, _, it, _ = prs.solve_pressure(
+            vel, flags, dom_, 5e-4, phi=phi, curv=curv, surf_tens=0.1,
+            preconditioner=prs.PcMIC)
+        return {"flags": flags, "phi": phi, "vel": vel, "pressure": p,
+                "it": it}
+
+    st_dom = Domain(size=(SURF_RES,) * 3)
+    st0 = surface_setup(st_dom, dev)
+    vol0 = int((st0["phi"] < 0).sum())
+    st_numbers, st_last = drive_scene(
+        f"surface_tension_{SURF_RES}", lambda s: surface_step(s, st_dom),
+        st0, {"cg_solve": 1})
+    del st0
+    vol = int((st_last["phi"] < 0).sum())
+    require(0.5 * vol0 < vol < 2.0 * vol0,
+            f"surface tension: liquid cells {vol0} -> {vol}")
+    require(float(st_last["vel"].abs().max()) > 1e-3,
+            "surface tension: the liquid did not move")
+    st_numbers["liquid_cells"] = [vol0, vol]
+    # the native fast march (the reference's serial heap, on the host)
+    # against the card's data-parallel transport (on the native phi), in
+    # the band. On tests/test_levelset.py:132-166's fixture at SURF_RES^3
+    # (the basin and drop, its sinusoidal velocity): that test's bounds. On
+    # the developed liquid: the card's transport bit for bit its plain
+    # version on the host; its distance from the native march is the
+    # replay's own (it accepts an event whose distance ties the best so
+    # far, so an ulp decides which neighbours weigh in on a curved surface)
+    # and is reported
+    def transport_vs_native(phi_np, flags_np, vel_np):
+        t0 = time.perf_counter()
+        phi_ref, vel_ref = native.reinit_march(phi_np, flags_np,
+                                               vel_np.copy(), max_time=4.0)
+        native_s = time.perf_counter() - t0
+        args = [torch.from_numpy(a) for a in (phi_ref, flags_np, vel_np)]
+        vt = lso.value_transport_mac(*(a.to(dev) for a in args),
+                                     st_dom).cpu().numpy()
+        band = (phi_ref > 0) & (phi_ref <= 4.0)
+        band[[0, -1], :, :] = band[:, [0, -1], :] = False
+        band[:, :, [0, -1]] = False
+        d_ = np.abs(vt - vel_ref)[:, band]
+        return vt, args, {"mean_abs": float(d_.mean()),
+                          "share_over_0.05": float((d_ > 0.05).mean()),
+                          "band_cells": int(band.sum()),
+                          "native_march_s": native_s}
+
+    # what that rests on: PyTorch's CUDA float32 sqrt is not correctly
+    # rounded, ops/levelset.py's float64 root and tensor division are
+    x_ = torch.rand(10_000_000, generator=torch.Generator().manual_seed(0))
+    x_ = x_ * 10
+    sqrt_off = int((torch.sqrt(x_.to(dev)).cpu() != torch.sqrt(x_)).sum())
+    require(all(torch.equal(f(x_.to(dev)).cpu(), f(x_))
+                for f in (lso._sqrt, lso._third)),
+            "levelset's rounding helpers differ between the card and the CPU")
+    st_numbers["cuda_float32_sqrt_off_of_1e7"] = sqrt_off
+    print(f"rounding: PyTorch's CUDA float32 sqrt differs from the CPU's on "
+          f"{sqrt_off} of 10^7 inputs; the levelset's float64 root and "
+          "tensor division are equal", flush=True)
+    del x_
+    n_ = SURF_RES
+    bphi = torch.minimum(
+        Box(p0=(0.0, 0.0, 0.0), p1=(n_, n_ * 0.25, n_)).compute_levelset(
+            st_dom, "cpu"),
+        Sphere(center=(n_ * 0.5, n_ * 0.6, n_ * 0.5),
+               radius=n_ * 0.15).compute_levelset(st_dom, "cpu"))
+    bflags = fl.update_from_levelset(fl.init_domain(st_dom, 1, device="cpu"),
+                                     bphi, 1e10).numpy()
+    t_ = np.arange(n_, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(t_, t_, t_, indexing="ij")
+    bvel = np.stack([np.sin(0.4 * xx) * np.cos(0.3 * yy),
+                     np.cos(0.25 * zz) * np.sin(0.35 * xx),
+                     np.sin(0.3 * yy) * np.cos(0.2 * zz)]).astype(np.float32)
+    _, _, basin = transport_vs_native(bphi.numpy(), bflags, bvel)
+    require(basin["mean_abs"] < 5e-3 and basin["share_over_0.05"] < 0.02,
+            f"transport vs the native march on the basin and drop: {basin}")
+    del bphi, bflags, bvel, zz, yy, xx
+    phi_np = st_last["phi"].cpu().numpy()
+    vt, args, developed = transport_vs_native(
+        phi_np, st_last["flags"].cpu().numpy(),
+        st_last["vel"].cpu().numpy())
+    require(np.array_equal(vt, lso.value_transport_mac(*args,
+                                                       st_dom).numpy()),
+            "surface tension: the card's transport differs from the CPU's")
+    # the card's parallel redistancing against its plain version and,
+    # reported, against the serial march
+    card_phi = lso.reinit(st_last["phi"], st_last["flags"], st_dom).cpu()
+    require(torch.equal(card_phi, lso.reinit(st_last["phi"].cpu(),
+                                             st_last["flags"].cpu(), st_dom)),
+            "surface tension: the card's redistancing differs from the CPU's")
+    near = np.abs(args[0].numpy()) <= 4.0
+    phi_d = np.abs(card_phi.numpy() - args[0].numpy())[near]
+    st_numbers["native_vs_card"] = {
+        "basin_and_drop": basin, "developed": developed,
+        "developed_card_equals_cpu": True,
+        "phi_max_abs_in_band": float(phi_d.max()),
+        "phi_mean_abs_in_band": float(phi_d.mean())}
+    print(f"surface tension: transport on the native march's phi vs its "
+          f"own, in the band: basin and drop {basin}; developed "
+          f"{developed} (the card's transport and redistancing bit for bit "
+          f"the CPU's); card redistancing vs native phi in |phi| <= 4: max "
+          f"{float(phi_d.max()):.3g}, mean {float(phi_d.mean()):.3g}",
+          flush=True)
+    del vt, args, card_phi, near, phi_d
+    # createMesh once: marching cubes on the host, watertight
+    t0 = time.perf_counter()
+    nodes, tris = trimesh.marching_cubes(phi_np)
+    mc_s = time.perf_counter() - t0
+    edges = np.sort(np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]],
+                                    tris[:, [2, 0]]]), axis=1)
+    _, per_edge = np.unique(edges, axis=0, return_counts=True)
+    require(len(tris) > 1000 and (per_edge == 2).all(),
+            f"surface tension mesh: {len(tris)} triangles, edges with "
+            f"{sorted(set(per_edge.tolist()))} triangles")
+    st_numbers["mesh"] = {"nodes": len(nodes), "triangles": len(tris),
+                          "marching_cubes_s": mc_s, "watertight": True}
+    print(f"surface tension mesh: {len(nodes)} nodes, {len(tris)} "
+          f"triangles in {mc_s:.2f} s on the host, every edge in two",
+          flush=True)
+    del phi_np, nodes, tris, edges, per_edge
+    # K2 of a developed step (ghost fluid with surface tension, full mode)
+    # against cg_plain, by its residual: the exit is chaotic at 5e-4
+    sc = record_scene_step(lambda s: surface_step(s, st_dom), st_last)
+    require(len(sc["cg_solve"]) == 1 and not sc["extrap_layer"],
+            "surface tension: kernel calls in a step")
+    (cg_args, cg_kw), = sc["cg_solve"]
+    tracked, drift = tracked_iterations(cg_args[0], cg_args[1],
+                                        cg_kw["fluid"], st_dom)
+    diag = float(cg_args[1][0][cg_kw["fluid"]].max())
+    print(f"surface tension developed system: diagonal up to {diag:.5g}; "
+          f"float32 CG within rel 1e-6 of float64 for {tracked} iterations, "
+          f"{drift:.3g} after", flush=True)
+    st_numbers["cg_float32_tracks_float64_iterations"] = [tracked, drift]
+    st_numbers["cg_diagonal_max"] = diag
+    k2_err = max(k2_err, cg_check_by_residual(
+        cg_args[0], cg_args[1], cg_kw["fluid"], cg_args[3], cg_args[4],
+        st_dom, early=tracked))
+    st_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+    sn = st_dom.num_cells
+    time_kernel("cg_solve_surface", "cg_kernel<false>", sc["cg_solve"],
+                prk.cg_solve, prs.cg_plain, 6 * 4 * sn, st_it * 24 * sn,
+                f"surface tension developed solve, {st_it} it")
+    fk["cg_solve_surface"]["iterations"] = st_it
+    fk["cg_solve_surface"]["us_per_iteration"] = (
+        fk["cg_solve_surface"]["ms"] * 1e3 / max(st_it, 1))
+    del sc, cg_args, cg_kw, st_last
+    st_numbers["card_vs_cpu_24"] = scene_card_vs_cpu(
+        "surface tension 24^3", surface_setup, surface_step,
+        Domain(size=(24,) * 3), ("phi", "vel", "pressure"))
+
+    # 25. scenes/karman.py with its switches set to dim = 3, res =
+    # KARMAN_RES: 2 res x res x res cells, inflow x walls, the obstacle
+    # cylinder (r = 0.2 res) and the inflow cylinder (0.21 res) along z,
+    # sec_order_bc, dt 1. Cut: the initial y-noise (addNoise and
+    # setComponent, karman.py:40-51) needs utils/noise.py, not ported; the
+    # flow starts from the constant inflow
+    KM_VEL = (0.9, 0.0, 0.0)
+
+    def karman_setup(dom_, d_):
+        gs = dom_.size
+        res_ = gs[1]
+        flags = fl.init_domain(dom_, 0, inflow="xX", device=d_)
+        walls = "".join(c for c in "xXyYzZ" if c not in "xX")
+        phi_walls = fl._wall_sdf(dom_, 0, walls, device=d_)
+        center = (gs[0] * 0.25, gs[1] * 0.5, gs[2] * 0.5)
+        axis = (0.0, 0.0, float(gs[2]))
+        phi_obs = torch.minimum(Cylinder(center, res_ * 0.2, axis)
+                                .compute_levelset(dom_, d_), phi_walls)
+        fractions = obs.update_fractions(flags, phi_obs, dom_)
+        flags = obs.set_obstacle_flags(flags, phi_obs, dom_,
+                                       fractions=fractions)
+        flags = fl.fill_grid(flags)
+        vel = torch.zeros((3,) + dom_.shape, device=d_)
+        vel[0] = KM_VEL[0]
+        return {"flags": flags, "phi_obs": phi_obs, "fractions": fractions,
+                "inflow": Cylinder(center, res_ * 0.21, axis), "vel": vel,
+                "density": torch.zeros(dom_.shape, device=d_),
+                "pressure": torch.zeros(dom_.shape, device=d_),
+                "it": torch.zeros((), dtype=torch.int32, device=d_)}
+
+    def karman_step(st, dom_):
+        flags, phi_obs, fr = st["flags"], st["phi_obs"], st["fractions"]
+        density = st["inflow"].apply_to_grid(st["density"], 2.0, dom_)
+        vel = st["vel"]
+        density = sladv.advect_real(flags, vel, density, 1.0, order=2,
+                                    order_space=1)
+        vel = sladv.advect_mac(flags, vel, vel, 1.0, order=2)
+        vel = xtr.extrapolate_mac_simple(flags, vel, dom_, 2, into_obs=True)
+        vel = ext.set_wall_bcs_frac(flags, vel, dom_, phi_obs)
+        vel = ext.set_inflow_bcs(vel, dom_, "xX", KM_VEL)
+        vel, p, _, it, _ = prs.solve_pressure(
+            vel, flags, dom_, 1e-4, fractions=fr, cg_max_iter_fac=5.0,
+            preconditioner=prs.PcMIC)
+        vel = xtr.extrapolate_mac_simple(flags, vel, dom_, 5, into_obs=True)
+        vel = ext.set_wall_bcs_frac(flags, vel, dom_, phi_obs)
+        vel = ext.set_inflow_bcs(vel, dom_, "xX", KM_VEL)
+        return {**st, "density": density, "vel": vel, "pressure": p,
+                "it": it}
+
+    km_dom = Domain(size=(2 * KARMAN_RES, KARMAN_RES, KARMAN_RES))
+    km0 = karman_setup(km_dom, dev)
+    require(bool(fl.is_obstacle(km0["flags"])[1:-1, 1:-1, 1:-1].any())
+            and bool(fl.is_inflow(km0["flags"]).any()),
+            "karman: no obstacle or inflow cells")
+    km_plan = prk.cg_plan(km_dom.shape, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    require(km_plan.overflow > 0, f"karman fits on chip: {km_plan}")
+    km_numbers, km_last = drive_scene(
+        f"karman_3d_{KARMAN_RES}", lambda s: karman_step(s, km_dom), km0,
+        {"cg_solve": 1, "extrap_layer": 2 + 5})
+    del km0
+    require(float(km_last["density"].max()) > 1.0,
+            "karman: no density downstream of the inflow cylinder")
+    wake = km_last["vel"][0, :, KARMAN_RES // 2, KARMAN_RES:]
+    km_numbers["wake_u_mean"] = float(wake.mean())
+    km_numbers["cg_plan"] = dataclasses.asdict(km_plan)
+    print(f"karman 3D: {km_plan.overflow} of "
+          f"{km_plan.onchip + km_plan.overflow} cells per block off chip; "
+          f"wake u {float(wake.mean()):.3f}", flush=True)
+    del wake
+    # K2 (fractions, the spill path) and K14 of a developed step against
+    # their plain versions: the layers exact, K2 by its residual
+    kc = record_scene_step(lambda s: karman_step(s, km_dom), km_last)
+    require(len(kc["cg_solve"]) == 1 and len(kc["extrap_layer"]) == 7,
+            "karman: kernel calls in a step")
+    for args, kwargs in kc["extrap_layer"]:
+        errs["extrap_layer"] = max(errs["extrap_layer"], check_call(
+            "extrap_layer", args, kwargs))
+    (cg_args, cg_kw), = kc["cg_solve"]
+    tracked, drift = tracked_iterations(cg_args[0], cg_args[1],
+                                        cg_kw["fluid"], km_dom)
+    print(f"karman developed system: float32 CG within rel 1e-6 of float64 "
+          f"for {tracked} iterations, {drift:.3g} after", flush=True)
+    km_numbers["cg_float32_tracks_float64_iterations"] = [tracked, drift]
+    k2_err = max(k2_err, cg_check_by_residual(
+        cg_args[0], cg_args[1], cg_kw["fluid"], cg_args[3], cg_args[4],
+        km_dom, early=tracked))
+    km_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+    kn = km_dom.num_cells
+    time_kernel("cg_solve_karman", "cg_kernel<false>", kc["cg_solve"],
+                prk.cg_solve, prs.cg_plain, 6 * 4 * kn, km_it * 24 * kn,
+                f"karman developed solve, {km_it} it, spill path")
+    fk["cg_solve_karman"]["iterations"] = km_it
+    fk["cg_solve_karman"]["us_per_iteration"] = (
+        fk["cg_solve_karman"]["ms"] * 1e3 / max(km_it, 1))
+    fk["cg_solve_karman"]["cells_off_chip_per_block"] = km_plan.overflow
+    layer_calls = kc["extrap_layer"]
+    pairs = sum(len(a[0]) for a, _ in layer_calls) / len(layer_calls)
+    time_kernel("extrap_layer_karman", "extrap_layer_kernel<true>",
+                layer_calls, xk.extrap_layer, xk.extrap_layer_plain,
+                pairs * 16 * kn, pairs * 20 * kn,
+                "karman developed step's layers")
+    print(f"karman 3D developed step, kernels vs plain: extrap_layer "
+          f"{errs['extrap_layer']:.3g}, cg_solve {km_it} it at "
+          f"{fk['cg_solve_karman']['us_per_iteration']:.1f} us/it",
+          flush=True)
+    del kc, layer_calls, cg_args, cg_kw, km_last
+    km_numbers["card_vs_cpu_32x16x16"] = scene_card_vs_cpu(
+        "karman 3D 32x16x16", karman_setup, karman_step,
+        Domain(size=(32, 16, 16)), ("vel", "density", "pressure"))
 
     flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
                   "obstacle_128": b_launches, "flip_zshard_128": z_launches,
@@ -2643,7 +3117,8 @@ def main():
          "replaces": "mantaflow_tpu/ops/pressure_pallas.py:88",
          "launches": sum(v["cg_solve"] for v in smoke_paths.values())
          + sum(v["cg_solve"] for v in flip_paths.values())
-         + d2_launches["cg_solve"],
+         + d2_launches["cg_solve"]
+         + sum(v["cg_solve"] for v in scene_paths.values()),
          "max_abs_err": max(k2_err, errs["cg_solve"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": max(k2_bound_bytes, k2_bound_ops),
@@ -2654,12 +3129,16 @@ def main():
                                  for k, v in smoke_paths.items()},
                               **{k: v["cg_solve"]
                                  for k, v in flip_paths.items()},
-                              "flat_2d": d2_launches["cg_solve"]},
+                              "flat_2d": d2_launches["cg_solve"],
+                              **{k: v["cg_solve"]
+                                 for k, v in scene_paths.items()}},
          "ms_per_iteration": k2_ms / max(k2_it, 1),
          "iteration_floor": k2_iter_floor,
          "bench_dam_solve": fk["cg_solve_bench"],
          "flat_dam_solve": fk["cg_solve_flat"],
-         "plume_2d_solve": fk["cg_solve_plume"]},
+         "plume_2d_solve": fk["cg_solve_plume"],
+         "surface_tension_solve": fk["cg_solve_surface"],
+         "karman_3d_solve": fk["cg_solve_karman"]},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function
@@ -2675,6 +3154,8 @@ def main():
                           "flip_blend": [f"{fbp2}:299"]})
     for kind, (repl, *also) in flip_replaces.items():
         by_path = {k: v[kind] for k, v in flip_paths.items()}
+        if kind == "extrap_layer":
+            by_path.update({k: v[kind] for k, v in scene_paths.items()})
         entry = {
             "name": kind, "route": "cuda",
             "source": f"mantaflow_tpu_torch/csrc/{kind}.cu",
@@ -2692,6 +3173,7 @@ def main():
             entry["poison_checks"] = poison_checks
         if kind == "extrap_layer":
             entry["flat_path"] = fk["extrap_layer_flat"]
+            entry["karman_3d_path"] = fk["extrap_layer_karman"]
         kernels.append(entry)
     # the layer kernel's 2D instance, on the 2D flat dam's layers
     kernels.append({
@@ -2728,7 +3210,8 @@ def main():
         "obstacle_128": b_numbers, "flip_zshard_128": zshard_numbers,
         "flat_128": flat_numbers, "apic_128": apic_numbers,
         **new_numbers, "flat_2d": d2_numbers,
-        "scene_functions": scene_numbers, "build_s": build_s,
+        "scene_functions": scene_fn_numbers, **scene_numbers,
+        "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,3 +54,13 @@ def shift(a, d: int, axis: str):
     if d == 0:
         return a
     return torch.roll(a, -d, dims=_AXIS_OF[axis] - 3)
+
+
+def shift_clamp(a, d: int, axis: str):
+    """shift with edge-clamped (not wrapped) out-of-range entries."""
+    if d == 0:
+        return a
+    ax = _AXIS_OF[axis] - 3  # negative axis: works for (Z,Y,X) and (C,Z,Y,X)
+    n = a.shape[ax]
+    idx = torch.clamp(torch.arange(n, device=a.device) + d, 0, n - 1)
+    return torch.index_select(a, ax % a.dim(), idx)

@@ -1,18 +1,21 @@
-"""Geometric shapes: inside tests and analytic SDFs evaluated on the grid.
+"""Geometric shapes: inside tests, analytic SDFs, grid stamping.
 
-Behavioral port of ``source/shapes.h/.cpp`` for Box (isInside :151, BoxSDF
-:178), the shape of the FLIP dam, and Sphere (:240, SphereSDF :309), the
-shape of the smoke plume's emitter and of the dam's obstacle. The other
-shapes of the JAX package (Cylinder, Slope, mesh shapes) and the grid
-stamping (``apply_to_grid`` and its variants) are not ported yet
-(ROADMAP.md).
+Behavioral port of ``source/shapes.h/.cpp``: Box (isInside :151, BoxSDF
+:178), Sphere (:240, SphereSDF :309), Cylinder (:324, CylinderSDF :369),
+Slope (:422), ApplyShapeToGrid (:42), ApplyShapeToGridSmooth (:51),
+ApplyShapeToMACGrid (:64). Shapes are plain Python config objects; their
+evaluations are elementwise torch expressions over the whole grid, on the
+device of the grid they stamp.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .domain import Domain
+from .flags import is_obstacle
 
 
 def _cell_centers(dom: Domain, device):
@@ -27,12 +30,70 @@ class Shape:
     """Base shape: subclasses implement is_inside(px, py, pz) and
     sdf(px, py, pz) on tensors of positions."""
 
+    def is_inside(self, px, py, pz):
+        return torch.zeros_like(px, dtype=torch.bool)
+
+    def sdf(self, px, py, pz):
+        raise NotImplementedError
+
+    def get_center(self):
+        """Shape::getCenter (shapes.h:41)."""
+        return getattr(self, "center", (0.0, 0.0, 0.0))
+
+    def get_extent(self):
+        """Shape::getExtent (shapes.h:43)."""
+        return (0.0, 0.0, 0.0)
+
+    # -- grid-level helpers -------------------------------------------------
     def inside_grid(self, dom: Domain, device):
         """The inside test at the cell centres: bool [z,y,x]."""
         return self.is_inside(*_cell_centers(dom, device))
 
     def compute_levelset(self, dom: Domain, device):
         return self.sdf(*_cell_centers(dom, device))
+
+    def apply_to_grid(self, grid, value, dom: Domain, respect_flags=None):
+        """Set `value` inside the shape (ApplyShapeToGrid)."""
+        m = self.inside_grid(dom, grid.device)
+        if respect_flags is not None:
+            m = m & ~is_obstacle(respect_flags)
+        if grid.ndim == 4:  # Vec3-style grid (3,z,y,x) with same test per comp
+            return torch.stack([torch.where(m, value[c], grid[c])
+                                for c in range(3)])
+        return torch.where(m, value, grid)
+
+    def apply_to_mac_grid(self, vel, value, dom: Domain, respect_flags=None):
+        """Per-face inside tests (ApplyShapeToMACGrid, shapes.cpp:64-69)."""
+        px, py, pz = _cell_centers(dom, vel.device)
+        masks = [
+            self.is_inside(px - 0.5, py, pz),
+            self.is_inside(px, py - 0.5, pz),
+            self.is_inside(px, py, pz - 0.5),
+        ]
+        if respect_flags is not None:
+            keep = ~is_obstacle(respect_flags)
+            masks = [m & keep for m in masks]
+        return torch.stack([torch.where(masks[c], value[c], vel[c])
+                            for c in range(3)])
+
+    def apply_to_grid_smooth(self, grid, value, dom: Domain, sigma: float = 1.0,
+                             shift: float = 0.0, respect_flags=None):
+        """SDF-feathered stamping (ApplyShapeToGridSmooth)."""
+        p = self.compute_levelset(dom, grid.device) - shift
+        w = torch.where(p < -sigma, 1.0,
+                        torch.where(p < sigma, 0.5 * (1.0 - p / sigma), 0.0))
+        m = w > 0.0
+        if respect_flags is not None:
+            m = m & ~is_obstacle(respect_flags)
+        return torch.where(m, value * w, grid)
+
+
+class NullShape(Shape):
+    def is_inside(self, px, py, pz):
+        return torch.zeros_like(px, dtype=torch.bool)
+
+    def sdf(self, px, py, pz):
+        return torch.full_like(px, 1000.0)
 
 
 class Box(Shape):
@@ -45,6 +106,19 @@ class Box(Shape):
         else:
             raise ValueError("Box: specify either p0,p1 or size,center")
         self.dim = dim
+
+    @property
+    def center(self):
+        return tuple(0.5 * (a + b) for a, b in zip(self.p0, self.p1))
+
+    @center.setter
+    def center(self, c):
+        half = tuple(0.5 * (b - a) for a, b in zip(self.p0, self.p1))
+        self.p0 = tuple(ci - h for ci, h in zip(c, half))
+        self.p1 = tuple(ci + h for ci, h in zip(c, half))
+
+    def get_extent(self):
+        return tuple(b - a for a, b in zip(self.p0, self.p1))
 
     def is_inside(self, px, py, pz):
         m = ((px >= self.p0[0]) & (px <= self.p1[0])
@@ -112,6 +186,9 @@ class Sphere(Shape):
         self.radius = float(radius)
         self.scale = tuple(scale)
 
+    def get_extent(self):
+        return (2.0 * self.radius,) * 3
+
     def _scaled_offset(self, px, py, pz):
         return ((px - self.center[0]) / self.scale[0],
                 (py - self.center[1]) / self.scale[1],
@@ -124,3 +201,65 @@ class Sphere(Shape):
     def sdf(self, px, py, pz):
         dx, dy, dz = self._scaled_offset(px, py, pz)
         return torch.sqrt(dx * dx + dy * dy + dz * dz) - self.radius
+
+
+class Cylinder(Shape):
+    def __init__(self, center, radius, z):
+        self.center = tuple(center)
+        self.radius = float(radius)
+        n = math.sqrt(z[0] ** 2 + z[1] ** 2 + z[2] ** 2)
+        self.maxz = n  # half-height (|z|), as Cylinder ctor normalizes
+        self.zdir = tuple(c / n for c in z) if n > 0 else (0.0, 0.0, 1.0)
+
+    def get_extent(self):
+        e = 2.0 * math.sqrt(self.maxz ** 2 + self.radius ** 2)
+        return (e, e, e)
+
+    def _decompose(self, px, py, pz):
+        dx = px - self.center[0]
+        dy = py - self.center[1]
+        dz = pz - self.center[2]
+        z = dx * self.zdir[0] + dy * self.zdir[1] + dz * self.zdir[2]
+        r2 = dx * dx + dy * dy + dz * dz - z * z
+        return z, torch.sqrt(torch.clamp(r2, min=0.0))
+
+    def is_inside(self, px, py, pz):
+        z, r = self._decompose(px, py, pz)
+        return (torch.abs(z) <= self.maxz) & (r < self.radius)
+
+    def sdf(self, px, py, pz):
+        # CylinderSDF (shapes.cpp:369-385), including its use of |z|
+        z, r = self._decompose(px, py, pz)
+        az = torch.abs(z)
+        in_z = az < self.maxz
+        in_r = r < self.radius
+        body = torch.where(in_r, torch.maximum(r - self.radius,
+                                               az - self.maxz),
+                           r - self.radius)
+        cap = torch.abs(az - self.maxz)
+        edge = torch.sqrt((az - self.maxz) ** 2 + (r - self.radius) ** 2)
+        return torch.where(in_z, body, torch.where(in_r, cap, edge))
+
+
+class Slope(Shape):
+    """Sloped half-space (shapes.cpp:422-447): below the plane through
+    (0, origin, 0) tilted by anglexy (x) and angleyz (z)."""
+
+    def __init__(self, anglexy, angleyz, origin, gs):
+        self.anglexy = float(anglexy)
+        self.angleyz = float(angleyz)
+        self.origin = float(origin)
+        self.gs = tuple(gs)
+
+    def _fy(self, px, pz):
+        return (self.origin - math.tan(self.anglexy) * px
+                - math.tan(self.angleyz) * pz)
+
+    def is_inside(self, px, py, pz):
+        return py <= self._fy(px, pz)
+
+    def sdf(self, px, py, pz):
+        # signed vertical distance scaled to euclidean by the plane normal
+        tx, tz = math.tan(self.anglexy), math.tan(self.angleyz)
+        denom = math.sqrt(1.0 + tx * tx + tz * tz)
+        return (py - self._fy(px, pz)) / denom
