@@ -144,8 +144,32 @@ Phases (any failed check raises, and the script exits non-zero):
    than it keeps on chip), driven and traced as phase 24, 7 K14 (3 pairs)
    and 1 K2 a step; K14 and K2 of a developed step against their plain
    versions and timed (K2's us an iteration); 3 steps at 32x16x16 on the
-   card against the CPU. Cut: the initial y-noise (utils/noise.py is not
-   ported), the flow starts from the constant inflow.
+   card against the CPU. The flow starts from the scene's y-noise
+   (addNoise from the file-loaded tile, setComponent);
+26. scenes/fire.py at 128^3 (open yY bounds, four noise densityInflow calls
+   a step, processBurn, five order-2 exact-gather advections, resetOutflow,
+   fuel-weighted vorticity confinement, two buoyancies, the scene API's
+   PcMIC solve, updateFlame, the scene's adaptive dt), driven and traced as
+   phase 24, 1 K2 a step and no other kernel; K2 of a developed step
+   against its plain version by its residual and timed; 3 steps at 24^3 on
+   the card against the CPU;
+27. scenes/turbulence.py at 256x128x128 (16 sphere obstacles, the
+   generated noise tile, 500 turbulence particles seeded a step with the
+   scene API's persistent stream, RK4 advection, synthesis and deletion in
+   obstacles; the k-epsilon chain with diffusion, inflow BCs, PcMIC with
+   cgMaxIterFac 0.5: K2 on its spill path), driven, traced and checked as
+   phase 26; 3 steps at 32x16x16 on the card against the CPU. Cut: the
+   GUI-only obstacleLevelset + createMesh;
+28. the rest of the breadth ops, each on the card at a stated size (timed)
+   and held against the CPU on the same inputs: the wave equation (40
+   explicit-then-implicit steps at 512^2), the wavelet-turbulence up-res
+   (res 256 in 2D, the xl grid 512x768; held at res 64), PD fluid guiding
+   (the guiding_2d spiral at 128^2, PcMGStatic; held at 64^2), a
+   Correct19 IDP step (idp_apic02_3d's box at 64^3), whitewater
+   (potentials, sampling, update on phase 14's developed 128^3 dam; held
+   on its 48^3 corner), surface turbulence (4 frames on a flat FLIP liquid
+   at 64^3), VIC (a sphere's sheet at 64^3) and interpol4d (40^4 -> 80^4;
+   held 20^4 -> 40^4).
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -182,6 +206,14 @@ FLIP_CHUNK = 10  # bench.py's n_steps: timed window and runner chunk
 ZSHARDS = 4      # z-slabs of the sharded path
 SURF_RES = 128   # scenes/surfaceTension.py (its 40^3 occupies no card)
 KARMAN_RES = 128  # scenes/karman.py with dim = 3: 2 res x res x res cells
+FIRE_RES = 128   # scenes/fire.py (its 52^3 occupies no card)
+KEPS_RES = 256   # scenes/turbulence.py: res x res/2 x res/2 (its res 64)
+WAVES_RES = 512  # tests/ref_scenes/test_1030_waveeq.py's loop (113x127)
+WLT_RES = 256    # scenes/waveletTurbulence.py's res (80), 2D
+GUIDE_RES = 128  # scenes/guiding_2d.py's own size
+IDP_RES = 64     # scenes/idp_apic02_3d.py's box (its res 48)
+ST_RES = 64      # scenes/surfaceTurbulence.py (its res 32)
+VIC_RES = 64     # a sphere's vortex sheet (tests/test_vortex.py's 16^3)
 
 
 def flip_bench_params(flip):
@@ -523,6 +555,19 @@ def main():
     from mantaflow_tpu_torch.ops.advection import _cell_centers
     from mantaflow_tpu_torch.ops.advection_fast import window_interp
     from mantaflow_tpu_torch.parallel import sharding as shd
+    from mantaflow_tpu_torch.core import grid4d as g4
+    from mantaflow_tpu_torch.ops import fire
+    from mantaflow_tpu_torch.ops import guiding as gd
+    from mantaflow_tpu_torch.ops import idp
+    from mantaflow_tpu_torch.ops import initops as ini
+    from mantaflow_tpu_torch.ops import kepsilon as kep
+    from mantaflow_tpu_torch.ops import surfaceturbulence as stb
+    from mantaflow_tpu_torch.ops import turbulence as tur
+    from mantaflow_tpu_torch.ops import vortex as vx
+    from mantaflow_tpu_torch.ops import waves as wav
+    from mantaflow_tpu_torch.ops import whitewater as ww
+    from mantaflow_tpu_torch.utils.mtrand import RandomStream
+    from mantaflow_tpu_torch.utils.noise import WaveletNoiseField
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -2587,6 +2632,9 @@ def main():
           + f"; adjust_number: {scene_fn_numbers['active_before']} -> "
           f"{scene_fn_numbers['active_after_adjust_number']} active",
           flush=True)
+    # the developed dam's grids, for phase 28's whitewater
+    dam_grids = {k: getattr(flat_last, k).cpu() for k in ("flags", "vel",
+                                                          "phi")}
     del sc_res, sc_fns, adj, flat_last
     # at 24^3 on the card and on the CPU, from one state (3 CPU steps) and
     # one averaged levelset (the CPU's): the averaged levelset to abs 1e-5
@@ -2754,9 +2802,17 @@ def main():
         require(tracked > 0, f"CG float32 vs float64 at 1 iteration: {rel}")
         return tracked, rel
 
-    def scene_card_vs_cpu(name, setup, step, dom_, keys):
+    def scene_card_vs_cpu(name, setup, step, dom_, keys, solved=(),
+                          acc=None):
         """3 steps on the card and on the CPU from the same setup: flags
-        exact, the grids ``keys`` abs 2e-4."""
+        exact, the grids ``keys`` abs 2e-4. ``solved``: grids downstream
+        of a pressure solve (at accuracy ``acc``) whose exit the order of
+        the CG's sums moves by more than that; on the CPU alone a
+        float64-accumulated dot moves the k-epsilon channel's velocity by
+        7.9e-4 after 3 steps at equal iterations (its closed box has no
+        Dirichlet cell). Those are held by each device's last solve,
+        max|rhs - A p| over the fluid cells under the accuracy (+1 %), and
+        to 2e-3 x max(1, max|CPU value|)."""
         out = []
         for d_ in (dev, "cpu"):
             st = setup(dom_, d_)
@@ -2768,7 +2824,23 @@ def main():
                 f"{name} card vs CPU: flags differ")
         err = max(float((g_[k].cpu() - c_[k]).abs().max()) for k in keys)
         require(err < 2e-4, f"{name} card vs CPU: grids {err}")
-        print(f"{name} x3 steps, card vs CPU: grids {err:.3g}, CG "
+        msg = ""
+        for k in solved:
+            scale = max(1.0, float(c_[k].abs().max()))
+            e_ = float((g_[k].cpu() - c_[k]).abs().max()) / scale
+            require(e_ < 2e-3, f"{name} card vs CPU: {k} {e_}")
+            msg += f", {k} {e_:.3g} of its scale"
+        if solved:
+            for st in out:
+                stencil = prs.make_laplace_stencil(st["flags"], dom_)
+                r_ = torch.where(fl.is_fluid(st["flags"]), st["rhs"]
+                                 - prs.apply_laplace(st["flags"],
+                                                     st["pressure"],
+                                                     stencil, dom_), 0.0)
+                res = float(r_.abs().max())
+                require(res < 1.01 * acc, f"{name}: residual {res}")
+                msg += f", residual {res:.3g}"
+        print(f"{name} x3 steps, card vs CPU: grids {err:.3g}{msg}, CG "
               f"{int(g_['it'])} / {int(c_['it'])} it", flush=True)
         return err
 
@@ -2960,9 +3032,8 @@ def main():
     # 25. scenes/karman.py with its switches set to dim = 3, res =
     # KARMAN_RES: 2 res x res x res cells, inflow x walls, the obstacle
     # cylinder (r = 0.2 res) and the inflow cylinder (0.21 res) along z,
-    # sec_order_bc, dt 1. Cut: the initial y-noise (addNoise and
-    # setComponent, karman.py:40-51) needs utils/noise.py, not ported; the
-    # flow starts from the constant inflow
+    # sec_order_bc, dt 1; the initial y-noise (addNoise on the testall SDF
+    # and setComponent, karman.py:40-51: posScale 75, clamp +-1, scale 0.1)
     KM_VEL = (0.9, 0.0, 0.0)
 
     def karman_setup(dom_, d_):
@@ -2981,6 +3052,12 @@ def main():
         flags = fl.fill_grid(flags)
         vel = torch.zeros((3,) + dom_.shape, device=d_)
         vel[0] = KM_VEL[0]
+        noise = WaveletNoiseField(dom_, -1, True, device=d_)
+        noise.pos_scale = (75.0, 75.0, 75.0)
+        noise.clamp, noise.clamp_neg, noise.clamp_pos = True, -1.0, 1.0
+        z = torch.zeros(dom_.shape, device=d_)
+        vel[1] = ini.add_noise(flags, z, noise, dom_, sdf=z - 1.0, scale=0.1,
+                               time=0.0)
         return {"flags": flags, "phi_obs": phi_obs, "fractions": fractions,
                 "inflow": Cylinder(center, res_ * 0.21, axis), "vel": vel,
                 "density": torch.zeros(dom_.shape, device=d_),
@@ -3068,6 +3145,778 @@ def main():
         "karman 3D 32x16x16", karman_setup, karman_step,
         Domain(size=(32, 16, 16)), ("vel", "density", "pressure"))
 
+    # -- 26-28: the breadth ops (A13) -------------------------------------
+    class SceneClock:
+        """The scene API's Solver stepping on the host, in Python floats
+        as the scenes run it (mantaflow_tpu/scene/api.py:714-741:
+        FluidSolver::step and adaptTimestep, fluidsolver.cpp:143-204)."""
+
+        def __init__(self, dt, frame_length=1.0, cfl=3.0, dt_min=1e-4,
+                     dt_max=1.0):
+            self.timestep, self.frame_length, self.cfl = dt, frame_length, \
+                cfl
+            self.dt_min, self.dt_max = dt_min, dt_max
+            self.time_total, self.frame, self._tpf = 0.0, 0, 0.0
+            self._lock = False
+
+        def adapt(self, max_vel):
+            if not self._lock:
+                dt = max(min(self.timestep * (
+                    self.cfl / (max_vel * self.timestep + 1e-5)),
+                    self.dt_max), self.dt_min)
+                if self._tpf + dt * 1.05 > self.frame_length:
+                    dt = (self.frame_length - self._tpf) + 1e-4
+                elif (self._tpf + dt + self.dt_min > self.frame_length
+                      or self._tpf + dt * 1.25 > self.frame_length):
+                    dt = (self.frame_length - self._tpf + 1e-4) * 0.5
+                    self._lock = True
+                self.timestep = dt
+
+        def step(self):
+            self._tpf += self.timestep
+            self.time_total += self.timestep
+            if self._tpf + 1e-6 > self.frame_length:
+                self.frame += 1
+                self.time_total = float(self.frame) * self.frame_length
+                self._tpf = 0.0
+                self._lock = False
+
+    def k2_of_scene(name, kind, step, st, dom_):
+        """K2 of one developed step from ``st`` against cg_plain by its
+        residual, and its time (us an iteration), as phases 24-25."""
+        calls = record_scene_step(step, st)
+        require(len(calls["cg_solve"]) == 1 and not calls["extrap_layer"],
+                f"{name}: kernel calls in a step")
+        (cg_args, cg_kw), = calls["cg_solve"]
+        tracked, drift = tracked_iterations(cg_args[0], cg_args[1],
+                                            cg_kw["fluid"], dom_)
+        out = {"cg_float32_tracks_float64_iterations": [tracked, drift]}
+        err = cg_check_by_residual(cg_args[0], cg_args[1], cg_kw["fluid"],
+                                   cg_args[3], cg_args[4], dom_,
+                                   early=tracked)
+        it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+        n_ = dom_.num_cells
+        time_kernel(kind, "cg_kernel<false>", calls["cg_solve"],
+                    prk.cg_solve, prs.cg_plain, 6 * 4 * n_, it * 24 * n_,
+                    f"{name} developed solve, {it} it of {cg_args[4]}")
+        fk[kind]["iterations"] = it
+        fk[kind]["max_iterations"] = cg_args[4]
+        fk[kind]["us_per_iteration"] = fk[kind]["ms"] * 1e3 / max(it, 1)
+        print(f"{name} developed system: float32 CG within rel 1e-6 of "
+              f"float64 for {tracked} iterations; K2 {it} it of "
+              f"{cg_args[4]} at {fk[kind]['us_per_iteration']:.1f} us/it",
+              flush=True)
+        return err, out
+
+    # 26. scenes/fire.py at FIRE_RES^3 (grown from res = 52, nothing else
+    # changed): open yY bounds, four densityInflow calls a step from the
+    # file-loaded noise tile (posScale 45, clamp [0, 1], valOffset 0.75,
+    # timeAnim 0.2), processBurn, five order-2 exact-gather advections,
+    # resetOutflow, fuel-weighted vorticity confinement, two buoyancies,
+    # wall BCs, the scene API's PcMIC solvePressure (K2), updateFlame;
+    # the adaptive dt of frameLength 1.2, cfl 3, timestepMin/Max 0.2/2.0
+    # (one host read of max|vel| a step, as the scene)
+    FIRE_GRAV_D = tuple(g * -0.001 for g in (0.0, -0.0981, 0.0))
+    FIRE_GRAV_H = tuple(g * 0.1 for g in (0.0, -0.0981, 0.0))
+
+    def fire_setup(dom_, d_):
+        res_ = dom_.size[0]
+        flags = fl.fill_grid(fl.init_domain(dom_, 1, device=d_))
+        flags = fl.set_open_bound(flags, dom_, 1, "yY",
+                                  fl.TypeOutflow | fl.TypeEmpty)
+        noise = WaveletNoiseField(dom_, -1, True, device=d_)
+        noise.pos_scale = (45.0, 45.0, 45.0)
+        noise.clamp, noise.clamp_neg, noise.clamp_pos = True, 0.0, 1.0
+        noise.val_scale, noise.val_offset, noise.time_anim = 1.0, 0.75, 0.2
+        st = {k: torch.zeros(dom_.shape, device=d_) for k in
+              ("density", "heat", "fuel", "react", "flame", "pressure")}
+        return {**st, "flags": flags,
+                "vel": torch.zeros((3,) + dom_.shape, device=d_),
+                "it": torch.zeros((), dtype=torch.int32, device=d_),
+                "noise": noise, "clock": SceneClock(1.1, 1.2, 3.0, 0.2, 2.0),
+                "box": Box(center=(res_ * 0.5, res_ * 0.15, res_ * 0.5),
+                           size=(res_ / 8, 0.05 * res_, res_ / 8))}
+
+    def fire_step(st, dom_):
+        flags, vel, clock = st["flags"], st["vel"], st["clock"]
+        clock.adapt(float(torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2
+                                               + vel[2] ** 2))))
+        dt = clock.timestep
+        g = {k: st[k] for k in ("density", "heat", "fuel", "react")}
+        if clock.time_total < 200:
+            t = clock.time_total * dom_.dx
+            for k in g:
+                g[k] = ini.density_inflow(flags, g[k], st["noise"],
+                                          st["box"], dom_, 1.0, 0.5, time=t)
+        g["fuel"], g["density"], g["react"], _, _, _, g["heat"] = \
+            fire.process_burn(g["fuel"], g["density"], g["react"], dt, dom_,
+                              heat=g["heat"])
+        for k in g:
+            g[k] = sladv.advect_real(flags, vel, g[k], dt, order=2)
+        vel = sladv.advect_mac(flags, vel, vel, dt, order=2)
+        flags, _, g["density"] = ext.reset_outflow_grids(flags, dom_,
+                                                         real=g["density"])
+        flame = g["fuel"] * 0.5
+        vel = ext.vorticity_confinement(vel, flags, dom_, 0.1, flame)
+        vel = ext.add_buoyancy(flags, g["density"], vel, FIRE_GRAV_D, dt,
+                               dom_)
+        vel = ext.add_buoyancy(flags, g["heat"], vel, FIRE_GRAV_H, dt, dom_)
+        vel = ext.set_wall_bcs(flags, vel, dom_)
+        vel, p, _, it, _ = prs.solve_pressure(vel, flags, dom_, 1e-3,
+                                              preconditioner=prs.PcMIC)
+        flame = fire.update_flame(g["react"], flame, dom_)
+        clock.step()
+        return {**st, **g, "flags": flags, "vel": vel, "flame": flame,
+                "pressure": p, "it": it}
+
+    fire_dom = Domain(size=(FIRE_RES,) * 3)
+    fire0 = fire_setup(fire_dom, dev)
+    fire_numbers, fire_last = drive_scene(
+        f"fire_3d_{FIRE_RES}", lambda s: fire_step(s, fire_dom), fire0,
+        {"cg_solve": 1})
+    del fire0
+    fire_numbers["dt_last"] = fire_last["clock"].timestep
+    fire_numbers["time_total"] = fire_last["clock"].time_total
+    for k, lo in (("density", 1e-3), ("flame", 0.1), ("fuel", 1e-2)):
+        fire_numbers[f"{k}_max"] = float(fire_last[k].max())
+        require(fire_numbers[f"{k}_max"] > lo, f"fire: {k} max "
+                f"{fire_numbers[f'{k}_max']}")
+    rise = float(fire_last["vel"][1].max())
+    require(rise > 1e-2, f"fire: the plume did not rise ({rise})")
+    print(f"fire 3D: dt {fire_numbers['dt_last']:.4f}, time "
+          f"{fire_numbers['time_total']:.2f}, density max "
+          f"{fire_numbers['density_max']:.3f}, flame max "
+          f"{fire_numbers['flame_max']:.3f}, vel y max {rise:.3f}",
+          flush=True)
+    e, extra = k2_of_scene("fire 3D", "cg_solve_fire",
+                           lambda s: fire_step(s, fire_dom), fire_last,
+                           fire_dom)
+    k2_err = max(k2_err, e)
+    fire_numbers.update(extra)
+    del fire_last
+    fire_numbers["card_vs_cpu_24"] = scene_card_vs_cpu(
+        "fire 3D 24^3", fire_setup, fire_step, Domain(size=(24,) * 3),
+        ("density", "heat", "fuel", "react", "flame", "vel", "pressure"))
+
+    # 27. scenes/turbulence.py at KEPS_RES x KEPS_RES/2 x KEPS_RES/2 (grown
+    # from res = 64): 16 sphere obstacles, the generated noise tile
+    # (NoiseField(), timeAnim 0), 500 turbulence particles seeded a step in
+    # the box with the scene API's persistent RandomStream(34894231)
+    # (scene/vortex_api.py:115-140), RK4 advectInGrid, synthesize
+    # (octaves 1, switchLength 5, L0 0.01, the static ctime/inflow and the
+    # tex resets of vortex_api.py:146-176) and deleteInObstacle; the
+    # k-epsilon chain with diffusion (sigmaU 10), inflow BCs, PcMIC with
+    # cgMaxIterFac 0.5 (K2 on its spill path). Cut: the GUI-only
+    # obstacleLevelset + createMesh
+    KE_INFLOW = (0.52, 0.0, 0.0)
+
+    class TurbParticles:
+        """TurbulenceParticleSystem (scene/vortex_api.py:88-210) on a
+        device: positions and both texture coordinate sets, the seeding
+        stream and the synthesize statics of one scene run."""
+
+        def __init__(self, noise, d_):
+            self.noise, self.d = noise, d_
+            self.pos = self.tex0 = self.tex1 = torch.zeros((0, 3),
+                                                           device=d_)
+            self.stream = RandomStream(34894231)
+            self.ctime, self.inflow = 0.0, np.zeros(3, np.float32)
+
+        def seed(self, box, num):
+            """seed (turbulencepart.cpp:57-68): rejection samples of the
+            box's bounding box, on the host."""
+            ext_ = np.asarray(box.get_extent(), np.float32)
+            p0 = np.asarray(box.get_center(), np.float32) - ext_ * 0.5
+            pts = np.empty((num, 3), np.float32)
+            for i in range(num):
+                while True:
+                    p = self.stream.get_vec3s(1)[0] * ext_ + p0
+                    if bool(box.is_inside(float(p[0]), float(p[1]),
+                                          float(p[2]))):
+                        break
+                pts[i] = p
+            new = torch.from_numpy(pts).to(self.d)
+            self.pos, self.tex0, self.tex1 = (torch.cat([a, new]) for a in
+                                              (self.pos, self.tex0,
+                                               self.tex1))
+
+        def advect(self, flags, vel, dt, dom_):
+            n_ = self.pos.shape[0]
+            parts = cp.Particles(
+                pos=self.pos, flags=torch.zeros(n_, dtype=torch.int32,
+                                                device=self.d),
+                count=torch.tensor(n_, dtype=torch.int32, device=self.d))
+            self.pos = cp.advect_in_grid(parts, flags, vel, dt, dom_, 2,
+                                         delete_in_obstacle=False).pos
+
+        def synthesize(self, flags, k, dt, dom_):
+            self.inflow = self.inflow + np.asarray(KE_INFLOW,
+                                                   np.float32) * dt
+            old_alpha = 2.0 * ((self.ctime / 5.0) % 1.0)
+            self.ctime += dt
+            alpha = 2.0 * ((self.ctime / 5.0) % 1.0)
+            off = torch.from_numpy(self.inflow).to(self.d)
+            if old_alpha < 1.0 <= alpha:
+                self.tex0 = self.pos - off
+            if old_alpha > alpha:
+                self.tex1 = self.pos - off
+            self.pos, self.tex0, self.tex1 = vx.synthesize_turbulence(
+                self.pos, self.tex0, self.tex1, flags, k, self.noise, dom_,
+                1.0, dt, 1, 0.1, 1.0 / 0.01, 1.5 * 0.1 ** 2)
+
+        def delete_in_obstacle(self, flags, dom_):
+            sz, sy, sx = dom_.shape
+            ci = [torch.clamp(self.pos[:, a].to(torch.int64), 0, n_ - 1)
+                  for a, n_ in ((2, sz), (1, sy), (0, sx))]
+            keep = (flags[ci[0], ci[1], ci[2]] & fl.TypeObstacle) == 0
+            self.pos, self.tex0, self.tex1 = (a[keep] for a in
+                                              (self.pos, self.tex0,
+                                               self.tex1))
+
+    def keps_setup(dom_, d_):
+        gs = dom_.size
+        res_ = gs[0]
+        flags = fl.fill_grid(fl.init_domain(dom_, device=d_))
+        for i in range(4):
+            for j in range(4):
+                flags = Sphere(center=(res_ * 0.2, gs[1] * (i + 1) / 5.0,
+                                       gs[2] * (j + 1) / 5.0),
+                               radius=res_ * 0.025).apply_to_grid(
+                    flags, fl.TypeObstacle, dom_)
+        z = torch.zeros(dom_.shape, device=d_)
+        k, eps = kep.bcs(flags, z, z, 0.1, 0.1, True)
+        noise = WaveletNoiseField(dom_, device=d_)
+        return {"flags": flags, "vel": torch.zeros((3,) + dom_.shape,
+                                                   device=d_),
+                "k": k, "eps": eps, "pressure": z,
+                "it": torch.zeros((), dtype=torch.int32, device=d_),
+                "tp": TurbParticles(noise, d_),
+                "box": Box(center=(res_ * 0.05, gs[1] * 0.43, gs[2] * 0.6),
+                           size=(res_ * 0.02, gs[1] * 0.005, gs[2] * 0.07))}
+
+    def keps_step(st, dom_):
+        flags, vel, k, eps, tp = (st[n_] for n_ in ("flags", "vel", "k",
+                                                    "eps", "tp"))
+        dt = 0.5
+        tp.seed(st["box"], 500)
+        tp.advect(flags, vel, dt, dom_)
+        tp.synthesize(flags, k, dt, dom_)
+        tp.delete_in_obstacle(flags, dom_)
+        k, eps = kep.bcs(flags, k, eps, 0.1, 0.1, False)
+        k = sladv.advect_real(flags, vel, k, dt, order=1)
+        eps = sladv.advect_real(flags, vel, eps, dt, order=1)
+        k, eps = kep.bcs(flags, k, eps, 0.1, 0.1, False)
+        k, eps, prod, nu_t, _ = kep.compute_production(vel, k, eps, dom_,
+                                                       2.5)
+        k, eps = kep.sources(k, eps, prod, dt)
+        k, eps, vel = kep.gradient_diffusion(k, eps, nu_t, dt, dom_, 10.0,
+                                             vel)
+        vel = sladv.advect_mac(flags, vel, vel, dt, order=2)
+        vel = ext.set_wall_bcs(flags, vel, dom_)
+        vel = ext.set_inflow_bcs(vel, dom_, "xXyYzZ", KE_INFLOW)
+        vel, p, rhs, it, _ = prs.solve_pressure(
+            vel, flags, dom_, 1e-3, cg_max_iter_fac=0.5,
+            preconditioner=prs.PcMIC)
+        vel = ext.set_wall_bcs(flags, vel, dom_)
+        vel = ext.set_inflow_bcs(vel, dom_, "xXyYzZ", KE_INFLOW)
+        return {**st, "vel": vel, "k": k, "eps": eps, "pressure": p,
+                "rhs": rhs, "it": it, "tp_pos": tp.pos}
+
+    keps_dom = Domain(size=(KEPS_RES, KEPS_RES // 2, KEPS_RES // 2))
+    t0 = time.perf_counter()
+    keps0 = keps_setup(keps_dom, dev)
+    keps_setup_s = time.perf_counter() - t0
+    require(bool(fl.is_obstacle(keps0["flags"])[1:-1, 1:-1, 1:-1].any()),
+            "k-epsilon: no sphere obstacle cells")
+    keps_plan = prk.cg_plan(keps_dom.shape, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    keps_numbers, keps_last = drive_scene(
+        f"kepsilon_channel_{KEPS_RES}", lambda s: keps_step(s, keps_dom),
+        keps0, {"cg_solve": 1})
+    del keps0
+    keps_numbers["setup_s_with_the_generated_tile"] = keps_setup_s
+    keps_numbers["cg_plan"] = dataclasses.asdict(keps_plan)
+    keps_numbers["turbulence_particles"] = int(keps_last["tp"].pos.shape[0])
+    keps_numbers["k_max"] = float(keps_last["k"].max())
+    keps_numbers["eps_min"] = float(keps_last["eps"].min())
+    require(keps_numbers["turbulence_particles"] > 5000,
+            f"k-epsilon: {keps_numbers['turbulence_particles']} particles")
+    require(float(keps_last["vel"][0].abs().max()) > 0.3,
+            "k-epsilon: no inflow velocity")
+    print(f"k-epsilon channel: {keps_numbers['turbulence_particles']} "
+          f"turbulence particles, k max {keps_numbers['k_max']:.4f}, "
+          f"{keps_plan.overflow} of {keps_plan.onchip + keps_plan.overflow} "
+          f"cells per block off chip; set-up {keps_setup_s:.1f} s (the "
+          "generated noise tile)", flush=True)
+    e, extra = k2_of_scene("k-epsilon channel", "cg_solve_kepsilon",
+                           lambda s: keps_step(s, keps_dom), keps_last,
+                           keps_dom)
+    k2_err = max(k2_err, e)
+    keps_numbers.update(extra)
+    fk["cg_solve_kepsilon"]["cells_off_chip_per_block"] = keps_plan.overflow
+    del keps_last
+    keps_numbers["card_vs_cpu_32x16x16"] = scene_card_vs_cpu(
+        "k-epsilon channel 32x16x16", keps_setup, keps_step,
+        Domain(size=(32, 16, 16)), ("k", "eps", "tp_pos"),
+        solved=("vel", "pressure"), acc=1e-3)
+
+    # 28. the rest of A13: each module on the card at a stated size
+    # (timed), and held against the CPU on the same inputs (the card's
+    # copied to the CPU): integer and bool outputs exact, floats within
+    # ``tol`` x max(1, max|CPU value|): 1e-6 for elementwise and gather
+    # work, 1e-5 where index_add_'s order differs, 1e-4 for the outputs of
+    # a CG or multigrid solve (the solves' own iteration counts within 2)
+    a13 = {}
+
+    def move(x, d_):
+        if isinstance(x, torch.Tensor):
+            return x.to(d_)
+        if isinstance(x, cp.Particles):
+            return cp.Particles(pos=x.pos.to(d_), flags=x.flags.to(d_),
+                                count=x.count.to(d_))
+        if isinstance(x, (tuple, list)):
+            return type(x)(move(v, d_) for v in x)
+        if isinstance(x, dict):
+            return {k: move(v, d_) for k, v in x.items()}
+        return x
+
+    def leaves(x, name):
+        if isinstance(x, torch.Tensor):
+            yield name, x
+        elif isinstance(x, cp.Particles):
+            for k in ("pos", "flags", "count"):
+                yield f"{name}.{k}", getattr(x, k)
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                yield from leaves(v, f"{name}[{i}]")
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                yield from leaves(v, f"{name}.{k}")
+
+    def on_card(fn, args):
+        """fn(dev, *args) on the card and its milliseconds (host clock,
+        synchronized; the caching allocator is warm from the phases
+        before)."""
+        args_g = move(args, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_g = fn(dev, *args_g)
+        torch.cuda.synchronize()
+        return out_g, (time.perf_counter() - t0) * 1e3
+
+    def hold(name, fn, args, tol, solves=(), loose=()):
+        """``fn(device, *args)`` on the card (timed) and on the CPU.
+        ``solves``: leaves that count solver iterations (within 2);
+        ``loose``: float leaves out of a CG or multigrid solve (1e-4).
+        Returns the card's outputs."""
+        out_g, ms = on_card(fn, args)
+        out_c = fn("cpu", *move(args, "cpu"))
+        worst = 0.0
+        for (k, g_), (_, c_) in zip(leaves(out_g, name), leaves(out_c,
+                                                                name)):
+            g_ = g_.cpu()
+            require(g_.shape == c_.shape, f"{k}: shapes {tuple(g_.shape)}"
+                    f" and {tuple(c_.shape)}")
+            if any(k.endswith(s) for s in solves):
+                require(bool((g_ - c_).abs().max() <= 2) if c_.numel()
+                        else True, f"{k}: iterations {g_} and {c_}")
+            elif not c_.is_floating_point():
+                require(torch.equal(g_, c_), f"{k}: card and CPU differ")
+            elif c_.numel():
+                t_ = 1e-4 if any(k.endswith(s) for s in loose) else tol
+                scale = max(1.0, float(c_.abs().max()))
+                e_ = float((g_.double() - c_.double()).abs().max()) / scale
+                require(e_ <= t_, f"{k}: card vs CPU {e_} > {t_} (x max(1,"
+                        f" max|value|) = {scale:.4g})")
+                worst = max(worst, e_)
+        a13[name] = {"card_ms": ms, "max_err_over_scale": worst,
+                     "tol": tol}
+        print(f"{name}: card {ms:.2f} ms; card vs CPU {worst:.3g} x "
+              f"max(1, max|value|) (tol {tol:g})", flush=True)
+        return out_g
+
+    # waves: tests/ref_scenes/test_1030_waveeq.py's loop at WAVES_RES^2
+    # (grown from 113x127): 20 explicit steps, then 20 implicit (the
+    # (I + sL) CG with its l2 exit, a host read an iteration)
+    def waves_run(d_, n_res):
+        wdom = Domain(size=(n_res, n_res, 1), dim=2)
+        flags = fl.fill_grid(fl.init_domain(wdom, device=d_))
+        h = Box(p0=(n_res * 0.3, n_res * 0.3, 0.3),
+                p1=(n_res * 0.5, n_res * 0.5, 0.5)).apply_to_grid(
+            torch.zeros(wdom.shape, device=d_), 1.0, wdom)
+        hprev, vel, its = h.clone(), torch.zeros(wdom.shape, device=d_), []
+        mass0 = float(wav.total_sum(h, wdom))
+        implicit = False
+        for t in range(40):
+            mass = float(wav.total_sum(h, wdom))
+            if implicit:
+                h, hprev, it, _ = wav.cg_solve_wave_eq(flags, h, hprev, 0.9,
+                                                       wdom, False, 0.12)
+                its.append(it)
+            else:
+                vel = vel + (0.12 * 0.9) * wav.calc_sec_deriv_2d(h, wdom)
+                h = h + 0.9 * vel
+                implicit = t >= 20
+            h = wav.normalize_sum_to(h, wdom, mass)
+        return {"height": h, "vel": vel, "cg_iterations": torch.stack(its),
+                "mass": torch.stack([wav.total_sum(h, wdom),
+                                     torch.tensor(mass0, device=d_)])}
+
+    w_out = hold(f"waves_{WAVES_RES}", lambda d_: waves_run(d_, WAVES_RES),
+                 (), 1e-4, solves=("cg_iterations",))
+    a13[f"waves_{WAVES_RES}"]["cg_iterations_per_implicit_step"] = [
+        int(i) for i in w_out["cg_iterations"]]
+    m_end, m0 = (float(m) for m in w_out["mass"])
+    require(bool(torch.isfinite(w_out["height"]).all())
+            and abs(m_end - m0) <= 1e-4 * m0,
+            f"waves: the mass went from {m0} to {m_end}")
+
+    # wavelet turbulence: scenes/waveletTurbulence.py's up-res pass at
+    # res = WLT_RES on the card (2D, the xl grid 2 x (WLT_RES x 1.5
+    # WLT_RES)), held against the CPU at res 64, on a seeded low-res
+    # state: computeEnergy, computeWaveletCoeffs, interpolateGrid,
+    # interpolateMACGrid, three applyNoiseVec3 octaves (then, from the
+    # CPU's xl velocity) two order-2 substep advections and the xl
+    # densityInflow
+    def wlt_doms(res_):
+        return (Domain(size=(res_, int(1.5 * res_), 1), dim=2),
+                Domain(size=(2 * res_, 2 * int(1.5 * res_), 1), dim=2))
+
+    def wlt_noises(d_, xl_dom, res_):
+        out = []
+        for ps, sc in ((0.5 * res_, 0.4), (1.0 * res_, 0.4 * 0.6),
+                       (2.0 * res_, 0.4 * 0.36)):
+            nz = WaveletNoiseField(xl_dom, -1, True, device=d_)
+            nz.pos_scale, nz.time_anim = (ps,) * 3, 0.1
+            out.append((nz, sc))
+        return out
+
+    def wlt_upres(d_, vel):
+        res_ = vel.shape[-1]
+        lo_dom, xl_dom = wlt_doms(res_)
+        lo_flags = fl.set_open_bound(fl.fill_grid(fl.init_domain(
+            lo_dom, 0, device=d_)), lo_dom, 0, "Y",
+            fl.TypeOutflow | fl.TypeEmpty)
+        xl_flags = fl.fill_grid(fl.init_domain(xl_dom, device=d_))
+        energy = tur.compute_wavelet_coeffs(
+            tur.compute_energy(lo_flags, vel, lo_dom), lo_dom)
+        weight = tur.interpolate_grid(xl_dom, energy, lo_dom)
+        xl_vel = tur.interpolate_mac_grid(xl_dom, vel, lo_dom)
+        for nz, sc in wlt_noises(d_, xl_dom, res_):
+            xl_vel = tur.apply_noise_vec3(xl_flags, xl_vel, nz, xl_dom, sc,
+                                          weight=weight, time=7.5 * xl_dom.dx)
+        return {"energy": energy, "weight": weight, "xl_vel": xl_vel}
+
+    def wlt_advect(d_, xl_vel, dens):
+        xl_dom = Domain(size=(dens.shape[-1], dens.shape[-2], 1), dim=2)
+        xl_flags = fl.fill_grid(fl.init_domain(xl_dom, device=d_))
+        for _ in range(2):
+            dens = sladv.advect_real(xl_flags, xl_vel, dens, 1.5, order=2)
+        nz = WaveletNoiseField(xl_dom, 265, True, device=d_)
+        nz.pos_scale, nz.clamp, nz.clamp_neg, nz.clamp_pos = \
+            (20.0,) * 3, True, 0.0, 2.0
+        nz.val_scale, nz.val_offset, nz.time_anim = 1.0, 0.075, 0.6
+        src = Cylinder(center=(xl_dom.size[0] * 0.3, xl_dom.size[1] * 0.2,
+                               0.5), radius=xl_dom.size[0] * 0.081,
+                       z=(xl_dom.size[0] * 0.081, 0.0, 0.0))
+        return ini.density_inflow(xl_flags, dens, nz, src, xl_dom, 1.0, 0.5,
+                                  time=7.5 * xl_dom.dx)
+
+    def wlt_inputs(res_):
+        lo_dom, xl_dom = wlt_doms(res_)
+        rng = np.random.RandomState(28)
+        vel = (rng.standard_normal((3,) + lo_dom.shape) * 0.3).astype(
+            np.float32)
+        vel[2] = 0.0
+        return (torch.from_numpy(vel),
+                torch.from_numpy(rng.rand(*xl_dom.shape).astype(np.float32)))
+
+    lo_vel, xl_dens = wlt_inputs(WLT_RES)
+    up, up_ms = on_card(wlt_upres, (lo_vel,))
+    _, adv_ms = on_card(wlt_advect, (up["xl_vel"], xl_dens))
+    require(float((up["xl_vel"] - tur.interpolate_mac_grid(
+        wlt_doms(WLT_RES)[1], lo_vel.to(dev), wlt_doms(WLT_RES)[0]))
+        .abs().max()) > 1e-4,
+        "wavelet turbulence: the noise octaves added nothing")
+    del up, lo_vel, xl_dens
+    lo_vel, xl_dens = wlt_inputs(64)
+    xl_vel = hold("wavelet_upres_64", wlt_upres, (lo_vel,), 1e-6)[
+        "xl_vel"].cpu()
+    hold("wavelet_xl_advect_64", wlt_advect, (xl_vel, xl_dens), 1e-6)
+    a13["wavelet_upres_64"][f"card_ms_at_{WLT_RES}"] = up_ms
+    a13["wavelet_xl_advect_64"][f"card_ms_at_{WLT_RES}"] = adv_ms
+    print(f"wavelet turbulence at res {WLT_RES}: up-res {up_ms:.1f} ms, "
+          f"xl advection and inflow {adv_ms:.1f} ms on the card",
+          flush=True)
+    del xl_vel, lo_vel, xl_dens
+
+    # guiding: PD_fluid_guiding on scenes/guiding_2d.py's spiral at its
+    # GUIDE_RES^2 on the card (strength 1, weights 1 below and 5 above
+    # mid-height, blur radius 2, tau 1, sigma 0.99, PcMGStatic), from the
+    # buoyancy of its source; one host read a PD iteration besides the
+    # nested solves'; held against the CPU at 64^2
+    def guide_run(d_, res_):
+        gdom = Domain(size=(res_, res_, 1), dim=2)
+        flags = fl.fill_grid(fl.init_domain(gdom, 1, device=d_))
+        src = Cylinder(center=(res_ * 0.5, res_ * 0.2, 0.5),
+                       radius=res_ * 0.14, z=(0.0, res_ * 0.02 * 1.5, 0.0))
+        dens = src.apply_to_grid(torch.zeros(gdom.shape, device=d_), 1.0,
+                                 gdom)
+        vel = ext.add_buoyancy(flags, dens, torch.zeros(
+            (3,) + gdom.shape, device=d_), (0.0, 0.25 * 2 * -4e-3, 0.0),
+            1.0, gdom)
+        vel_t = gd.get_spiral_velocity(gdom, res_ / 128, device=d_)
+        w = gd.set_gradient_y_weight(torch.zeros(gdom.shape, device=d_),
+                                     gdom, 0, res_ // 2, 1, 1)
+        w = gd.set_gradient_y_weight(w, gdom, res_ // 2, res_, 5, 5)
+        v, p, it = gd.pd_fluid_guiding(
+            vel, vel_t, flags, w, gdom, 2, 1.0, 1.0, 0.99,
+            preconditioner=prs.PcMGStatic, zero_pressure_fixing=True)
+        return {"vel": v, "pressure": p, "pd_iterations": it}
+
+    g_out, g_ms = on_card(lambda d_: guide_run(d_, GUIDE_RES), ())
+    g_it = int(g_out["pd_iterations"])
+    require(1 < g_it < 200 and bool(torch.isfinite(g_out["vel"]).all()),
+            f"guiding: {g_it} PD iterations")
+    print(f"guiding at {GUIDE_RES}^2: {g_ms:.1f} ms on the card, {g_it} PD "
+          "iterations", flush=True)
+    hold("guiding_64", lambda d_: guide_run(d_, 64), (), 1e-4,
+         solves=("pd_iterations",))
+    a13["guiding_64"].update({f"card_ms_at_{GUIDE_RES}": g_ms,
+                              f"pd_iterations_at_{GUIDE_RES}": g_it})
+    del g_out
+
+    # IDP: a Correct19 step (scenes/idp_apic02_3d.py:73-84) on its box at
+    # IDP_RES^3 (8 particles a cell, randomness 0.5; the wall SDF as
+    # phiObs), stage by stage: mapMassToGrid, the lambda solve (the scene
+    # API's PcMIC over cg_loop), computeDeltaX, mapMACToPartPositions;
+    # then resampeOverfullCells on the unclamped density
+    idom = Domain(size=(IDP_RES,) * 3)
+    box_phi = Box(p0=(0.0, 0.0, IDP_RES * 0.25),
+                  p1=(IDP_RES * 0.5, IDP_RES * 0.35, IDP_RES * 0.75)
+                  ).compute_levelset(idom, "cpu")
+    iflags0 = fl.update_from_levelset(fl.init_domain(idom, 1, device="cpu"),
+                                      box_phi, 1e10)
+    iparts = cp.sample_flags_with_particles(iflags0.numpy(), idom, 2, 0.5,
+                                            device="cpu")
+    iflags = fl.init_domain(idom, 1, device="cpu")
+    iphi = fl._wall_sdf(idom, 1, "xXyYzZ", device="cpu")
+    mass_ = 1.0 / 8
+
+    def idp_mass(d_, parts, flags, phi_obs, clamp):
+        f2, rho, dx = idp.map_mass_to_grid(parts, flags, phi_obs, idom, 1.0,
+                                           mass_, not clamp)
+        return {"flags": f2, "rho": rho, "delta": dx}
+
+    m_out = hold(f"idp_map_mass_{IDP_RES}",
+                 lambda d_, *a: idp_mass(d_, *a, True),
+                 (iparts, iflags, iphi), 1e-5)
+    m_cpu = move(m_out, "cpu")
+
+    def idp_solve(d_, rho, flags):
+        stencil = prs.make_laplace_stencil(flags, idom)
+        lam, it, _ = prs.solve_pressure_system(rho, flags, idom, stencil,
+                                               1e-3,
+                                               preconditioner=prs.PcMIC)
+        return {"lambda": lam, "cg_iterations": it}
+
+    l_out = hold(f"idp_lambda_solve_{IDP_RES}", idp_solve,
+                 (m_cpu["rho"], m_cpu["flags"]), 1e-6, solves=(
+                     "cg_iterations",), loose=("lambda",))
+    lam = l_out["lambda"].cpu()
+    dx_out = hold(f"idp_delta_x_{IDP_RES}",
+                  lambda d_, lam_, f_: idp.compute_delta_x(lam_, f_, idom),
+                  (lam, m_cpu["flags"]), 1e-6)
+    hold(f"idp_map_mac_to_positions_{IDP_RES}",
+         lambda d_, p_, dx_, f_: idp.map_mac_to_part_positions(
+             p_, dx_, f_, idom, 1.0), (iparts, dx_out.cpu(), m_cpu["flags"]),
+         1e-6)
+    u_out = move(hold(f"idp_map_mass_unclamped_{IDP_RES}",
+                      lambda d_, *a: idp_mass(d_, *a, False),
+                      (iparts, iflags, iphi), 1e-5), "cpu")
+    # the density error scaled so that its most overfull cells fall below
+    # -1 (the box's sampling leaves none that full)
+    over = u_out["rho"] * (1.5 / max(-float(u_out["rho"].min()), 1e-3))
+    require(bool((over < -1.0).any()), "IDP: no overfull cell")
+    hold(f"idp_resample_overfull_{IDP_RES}",
+         lambda d_, p_, v_, rho_: idp.resample_overfull_cells(
+             p_, torch.zeros_like(p_.pos), v_, rho_, idom, 1.0),
+         (iparts, torch.zeros((3,) + idom.shape), over), 1e-6)
+    a13[f"idp_map_mass_{IDP_RES}"]["particles"] = int(iparts.count)
+    del iparts, iflags, iphi, m_out, m_cpu, l_out, lam, dx_out, u_out, over
+
+    # whitewater: potentials (radius 2), 'single' sampling (rates k_ta = k_wc
+    # = 5000: the dam's slow flow emits little) into 2^20 slots
+    # and the 'linear' update with anti-tunneling on phase 14's developed
+    # flat FLIP_RES^3 dam, on the card (timed); held against the CPU on
+    # the dam's 48^3 corner stage by stage (each stage from the CPU's
+    # outputs, so that the emission counts, integer work, meet equal
+    # inputs)
+    WW_POT = dict(radius=2, tau_min_ta=0.1, tau_max_ta=5.0, tau_min_wc=0.1,
+                  tau_max_wc=5.0, tau_min_ke=0.01, tau_max_ke=5.0,
+                  scale_from_manta=1.0)
+
+    def ww_dom(flags):
+        return Domain(size=tuple(reversed(flags.shape)))
+
+    def ww_sample(d_, flags, vel, pots, cap):
+        parts = cp.Particles(
+            pos=torch.zeros((cap, 3), device=d_),
+            flags=torch.full((cap,), cp.PDELETE, dtype=torch.int32,
+                             device=d_),
+            count=torch.tensor(0, dtype=torch.int32, device=d_))
+        z3, z1 = torch.zeros((cap, 3), device=d_), torch.zeros(cap,
+                                                               device=d_)
+        return ww.sample_secondary_particles(
+            parts, z3, z1, flags, vel, *pots[:4], ww_dom(flags), 2.0, 5.0,
+            0.3, 0.8, 5000.0, 5000.0, 1.0)
+
+    def ww_update(d_, flags, vel, nr, parts, v_sec, l_sec):
+        return ww.update_secondary_particles(
+            parts, v_sec, l_sec, torch.zeros_like(v_sec), flags, vel, nr,
+            ww_dom(flags), (0.0, -0.003, 0.0), 0.5, 0.6, 0.3, 0.8, 1.0,
+            antitunneling=2)
+
+    dam = {k: v.to(dev) for k, v in dam_grids.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pots = ww.compute_secondary_particle_potentials(
+        dam["flags"], dam["vel"], dam["phi"], ww_dom(dam["flags"]), **WW_POT)
+    sampled = ww_sample(dev, dam["flags"], dam["vel"], pots, 1 << 20)
+    updated = ww_update(dev, dam["flags"], dam["vel"], pots[3], *sampled)
+    torch.cuda.synchronize()
+    ww_ms = (time.perf_counter() - t0) * 1e3
+    emitted = int((sampled[0].flags & cp.PDELETE == 0).sum())
+    require(emitted > 0 and bool(torch.isfinite(updated[0].pos).all())
+            and bool(torch.isfinite(updated[1]).all()),
+            f"whitewater: {emitted} emitted or not finite")
+    print(f"whitewater on the developed {FLIP_RES}^3 dam: {ww_ms:.1f} ms "
+          f"(potentials, sampling, update), {emitted} particles emitted",
+          flush=True)
+    del dam, pots, sampled, updated
+    crop = tuple(slice(0, 48) for _ in range(3))
+    wf = dam_grids["flags"][crop].contiguous()
+    wv = dam_grids["vel"][(slice(None),) + crop].contiguous()
+    wp = dam_grids["phi"][crop].contiguous()
+    pots = move(hold("whitewater_potentials_48",
+                     lambda d_, f_, v_, p_:
+                     ww.compute_secondary_particle_potentials(
+                         f_, v_, p_, ww_dom(f_), **WW_POT),
+                     (wf, wv, wp), 1e-6), "cpu")
+    sampled = move(hold("whitewater_sampling_48",
+                        lambda d_, f_, v_, p_: ww_sample(d_, f_, v_, p_,
+                                                         1 << 16),
+                        (wf, wv, pots), 1e-6), "cpu")
+    hold("whitewater_update_48", ww_update, (wf, wv, pots[3]) + sampled,
+         1e-6)
+    a13["whitewater_potentials_48"][f"card_ms_all_stages_at_{FLIP_RES}"] = \
+        ww_ms
+    a13["whitewater_sampling_48"][f"emitted_at_{FLIP_RES}"] = emitted
+    a13["whitewater_sampling_48"]["emitted_at_48"] = int(
+        (sampled[0].flags & cp.PDELETE == 0).sum())
+    del dam_grids, pots, sampled, wf, wv, wp
+
+    # surface turbulence: scenes/surfaceTurbulence.py's call (its
+    # parameters: 6 maintenance iterations, surface density 12, dt 0.005,
+    # wave speed 32, damping 0.05, max amplitude 0.5, max frequency 128)
+    # on a coarse FLIP liquid at ST_RES^3 (the port's flat dam step, the
+    # scene's 0.4 x 0.4 x 1 box), 4 steps on the card (timed); the last
+    # call held against the CPU
+    sdom_ = Domain(size=(ST_RES,) * 3)
+    st_params = dataclasses.replace(flat_params, gravity=(0.0, -0.001, 0.0))
+    coarse = flip.make_dam_state(sdom_, st_params, dam_frac=(0.4, 0.4, 1.0),
+                                 randomness=0.35, device=dev)
+    sp = stb.SurfTurbParams(maintenance_iters=6, surface_density=12,
+                            dt=0.005, wave_speed=32.0, wave_damping=0.05,
+                            wave_max_amplitude=0.5,
+                            wave_max_frequency=128.0)
+    cap = 1 << 18
+    surf = cp.Particles(pos=torch.zeros((cap, 3), device=dev),
+                        flags=torch.full((cap,), cp.PDELETE,
+                                         dtype=torch.int32, device=dev),
+                        count=torch.tensor(0, dtype=torch.int32, device=dev))
+    waves_ = tuple(torch.zeros(cap, device=dev) for _ in range(5))
+    st_ms = []
+    for frame in range(4):
+        prev = coarse.parts.pos
+        coarse = flip.flip_step(coarse, sdom_, st_params)
+        args_ = (coarse.flags, coarse.parts, prev, surf) + waves_
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stb.particle_surface_turbulence(
+            coarse.flags, coarse.parts, prev, surf, None, *waves_, sdom_,
+            sp, frame)
+        torch.cuda.synchronize()
+        st_ms.append((time.perf_counter() - t0) * 1e3)
+        surf = out[0]
+        waves_ = (out[3], out[4], out[5], out[6], out[7])
+    require(int(surf.active_mask().sum()) > 1000,
+            "surface turbulence: the band was not populated")
+    hold(f"surface_turbulence_{ST_RES}",
+         lambda d_, f_, c_, pv_, s_, *w_: stb.particle_surface_turbulence(
+             f_, c_, pv_, s_, None, *w_, sdom_, sp, 4), args_, 1e-5)
+    a13[f"surface_turbulence_{ST_RES}"]["card_ms_per_frame"] = st_ms
+    a13[f"surface_turbulence_{ST_RES}"]["surface_points"] = int(
+        surf.active_mask().sum())
+    del coarse, surf, waves_, out, args_
+
+    # VIC: VICintegration (sigma 1.5, scale 0.1) of a sphere's marching-
+    # cubes mesh at VIC_RES^3 with seeded per-triangle vorticity: the
+    # Peskin splat and the three l2-exit Poisson solves (cg_loop)
+    vdom = Domain(size=(VIC_RES,) * 3)
+    sph = Sphere(center=(VIC_RES / 2,) * 3, radius=VIC_RES / 4)
+    nodes, tris = trimesh.marching_cubes(
+        sph.compute_levelset(vdom, "cpu").numpy())
+    tri_p = nodes[tris]
+    centers = tri_p.mean(axis=1).astype(np.float32)
+    areas = (0.5 * np.linalg.norm(np.cross(tri_p[:, 1] - tri_p[:, 0],
+                                           tri_p[:, 2] - tri_p[:, 0]),
+                                  axis=1)).astype(np.float32)
+    tv_ = np.random.RandomState(29).standard_normal(
+        (len(tris), 3)).astype(np.float32)
+
+    def vic_run(d_, c_, v_, a_):
+        flags = fl.fill_grid(fl.init_domain(vdom, device=d_))
+        vel, vort = vx.vic_integration(c_, v_, a_, flags, vdom, 1.5,
+                                       scale=0.1)
+        return {"vorticity": vort, "vel": vel}
+
+    v_out = hold(f"vic_{VIC_RES}", vic_run,
+                 (torch.from_numpy(centers), torch.from_numpy(tv_),
+                  torch.from_numpy(areas)), 1e-5, loose=("vel",))
+    a13[f"vic_{VIC_RES}"]["triangles"] = len(tris)
+    require(float(v_out["vel"].abs().max()) > 1e-6,
+            "VIC: the sheet induced no velocity")
+    del v_out, nodes, tris, tri_p
+
+    # interpol4d: a region-stamped 4D grid (tests/ref_scenes/
+    # test_0042_interpol4d.py) resampled 40^4 -> 80^4 on the card (timed),
+    # 20^4 -> 40^4 held against the CPU
+    def interp4d(d_, src, n_to):
+        st_, sz, sy, sx = (n_to,) * 4
+        f = src.shape[-1] / n_to
+        a = torch.arange(n_to, dtype=torch.float32, device=d_) * f + f * 0.5
+        return g4.interpol4d(src, a.reshape(1, 1, 1, sx),
+                             a.reshape(1, 1, sy, 1), a.reshape(1, sz, 1, 1),
+                             a.reshape(st_, 1, 1, 1))
+
+    reg = torch.zeros((20,) * 4)
+    reg[6:15, 6:15, 6:15, 6:15] = 1.0
+    d40 = hold("interpol4d_20_to_40", lambda d_, s_: interp4d(d_, s_, 40),
+               (reg,), 1e-6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d80 = interp4d(dev, d40, 80)
+    torch.cuda.synchronize()
+    a13["interpol4d_20_to_40"]["card_ms_40_to_80"] = (
+        time.perf_counter() - t0) * 1e3
+    require(abs(float(d80.sum()) / 16 - float(d40.sum())) < 1e-2 * float(
+        d40.sum()), "interpol4d: the 80^4 grid lost mass")
+    print(f"interpol4d 40^4 -> 80^4 on the card: "
+          f"{a13['interpol4d_20_to_40']['card_ms_40_to_80']:.2f} ms",
+          flush=True)
+    del d40, d80
+
     flip_paths = {"flip_128": flip_launches, "flip01_128": a_launches,
                   "obstacle_128": b_launches, "flip_zshard_128": z_launches,
                   "flat_128": flat_launches, "apic_128": apic_launches}
@@ -3138,7 +3987,9 @@ def main():
          "flat_dam_solve": fk["cg_solve_flat"],
          "plume_2d_solve": fk["cg_solve_plume"],
          "surface_tension_solve": fk["cg_solve_surface"],
-         "karman_3d_solve": fk["cg_solve_karman"]},
+         "karman_3d_solve": fk["cg_solve_karman"],
+         "fire_3d_solve": fk["cg_solve_fire"],
+         "kepsilon_channel_solve": fk["cg_solve_kepsilon"]},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function
@@ -3211,6 +4062,7 @@ def main():
         "flat_128": flat_numbers, "apic_128": apic_numbers,
         **new_numbers, "flat_2d": d2_numbers,
         "scene_functions": scene_fn_numbers, **scene_numbers,
+        "breadth_ops": a13,
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

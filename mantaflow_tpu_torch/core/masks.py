@@ -56,6 +56,11 @@ def shift(a, d: int, axis: str):
     return torch.roll(a, -d, dims=_AXIS_OF[axis] - 3)
 
 
+def shift_xyz(a, dx: int, dy: int, dz: int):
+    """shift(shift(shift(a, dx, 'x'), dy, 'y'), dz, 'z') in one roll."""
+    return torch.roll(a, shifts=(-dz, -dy, -dx), dims=(-3, -2, -1))
+
+
 def shift_clamp(a, d: int, axis: str):
     """shift with edge-clamped (not wrapped) out-of-range entries."""
     if d == 0:
