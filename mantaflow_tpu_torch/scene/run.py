@@ -1,0 +1,149 @@
+"""Run an unedited mantaflow_tpu scene file against the port.
+
+Usage::
+
+    python -m mantaflow_tpu_torch.scene.run [--device cuda|cpu] SCENE.py [args]
+
+The port's counterpart of ``python scenes/X.py``, whose import line ties
+the scene to the JAX package: ``mantaflow_tpu`` and every
+``mantaflow_tpu.<sub>`` are mapped onto the port's module of the same name
+(a meta-path finder plus ``sys.modules`` entries), and the file runs with
+``runpy.run_path(..., run_name="__main__")`` and its own ``sys.argv``. The
+device is CUDA unless ``--device cpu`` is given; without a GPU and without
+``--device`` the run raises (the port never falls back to the CPU).
+
+Run as its own process, the runner raises if ``jax`` or the JAX package
+ends up in ``sys.modules``. In-process (``run_scene``), it checks that
+every ``mantaflow_tpu*`` module the scene imported is the port's, and puts
+back whatever ``mantaflow_tpu*`` entries were there before, so a process
+that also holds the JAX package keeps it.
+
+Scenes of ``scenes/`` that cannot run unedited on the port:
+
+- ``zflip.py`` calls ``jax.numpy`` itself; ``zflip_api`` is held at the API
+  level instead (``tests/test_torch_scene_api.py``).
+- ``mlflip.py`` needs ``ml/``, the ML toolbox, which the port lacks.
+- ``smoke_fused_128.py`` reads ``np.asarray(state.density)``, which a CUDA
+  tensor refuses: it runs with ``--device cpu`` only.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import importlib
+import importlib.abc
+import importlib.util
+import runpy
+import sys
+
+ALIAS = "mantaflow_tpu"
+PORT = "mantaflow_tpu_torch"
+
+
+def _is_alias(name: str) -> bool:
+    return name == ALIAS or name.startswith(ALIAS + ".")
+
+
+def _port_name(name: str) -> str:
+    return PORT + name[len(ALIAS):]
+
+
+class _AliasLoader(importlib.abc.Loader):
+    def create_module(self, spec):
+        return importlib.import_module(_port_name(spec.name))
+
+    def exec_module(self, module):
+        pass  # the port's module has run already
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder):
+    """Resolves ``mantaflow_tpu[.sub]`` to the port's module of that name."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if not _is_alias(fullname):
+            return None
+        if importlib.util.find_spec(_port_name(fullname)) is None:
+            return None
+        return importlib.util.spec_from_loader(fullname, _AliasLoader())
+
+
+@contextlib.contextmanager
+def _aliased(device, isolate=()):
+    """Maps the JAX package's names onto the port for the duration, with
+    ``device`` as the port's default device; restores every entry after.
+    Modules under the ``isolate`` prefixes are imported afresh inside and
+    put back as they were after (scene modules that import each other)."""
+    import mantaflow_tpu_torch as port
+
+    def ours(k):
+        return _is_alias(k) or any(k == p or k.startswith(p + ".")
+                                   for p in isolate)
+    saved = {k: v for k, v in sys.modules.items() if ours(k)}
+    for k in saved:
+        del sys.modules[k]
+    for k, mod in list(sys.modules.items()):
+        if k == PORT or k.startswith(PORT + "."):
+            sys.modules[ALIAS + k[len(PORT):]] = mod
+    finder = _AliasFinder()
+    sys.meta_path.insert(0, finder)
+    old_device = port.default_device[0]
+    port.default_device[0] = device
+    try:
+        yield
+    finally:
+        port.default_device[0] = old_device
+        sys.meta_path.remove(finder)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+def _check_port_only(scene_globals):
+    """Every mantaflow_tpu* module in reach of the scene is the port's."""
+    for k, mod in sys.modules.items():
+        if _is_alias(k) and not mod.__name__.startswith(PORT):
+            raise RuntimeError(f"scene run imported the JAX package's {k}")
+    for k, v in scene_globals.items():
+        mod = getattr(v, "__module__", None) or ""
+        if isinstance(mod, str) and _is_alias(mod) and \
+                not mod.startswith(PORT):
+            raise RuntimeError(f"scene global {k} comes from {mod}")
+
+
+def run_scene(path: str, argv=(), device=None) -> dict:
+    """Run the scene file at ``path`` with ``sys.argv = [path, *argv]`` on
+    ``device`` (None: CUDA, raising without a GPU); returns its globals."""
+    from mantaflow_tpu_torch import resolve_device
+    device = resolve_device(device)
+    old_argv = sys.argv
+    sys.argv = [str(path)] + [str(a) for a in argv]
+    try:
+        with _aliased(device):
+            out = runpy.run_path(str(path), run_name="__main__")
+            _check_port_only(out)
+    finally:
+        sys.argv = old_argv
+    return out
+
+
+def main(args=None):
+    args = list(sys.argv[1:] if args is None else args)
+    device = None
+    if args and args[0].startswith("--device"):
+        if "=" in args[0]:
+            device = args.pop(0).split("=", 1)[1]
+        else:
+            args.pop(0)
+            device = args.pop(0)
+    if not args:
+        raise SystemExit(__doc__)
+    run_scene(args[0], args[1:], device)
+    bad = [k for k in sys.modules
+           if k == "jax" or k.startswith("jax.")
+           or (_is_alias(k) and not sys.modules[k].__name__.startswith(PORT))]
+    if bad:
+        raise RuntimeError(f"the scene run loaded {sorted(bad)[:5]}")
+
+
+if __name__ == "__main__":
+    main()

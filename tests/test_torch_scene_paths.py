@@ -53,6 +53,7 @@ from mantaflow_tpu.ops import levelset as jls
 from mantaflow_tpu.ops import obstacles as jobs
 from mantaflow_tpu.ops import pressure as jprs
 from mantaflow_tpu.ops import vortex as jvx
+from mantaflow_tpu.scene import api as japi
 from mantaflow_tpu.scene.api import _wall_sdf as j_wall_sdf
 from mantaflow_tpu.utils import noise as jnoise
 from mantaflow_tpu_torch.core import flags as tfl
@@ -75,6 +76,7 @@ from mantaflow_tpu_torch.ops import pressure as tprs
 from mantaflow_tpu_torch.ops import turbulence as ttur
 from mantaflow_tpu_torch.ops import vortex as tvx
 from mantaflow_tpu_torch.ops import waves as twav
+from mantaflow_tpu_torch.scene import api as tapi
 from mantaflow_tpu_torch.utils import noise as tnoise
 from mantaflow_tpu_torch.utils.mtrand import RandomStream
 
@@ -352,7 +354,7 @@ def test_ref_scene_1040_sec_order_bnd():
 
 J = SimpleNamespace(
     Domain=JDomain, fl=jfl, sh=jsh, ini=jini, fire=jfire, adv=jadv,
-    ext=jext, prs=jprs, ke=jke, vx=jvx, pt=jpt, kw={},
+    ext=jext, prs=jprs, ke=jke, vx=jvx, pt=jpt, kw={}, api=japi,
     noise=jnoise.WaveletNoiseField,
     zeros=lambda shape: jnp.zeros(shape, jnp.float32),
     arr=jnp.asarray, cat=lambda a, b: jnp.concatenate([a, b]),
@@ -361,6 +363,7 @@ J = SimpleNamespace(
 T = SimpleNamespace(
     Domain=Domain, fl=tfl, sh=tsh, ini=tini, fire=tfire, adv=tadv,
     ext=text, prs=tprs, ke=tke, vx=tvx, pt=tpt, kw={"device": CPU},
+    api=tapi,
     noise=tnoise.WaveletNoiseField,
     zeros=lambda shape: torch.zeros(shape),
     arr=lambda a: torch.from_numpy(np.array(a, np.float32)),
@@ -369,39 +372,14 @@ T = SimpleNamespace(
                                                  + v[2] ** 2))))
 
 
-class _Clock:
-    """The scene API's Solver stepping on the host (mantaflow_tpu/scene/
-    api.py:714-741: FluidSolver::step and adaptTimestep,
-    fluidsolver.cpp:143-204), in Python floats as the scenes run it."""
-
-    def __init__(self, dt, frame_length=1.0, cfl=3.0, dt_min=1e-4,
-                 dt_max=1.0):
-        self.timestep, self.frame_length, self.cfl = dt, frame_length, cfl
-        self.dt_min, self.dt_max = dt_min, dt_max
-        self.time_total, self.frame, self._tpf, self._lock = 0.0, 0, 0.0, \
-            False
-
-    def adapt(self, max_vel):
-        if not self._lock:
-            dt = max(min(self.timestep * (self.cfl / (max_vel * self.timestep
-                                                      + 1e-5)),
-                         self.dt_max), self.dt_min)
-            if self._tpf + dt * 1.05 > self.frame_length:
-                dt = (self.frame_length - self._tpf) + 1e-4
-            elif (self._tpf + dt + self.dt_min > self.frame_length
-                  or self._tpf + dt * 1.25 > self.frame_length):
-                dt = (self.frame_length - self._tpf + 1e-4) * 0.5
-                self._lock = True
-            self.timestep = dt
-
-    def step(self):
-        self._tpf += self.timestep
-        self.time_total += self.timestep
-        if self._tpf + 1e-6 > self.frame_length:
-            self.frame += 1
-            self.time_total = float(self.frame) * self.frame_length
-            self._tpf = 0.0
-            self._lock = False
+def _clock(pk, dt, frame_length=1.0, cfl=3.0, dt_min=1e-4, dt_max=1.0):
+    """The package's scene API Solver (FluidSolver::step and
+    adaptTimestep, fluidsolver.cpp:143-204) with a scene's time
+    settings."""
+    s = pk.api.Solver(name="clock", gridSize=(8, 8, 8), **pk.kw)
+    s.timestep, s.frameLength, s.cfl = dt, frame_length, cfl
+    s.timestepMin, s.timestepMax = dt_min, dt_max
+    return s
 
 
 FIRE_GRAV_D = tuple(g * -0.001 for g in (0.0, -0.0981, 0.0))
@@ -430,11 +408,11 @@ def _fire_init(pk, res):
 def _fire_step(pk, dom, st, noise, box, clock):
     """One pass of scenes/fire.py's loop over ``pk``'s ops."""
     flags, vel = st["flags"], st["vel"]
-    clock.adapt(pk.maxnorm(vel))
+    clock.adaptTimestep(pk.maxnorm(vel))
     dt = clock.timestep
     g = {k: st[k] for k in ("density", "heat", "fuel", "react")}
-    if clock.time_total < 200:
-        t = clock.time_total * dom.dx
+    if clock.timeTotal < 200:
+        t = clock.timeTotal * dom.dx
         for k in ("density", "heat", "fuel", "react"):
             g[k] = pk.ini.density_inflow(flags, g[k], noise, box, dom, 1.0,
                                          0.5, time=t)
@@ -465,7 +443,8 @@ def test_fire_steps_match_reference():
     jdom, jst, jno, jbox = _fire_init(J, 24)
     dom, tst, tno, tbox = _fire_init(T, 24)
     np.testing.assert_array_equal(_np(tst["flags"]), np.asarray(jst["flags"]))
-    jc, tc = _Clock(1.1, 1.2, 3.0, 0.2, 2.0), _Clock(1.1, 1.2, 3.0, 0.2, 2.0)
+    jc, tc = (_clock(J, 1.1, 1.2, 3.0, 0.2, 2.0),
+              _clock(T, 1.1, 1.2, 3.0, 0.2, 2.0))
     for _ in range(3):
         jst = _fire_step(J, jdom, jst, jno, jbox, jc)
         tst = _fire_step(T, dom, tst, tno, tbox, tc)
@@ -695,7 +674,7 @@ def test_ref_scene_1020_uvs():
     gs = (50, 75, 1)
     dom = Domain(size=gs, dim=2)
     flags = tfl.fill_grid(tfl.init_domain(dom, device=CPU))
-    clock = _Clock(0.5)
+    clock = _clock(T, 0.5)
     uv = [ttur.reset_uv_grid(dom, device=CPU) for _ in range(3)]
     src = tsh.Cylinder(center=(gs[0] * 0.3, gs[1] * 0.4, 0.5),
                        radius=res * 0.10, z=(gs[0] * 0.10, 0.0, 0.0))
@@ -714,7 +693,7 @@ def test_ref_scene_1020_uvs():
             uv[i] = tadv.advect_vec3(flags, vel, uv[i], clock.timestep,
                                      order=1)
             uv[i], _ = ttur.update_uv_weight(11.0, i, 3, uv[i],
-                                             clock.time_total,
+                                             clock.timeTotal,
                                              clock.timestep, dom)
         clock.step()
     for i in range(3):
