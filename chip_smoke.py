@@ -30,7 +30,9 @@ Phases (any failed check raises, and the script exits non-zero):
    128^3 step, cold (PPC 10) and developed (PPC 16), a 24^3 corner dam
    over the advection's modes, blend and obstacle options (the step's
    advection on its live slots, the form that passes invalid slots
-   through on every slot; the step's rebin bitwise the same with the
+   through on every slot, the form without the blend and the forms that
+   do not stop in obstacles, each of those two also timed on the
+   developed step's inputs; the step's rebin bitwise the same with the
    advected buckets' invalid slots poisoned by NaN and +-1e30); the fused
    rebin bitwise against flip_bucket.rebin and against the three-pass
    kernel (each pass against its plain version) on each step's rebin, a
@@ -183,7 +185,28 @@ Phases (any failed check raises, and the script exits non-zero):
 30. the reference-binary goldens on the card: every
    tests/ref_scenes/test_*.py the port passes there (refgolden.LEFT_OUT
    and LEFT_OUT_ON_CARD name the four it does not, and why) through the
-   runner's alias, each within its own thresholds, timed.
+   runner's alias, each within its own thresholds, timed; the sloshing
+   liquid test_1090_waveBench run twice, its grids equal bit for bit;
+31. the ML toolbox (``mantaflow_tpu_torch/ml``): scenes/mlflip.py's three
+   stages at the scene's own settings through the API (gen-data 25 frames
+   at 32^3 with drop_speed 4, 120 training steps at batch 128, 10 steps
+   with the net; the scene file itself reads np.asarray of CUDA tensors
+   and runs with --device cpu only); ML-FLIP at 128^3 (the basin and
+   drop, ~2.4M particles) with that net in the loop: 1 warm step, 20 with
+   CUDA events, every kernel's launches counted (1 K2 and 6 K14 a step,
+   nothing else), the ML block's ms, 5 steps traced (device busy, idle),
+   no particle lost, finite fields, ptype in {0, fluid, empty}, K2 (by
+   its residual) and K14 of a developed step against their plain
+   versions and timed; the other pipelines timed (create_dataset smoke
+   and flip at 64, 2 sims x 3 frames; the SR pairs at 64, 50 training
+   steps and apply_sr on a frame; the pressure resnet trained at 24^3 and
+   its NN-projected loop at 128^3, the NN projection's ms beside the K2
+   solve's on the same step; the 2D autoencoder at 64^2; 20 GAN step
+   pairs); the card against the CPU: 3 ML-FLIP steps at 20^3 with the
+   net, the ML block on equal inputs (decisions equal wherever the
+   detector's probability is more than 1e-5 from the threshold), 5 Adam
+   steps of each network from equal weights, one dataset frame of each
+   generator at 16^3.
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -197,6 +220,7 @@ which (``timed_by``).
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -230,6 +254,16 @@ ST_RES = 64      # scenes/surfaceTurbulence.py (its res 32)
 VIC_RES = 64     # a sphere's vortex sheet (tests/test_vortex.py's 16^3)
 FLIP06_RES = 128  # scenes/flip06_obstacle.py's res argument (its 48)
 FLIP06_FRAMES = 20
+ML_RES = 128        # ML-FLIP with the net in the loop (the scene's 32)
+ML_SCENE_RES = 32   # scenes/mlflip.py's own stages: res, gen-data frames
+ML_GEN_FRAMES = 25  # and training steps
+ML_TRAIN_STEPS = 120
+ML_DATASET_RES = 64  # create_dataset smoke (64x96x64) and flip
+ML_SR_RES = 64      # the SR example's high-res plume
+ML_DEMO_RES = 128   # the resnet's NN-projected loop
+ML_AE_RES = 64      # the 2D autoencoder's frames
+ML_CMP_RES = 20     # ML-FLIP card vs CPU
+ML_PER_STEP = {"cg_solve": 1, "extrap_layer": 6}  # an ML-FLIP step's kernels
 
 
 def flip_bench_params(flip):
@@ -534,6 +568,597 @@ def timed_launches(torch, fn, reps, names, launches, graph=False):
     print(f"{what}: {why}; timed with CUDA events, {call * 1e3:.1f} "
           "us/launch", flush=True)
     return call, call, "events"
+
+
+def moved(obj, device):
+    """A copy of a state dataclass (nested dataclasses of tensors) on
+    ``device``."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: moved(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None})
+    return obj
+
+
+def ml_toolbox_phase(torch, dev, h):
+    """Phase 31: the ML toolbox on the card. ``h`` carries main()'s
+    helpers and records (check_call, cg_check_by_residual,
+    tracked_iterations, time_kernel, errs, fk, scene_kernels, scene_paths,
+    smoke_paths) and the card's nvidia-smi line (card). Returns (numbers,
+    K2's max abs error)."""
+    import io
+    import os
+    import shutil
+    import tempfile
+    from statistics import median
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mantaflow_tpu_torch.core import flags as fl
+    from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.ml import create_dataset as mlcli
+    from mantaflow_tpu_torch.ml import datagen as mldg
+    from mantaflow_tpu_torch.ml import gan as mlgan
+    from mantaflow_tpu_torch.ml import mlflip as mlf
+    from mantaflow_tpu_torch.ml import models as mlm
+    from mantaflow_tpu_torch.ml import resnet_example as mlres
+    from mantaflow_tpu_torch.ml import simple_example as mlse
+    from mantaflow_tpu_torch.ml import sr_example as mlsr
+    from mantaflow_tpu_torch.models import flip
+    from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
+    from mantaflow_tpu_torch.ops import pressure as prs
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+
+    numbers = {}
+    k2_err = 0.0
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def counted(fn):
+        """fn() with every kernel's count set to 0 just before and read
+        just after: (fn's result, the launches)."""
+        torch.cuda.synchronize()
+        for k_ in h.scene_kernels.values():
+            k_.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k_: getattr(f_, "launches", 0)
+                     for k_, f_ in h.scene_kernels.items()}
+
+    # scenes/mlflip.py's settings
+    params = flip.FlipParams(gravity=(0.0, -0.03, 0.0), cg_accuracy=1e-3,
+                             flip_ratio=0.97)
+
+    # 1. the scene's three stages at its own settings, through the API
+    sdom = Domain(size=(ML_SCENE_RES,) * 3)
+    t0 = time.perf_counter()
+    feats, labels, modvels, _ = mlf.generate_training_data(
+        sdom, params, n_frames=ML_GEN_FRAMES, window=1, drop_speed=4.0,
+        device=dev)
+    gen_s = sync_s(t0)
+    n_splash = int((labels > 0.5).sum())
+    require(feats.shape[1] == 108 and feats.shape[0] == len(labels)
+            and bool(np.isfinite(feats).all())
+            and bool(np.isfinite(modvels).all()),
+            f"mlflip gen-data: features {feats.shape}")
+    require(n_splash > 0, "mlflip gen-data: no splash label")
+    t0 = time.perf_counter()
+    net, net_params, scale, losses = mlf.train(
+        feats, labels, modvels, hidden=32, n_steps=ML_TRAIN_STEPS,
+        batch=128, device=dev)
+    train_s = sync_s(t0)
+    loss_first, loss_last = (float(np.mean(losses[:10])),
+                             float(np.mean(losses[-10:])))
+    require(bool(np.isfinite(losses).all()) and loss_last < loss_first,
+            f"mlflip train: loss {loss_first} -> {loss_last}")
+    st = mlf.make_mlflip_state(sdom, params, drop_speed=4.0, device=dev)
+    t0 = time.perf_counter()
+    st = mlf.run_with_net(st, sdom, params, net, net_params, scale,
+                          n_steps=10)
+    run_s = sync_s(t0)
+    n_ball = int(((st.ptype == fl.TypeEmpty) & st.parts.active_mask()).sum())
+    require(bool(torch.isfinite(st.vel).all()) and int(st.ts.count) == 10,
+            "mlflip 32^3 with the net: state")
+    numbers["scene_stages_32"] = {
+        "gen_frames": ML_GEN_FRAMES, "gen_s": gen_s,
+        "candidates": int(feats.shape[0]), "splash_labels": n_splash,
+        "train_steps": ML_TRAIN_STEPS, "train_s": train_s,
+        "loss_first10": loss_first, "loss_last10": loss_last,
+        "net_steps": 10, "net_steps_s": run_s, "ballistic": n_ball,
+        "particles": int(st.parts.count)}
+    print(f"mlflip scene stages at {ML_SCENE_RES}^3 on the card: gen-data "
+          f"{ML_GEN_FRAMES} frames {gen_s:.2f} s, {feats.shape[0]} "
+          f"candidates, {n_splash} splash labels; train {ML_TRAIN_STEPS} "
+          f"steps {train_s:.2f} s, loss {loss_first:.4f} -> "
+          f"{loss_last:.4f}; 10 steps with the net {run_s:.2f} s, "
+          f"{n_ball} ballistic of {int(st.parts.count)} particles "
+          "(the scene file's summary line reads np.asarray of CUDA "
+          "tensors: it runs with --device cpu only)", flush=True)
+
+    # 2. ML-FLIP at ML_RES^3 with the trained net in the loop
+    mdom = Domain(size=(ML_RES,) * 3)
+    T = mdom.num_cells
+    st = mlf.make_mlflip_state(mdom, params, drop_speed=4.0, device=dev)
+    n_parts = int(st.parts.count)
+    n_act = int(st.parts.active_mask().sum())
+    scaled = mlf.ScaledNet(net, torch.as_tensor(scale, device=dev))
+
+    def step(s):
+        return mlf.mlflip_step(s, mdom, params, net=scaled,
+                               net_params=net_params)
+
+    block_ev = []
+    orig_block = mlf.ml_block
+
+    def timed_block(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_block(*a, **kw)
+        e1.record()
+        block_ev.append((e0, e1))
+        return out
+
+    def drive(s):
+        s = step(s)  # warm
+        evs, its = [], []
+        for _ in range(20):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            s = step(s)
+            e1.record()
+            evs.append((e0, e1))
+            its.append(s.cg_iters)
+        return s, evs, its
+
+    mlf.ml_block = timed_block
+    try:
+        (st, evs, its), got = counted(lambda: drive(st))
+    finally:
+        mlf.ml_block = orig_block
+    n_steps = 21
+    for k_, n_ in got.items():
+        want = ML_PER_STEP.get(k_, 0) * n_steps
+        require(n_ == want, f"mlflip {ML_RES}^3: {k_} launched {n_} times "
+                f"in {n_steps} steps (expected {want})")
+    step_ms = [a.elapsed_time(b) for a, b in evs]
+    block_ms = [a.elapsed_time(b) for a, b in block_ev[1:]]
+    its = [int(i) for i in its]
+    act = st.parts.active_mask()
+    require(int(st.parts.count) == n_parts and int(act.sum()) == n_act,
+            f"mlflip {ML_RES}^3: particles {int(act.sum())} of {n_act}")
+    for k_ in ("vel", "vel_old", "pressure", "phi"):
+        require(bool(torch.isfinite(getattr(st, k_)).all()),
+                f"mlflip {ML_RES}^3: {k_} not finite")
+    require(bool(torch.isfinite(st.parts.pos[act]).all())
+            and bool(torch.isfinite(st.pvel[act]).all()),
+            f"mlflip {ML_RES}^3: particles not finite")
+    require(bool(torch.isin(st.ptype[act], torch.tensor(
+        [fl.TypeFluid, fl.TypeEmpty], device=dev)).all())
+        and not bool(st.ptype[~act].any()),
+        f"mlflip {ML_RES}^3: ptype outside {{0, fluid, empty}}")
+    n_ball = int(((st.ptype == fl.TypeEmpty) & act).sum())
+    # a profiler window of 5 developed steps: device busy and idle
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(5):
+            st = step(st)
+        t1.record()
+        torch.cuda.synchronize()
+    traced_ms = t0.elapsed_time(t1) / 5
+    busy_us, dev_count = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            busy_us += us
+            dev_count += e.count
+    busy_ms = busy_us / 1e3 / 5
+    require(busy_ms > 0, f"mlflip {ML_RES}^3: the trace holds no device time")
+    h.scene_paths[f"mlflip_{ML_RES}"] = got
+    mnum = {
+        "particles": n_parts, "steps_run": n_steps + 5,
+        "ms_per_step_cold_median": median(step_ms[:10]),
+        "ms_per_step_developed_median": median(step_ms[10:]),
+        "ms_per_step": step_ms, "cg_iters_per_step": its,
+        "ml_block_ms_median": median(block_ms[-10:]),
+        "ml_block_ms": block_ms,
+        "kernel_launches_per_step": {k_: v / n_steps for k_, v in got.items()
+                                     if v},
+        "traced_wall_ms_per_step": traced_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_launches_per_step": dev_count / 5,
+        "idle_share_traced": 1.0 - busy_ms / traced_ms,
+        "ballistic_after_21": n_ball}
+    print(f"mlflip {ML_RES}^3 with the net ({n_parts} particles; "
+          f"{h.card}): "
+          f"{mnum['ms_per_step_cold_median']:.1f} ms/step cold, "
+          f"{mnum['ms_per_step_developed_median']:.1f} developed (medians "
+          f"of 10, CUDA events), CG it/step {its}, ML block "
+          f"{mnum['ml_block_ms_median']:.1f} ms; traced {traced_ms:.1f} "
+          f"ms/step, device busy {busy_ms:.1f} ms, {dev_count / 5:.0f} "
+          f"device launches a step, idle "
+          f"{100 * mnum['idle_share_traced']:.1f} %; kernel launches a "
+          f"step {mnum['kernel_launches_per_step']}; {n_ball} ballistic",
+          flush=True)
+    # K2 (by its residual) and K14 of a developed step against their plain
+    # versions, and timed on its inputs
+    calls = {"cg_solve": [], "extrap_layer": []}
+    with recording(prk, "cg_solve", calls["cg_solve"]), \
+            recording(xk, "extrap_layer", calls["extrap_layer"]):
+        st = step(st)
+    torch.cuda.synchronize()
+    require(len(calls["cg_solve"]) == 1 and len(calls["extrap_layer"])
+            == ML_PER_STEP["extrap_layer"], "mlflip: kernel calls in a step")
+    for args, kwargs in calls["extrap_layer"]:
+        h.errs["extrap_layer"] = max(h.errs["extrap_layer"], h.check_call(
+            "extrap_layer", args, kwargs))
+    (cg_args, cg_kw), = calls["cg_solve"]
+    tracked, drift = h.tracked_iterations(cg_args[0], cg_args[1],
+                                          cg_kw["fluid"], mdom)
+    k2_err = max(k2_err, h.cg_check_by_residual(
+        cg_args[0], cg_args[1], cg_kw["fluid"], cg_args[3], cg_args[4],
+        mdom, early=tracked))
+    m_it = int(prk.cg_solve(*cg_args, **cg_kw)[1])
+    h.time_kernel("cg_solve_mlflip", "cg_kernel<false>", calls["cg_solve"],
+                  prk.cg_solve, prs.cg_plain, 6 * 4 * T, m_it * 24 * T,
+                  f"mlflip {ML_RES}^3 developed solve, {m_it} it")
+    h.fk["cg_solve_mlflip"].update(
+        iterations=m_it, us_per_iteration=h.fk["cg_solve_mlflip"]["ms"]
+        * 1e3 / max(m_it, 1), launches_per_step=1,
+        cg_float32_tracks_float64_iterations=[tracked, drift])
+    layers = calls["extrap_layer"]
+    pairs = sum(len(a[0]) for a, _ in layers) / len(layers)
+    h.time_kernel("extrap_layer_mlflip", "extrap_layer_kernel<true>", layers,
+                  xk.extrap_layer, xk.extrap_layer_plain, pairs * 16 * T,
+                  pairs * 20 * T, f"mlflip {ML_RES}^3 developed step's layers")
+    h.fk["extrap_layer_mlflip"]["launches_per_step"] = len(layers)
+    numbers[f"mlflip_{ML_RES}"] = mnum
+    print(f"mlflip {ML_RES}^3 developed step, kernels vs plain: extrap_layer "
+          f"{h.errs['extrap_layer']:.3g}; cg_solve {m_it} it at "
+          f"{h.fk['cg_solve_mlflip']['us_per_iteration']:.1f} us/it",
+          flush=True)
+    del st, calls, layers, cg_args, cg_kw, evs, block_ev
+    torch.cuda.empty_cache()
+
+    # 3. the other pipelines at stated sizes, timed
+    tmp = tempfile.mkdtemp()
+    try:
+        pipes = {}
+
+        pipe_launches = dict.fromkeys(h.scene_kernels, 0)
+
+        def timed(name, fn):
+            t0_ = time.perf_counter()
+            out_, got_ = counted(fn)
+            pipes[name] = {"s": time.perf_counter() - t0_,
+                           "kernel_launches": {k_: v for k_, v in
+                                               got_.items() if v}}
+            for k_, v in got_.items():
+                pipe_launches[k_] += v
+            return out_, got_
+
+        ds_args = ["-n", "2", "-s", "3", "--resolution", str(ML_DATASET_RES),
+                   "--datasets_path", tmp, "--device", str(dev)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, got = timed("create_dataset_smoke", lambda: mlcli.main(
+                ["--name", "smoke", "-t", "smoke"] + ds_args))
+        require(got["window_advect"] == 8 * 6 and got["cg_solve"] == 6,
+                f"create_dataset smoke: launches {got}")
+        # K1's launches by path (its K2 launches are in the pipelines')
+        h.smoke_paths[f"ml_smoke_dataset_{ML_DATASET_RES}"] = {
+            "window_advect": got["window_advect"], "window_advect_zshard": 0,
+            "cg_solve": 0}
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, got = timed("create_dataset_flip", lambda: mlcli.main(
+                ["--name", "flip", "-t", "flip"] + ds_args))
+        require(got["cg_solve"] == 6 and got["extrap_layer"] == 60,
+                f"create_dataset flip: launches {got}")
+        for name in ("smoke", "flip"):
+            path = os.path.join(tmp, name)
+            n_files = sum(len(fs) for _, _, fs in os.walk(path))
+            desc = json.load(open(os.path.join(path, "description.json")))
+            require(n_files == 2 * 3 * len(desc["fields"]) + 1,
+                    f"create_dataset {name}: {n_files} files")
+            for f_ in desc["fields"]:
+                a_ = mldg.load_dataset(path, f_)
+                require(len(a_) == 2 and all(np.isfinite(x).all()
+                                             for x in a_[0] + a_[1]),
+                        f"create_dataset {name}: {f_}")
+        (xs, ys), _ = timed("sr_generate_pairs", lambda: mlsr.generate_pairs(
+            res=ML_SR_RES, device=dev))
+        (sr_net, sr_params, sr_losses), _ = timed(
+            "sr_train_50", lambda: mlsr.train_sr(xs, ys, n_steps=50,
+                                                 device=dev))
+        c_ = ML_SR_RES // 2
+        nt_ = c_ // 8
+        coarse = xs[:nt_ ** 3, ..., 0].reshape(nt_, nt_, nt_, 8, 8, 8) \
+            .transpose(0, 3, 1, 4, 2, 5).reshape(c_, c_, c_)
+        fine, _ = timed("sr_apply_frame", lambda: mlsr.apply_sr(
+            sr_net, sr_params, coarse))
+        require(fine.shape == (ML_SR_RES,) * 3 and np.isfinite(fine).all()
+                and np.isfinite(sr_losses).all(), "sr: output")
+
+        (pxs, pys), got = timed("resnet_pairs_24",
+                                lambda: mlres.generate_pressure_pairs(
+                                    res=24, device=dev))
+        require(got["cg_solve"] == 24, f"resnet pairs: launches {got}")
+        (r_net, r_params, r_losses, r_sc), _ = timed(
+            "resnet_train_300", lambda: mlres.train_pressure_net(
+                pxs, pys, device=dev))
+        quality = mlres.evaluate_projection(r_net, r_params, r_sc,
+                                            pxs[-4:], pys[-4:])
+        ddom, dparams, dst = mlres.demo_state(ML_DEMO_RES, 3, dev)
+        pairs_ = []
+
+        def demo():
+            s_ = dst
+            for _ in range(5):
+                s_, b_, a_ = mlres.nn_projection_step(
+                    s_, ddom, dparams, r_net, r_params, r_sc)
+                pairs_.append((float(b_), float(a_)))
+            return s_
+        dst, got = timed(f"resnet_demo_{ML_DEMO_RES}_5_steps", demo)
+        require(got["cg_solve"] == 0 and all(np.isfinite(pairs_).ravel()),
+                f"resnet demo: {got}, {pairs_}")
+        # the projection alone on the same step: the net's inference and
+        # the CG solve (K2) of the same system
+        rhs = prs.make_rhs(dst.flags, dst.vel, ddom)
+        inp = torch.stack([rhs / r_sc[0], fl.is_fluid(dst.flags).to(
+            torch.float32)], dim=-1)[None]
+
+        def nn_proj():
+            with torch.inference_mode():
+                return r_net.apply(r_params, inp)
+        nn_ms = cuda_ms(torch, nn_proj, 5)
+        cg_ms = cuda_ms(torch, lambda: prs.solve_pressure(
+            dst.vel, dst.flags, ddom, cg_accuracy=dparams.cg_accuracy), 3)
+        cg_it = int(prs.solve_pressure(dst.vel, dst.flags, ddom,
+                                       cg_accuracy=dparams.cg_accuracy)[3])
+        numbers["resnet_demo"] = {
+            "res": ML_DEMO_RES, "div_before_after": pairs_,
+            "heldout_quality": quality, "nn_projection_ms": nn_ms,
+            "cg_solve_ms": cg_ms, "cg_iterations": cg_it,
+            "train_loss_first10": float(np.mean(r_losses[:10])),
+            "train_loss_last10": float(np.mean(r_losses[-10:]))}
+
+        (frames), got = timed("ae_frames_64_2d",
+                              lambda: mlse.generate_densities(
+                                  res=ML_AE_RES, device=dev))
+        require(got["cg_solve"] == 80, f"ae frames: launches {got}")
+        (_, _, ae_losses, ae_cost), _ = timed(
+            "ae_train_200", lambda: mlse.train_autoencoder(frames,
+                                                           device=dev))
+        require(np.isfinite(ae_losses).all() and np.isfinite(ae_cost),
+                "ae: losses")
+
+        def gan_pairs():
+            g_ = mlgan.make_gan_states(
+                torch.from_numpy(xs[:8]).to(dev),
+                torch.from_numpy(ys[:8]).to(dev))
+            out_ = []
+            for i in range(20):
+                sl = slice(8 * i % (len(xs) - 8), 8 * i % (len(xs) - 8) + 8)
+                c_t = torch.from_numpy(xs[sl]).to(dev)
+                f_t = torch.from_numpy(ys[sl]).to(dev)
+                _, _, dl = g_["disc_step"](g_["gen_params"],
+                                           g_["disc_params"], None, c_t, f_t)
+                _, _, gl = g_["gen_step"](g_["gen_params"],
+                                          g_["disc_params"], None, c_t, f_t)
+                out_.append((float(dl), float(gl)))
+            return out_
+        gan_l, _ = timed("gan_20_step_pairs", gan_pairs)
+        require(np.isfinite(gan_l).all(), "gan: losses")
+        # K2's and K14's launches by path (K1's: the smoke dataset's above)
+        h.scene_paths["ml_pipelines"] = pipe_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["pipelines"] = pipes
+    print("ML pipelines on the card (s): " + ", ".join(
+        f"{k_} {v['s']:.2f}" for k_, v in pipes.items())
+        + f"; resnet demo {ML_DEMO_RES}^3: NN projection {nn_ms:.2f} ms vs "
+        f"the K2 solve {cg_ms:.2f} ms ({cg_it} it) on the same step, "
+        f"divergence before/after {pairs_[-1]}", flush=True)
+
+    # 4. card against CPU on the same carried weights and batches
+    cmp = {}
+    cdom = Domain(size=(ML_CMP_RES,) * 3)
+    cpu_params = {k_: v.cpu() for k_, v in net_params.items()}
+    cpu_net = mlm.load_params(mlm.MLFlipNet(hidden=32), cpu_params)
+    nets = {str(dev): mlf.ScaledNet(net, torch.as_tensor(scale, device=dev)),
+            "cpu": mlf.ScaledNet(cpu_net, torch.as_tensor(scale))}
+    nparams = {str(dev): net_params, "cpu": cpu_params}
+    seen = []
+
+    def capture(*a, **kw):
+        seen.append(a[0])
+        return orig_block(*a, **kw)
+    runs = {}
+    for d_ in (dev, "cpu"):
+        s_ = mlf.make_mlflip_state(cdom, params, drop_speed=4.0, device=d_)
+        if d_ == dev:
+            mlf.ml_block = capture
+        try:
+            for _ in range(3):
+                s_ = mlf.mlflip_step(s_, cdom, params, net=nets[str(d_)],
+                                     net_params=nparams[str(d_)])
+        finally:
+            mlf.ml_block = orig_block
+        runs[str(d_)] = s_
+    g_, c_ = runs[str(dev)], runs["cpu"]
+    for what, a_, b_ in (("flags", g_.flags, c_.flags),
+                         ("ptype", g_.ptype, c_.ptype),
+                         ("particle flags", g_.parts.flags, c_.parts.flags),
+                         ("count", g_.parts.count, c_.parts.count)):
+        require(torch.equal(a_.cpu(), b_),
+                f"mlflip {ML_CMP_RES}^3 card vs CPU: {what} differ")
+    gerr = max(float((getattr(g_, k_).cpu() - getattr(c_, k_)).abs().max())
+               for k_ in ("vel", "phi"))
+    perr = max(float((a_.cpu() - b_).abs().max()) for a_, b_ in (
+        (g_.parts.pos, c_.parts.pos), (g_.pvel, c_.pvel)))
+    require(gerr < 2e-4 and perr < 1e-4,
+            f"mlflip {ML_CMP_RES}^3 card vs CPU: grids {gerr}, particles "
+            f"{perr}")
+    # the ML block on equal inputs (each card step's post-projection state
+    # and its copy on the CPU): the splash decisions equal wherever the
+    # detector's probability is more than 1e-5 from the threshold, the
+    # velocity modifications to 1e-5 of their scale
+    undecided, dv_err, splashers = 0, 0.0, 0
+    for s_g in seen:
+        s_c = moved(s_g, "cpu")
+        pt_g, dv_g = orig_block(s_g, cdom, params, nets[str(dev)], net_params)
+        pt_c, dv_c = orig_block(s_c, cdom, params, nets["cpu"], cpu_params)
+        cand, ptmp = mlf.surface_candidates(s_c, cdom)
+        with torch.inference_mode():
+            logit = nets["cpu"].apply(cpu_params, mlf.extract_features(
+                s_c, ptmp, cdom))[0]
+        close = cand & ((torch.sigmoid(logit) - 0.5).abs() <= 1e-5)
+        diff = pt_g.cpu() != pt_c
+        require(not bool((diff & ~close).any()),
+                "mlflip card vs CPU: a splash decision differs")
+        undecided += int(close.sum())
+        both = ~diff
+        dv_err = max(dv_err, float((dv_g.cpu() - dv_c)[both].abs().max())
+                     / max(float(dv_c.abs().max()), 1.0))
+        splashers += int((pt_c == fl.TypeEmpty).sum())
+    require(dv_err < 1e-5, f"mlflip card vs CPU: velocity modification "
+            f"{dv_err}")
+    cmp[f"mlflip_{ML_CMP_RES}_3_steps"] = {
+        "grids": gerr, "particles": perr, "ml_blocks": len(seen),
+        "splashers": splashers, "undecided_within_1e-5": undecided,
+        "dv_rel_err": dv_err}
+
+    # 5 Adam steps of each model from the same initial weights, on the same
+    # batches: the losses to 1e-5 relative, the parameters to 1e-5 relative
+    # plus a tenth of the learning rate. Adam's first steps move an entry
+    # by about lr whatever its gradient's size, so an entry whose gradient
+    # is near zero moves by a share of lr that the gradient's rounding
+    # decides: cuBLAS sums the autoencoder's 4096-wide layers in another
+    # order than the CPU, and such entries part by up to 5.1e-5 at lr 1e-3
+    # (NVIDIA H100 80GB HBM3, 700 W)
+    rs = np.random.RandomState(31)
+
+    def params_err(sg, sc, lr):
+        """How far the card's parameters lie beyond 1e-5 of the CPU's
+        plus lr / 10 (negative: inside)."""
+        return max(float(((sg[k_].cpu() - sc[k_]).abs()
+                          - 1e-5 * sc[k_].abs()).max()) for k_ in sc) \
+            - 0.1 * lr
+
+    def adam_pair(name, make, sample, batches, loss):
+        nc = make()
+        mlm.init_params(nc, 0, *[torch.from_numpy(x) for x in sample])
+        ng = mlm.load_params(make(), nc.state_dict(), device=dev)
+        out = {}
+        for d_, n_ in ((dev, ng), ("cpu", nc)):
+            opt = mlm.adam(n_, 1e-3)
+            ls = []
+            for b in batches:
+                bt = [torch.from_numpy(x).to(d_) for x in b]
+                ls.append(float(mlm.train_step(n_, opt,
+                                               lambda: loss(n_, *bt))))
+            out[str(d_)] = (ls, n_.state_dict())
+        (lg, sg), (lc, sc) = out[str(dev)], out["cpu"]
+        lerr = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, lc))
+        perr_ = params_err(sg, sc, 1e-3)
+        require(lerr < 1e-5 and perr_ < 0,
+                f"{name} card vs CPU after 5 Adam steps: loss {lerr}, "
+                f"params {perr_} beyond the bound")
+        return {"loss_rel_err": lerr, "params_beyond_bound": perr_,
+                "param_max_abs_err": max(float((sg[k_].cpu() - sc[k_])
+                                               .abs().max()) for k_ in sc)}
+
+    def mse(n_, x, y):
+        return torch.mean((n_(x) - y) ** 2)
+
+    def rnd(*shape):
+        return rs.randn(*shape).astype(np.float32)
+    adam = {
+        "MLFlipNet": adam_pair(
+            "MLFlipNet", lambda: mlm.MLFlipNet(hidden=32), [rnd(1, 108)],
+            [(rnd(128, 108), (rs.rand(128) < 0.5).astype(np.float32),
+              rnd(128, 3)) for _ in range(5)], mlf.mlflip_loss),
+        "TiledSRNet": adam_pair(
+            "TiledSRNet", lambda: mlm.TiledSRNet(upres=2),
+            [rnd(1, 8, 8, 8, 1)],
+            [(rnd(8, 8, 8, 8, 1), rnd(8, 16, 16, 16, 1)) for _ in range(5)],
+            mse),
+        "PressureResNet": adam_pair(
+            "PressureResNet", lambda: mlm.PressureResNet(features=8,
+                                                         blocks=2),
+            [rnd(1, 24, 24, 24, 2)],
+            [(rnd(4, 24, 24, 24, 2), rnd(4, 24, 24, 24)) for _ in range(5)],
+            mlres.resnet_loss),
+        "DenseAutoencoder": adam_pair(
+            "DenseAutoencoder", lambda: mlse.DenseAutoencoder(),
+            [rnd(1, 64, 64, 1)],
+            [(x, x) for x in (rnd(10, 64, 64, 1) for _ in range(5))], mse)}
+    # the GAN's alternating steps from the same weights
+    gan_out = {}
+    cs, fs = rnd(4, 8, 8, 8, 1), rnd(4, 16, 16, 16, 1)
+    g0 = mlgan.make_gan_states(torch.from_numpy(cs), torch.from_numpy(fs))
+    for d_ in (dev, "cpu"):
+        gen = mlm.load_params(mlgan.ResUpresGenerator(upres=2),
+                              g0["gen"].state_dict(), device=d_)
+        disc = mlm.load_params(mlgan.PatchDiscriminator(),
+                               g0["disc"].state_dict(), device=d_)
+        gs, ds = mlgan.gan_train_steps(gen, disc, mlm.adam(gen, 1e-4),
+                                       mlm.adam(disc, 1e-4))
+        ls = []
+        for i in range(5):
+            c_t = torch.from_numpy(cs + 0.1 * i).to(d_)
+            f_t = torch.from_numpy(fs - 0.1 * i).to(d_)
+            ls.append(float(ds(None, None, None, c_t, f_t)[2]))
+            ls.append(float(gs(None, None, None, c_t, f_t)[2]))
+        gan_out[str(d_)] = (ls, {**gen.state_dict(), **{
+            "disc." + k_: v for k_, v in disc.state_dict().items()}})
+    (lg, sg), (lc, sc) = gan_out[str(dev)], gan_out["cpu"]
+    lerr = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, lc))
+    perr_ = params_err(sg, sc, 1e-4)
+    require(lerr < 1e-5 and perr_ < 0,
+            f"GAN card vs CPU after 5 step pairs: loss {lerr}, params "
+            f"{perr_} beyond the bound")
+    adam["GAN"] = {"loss_rel_err": lerr, "params_beyond_bound": perr_,
+                   "param_max_abs_err": max(float((sg[k_].cpu() - sc[k_])
+                                                  .abs().max()) for k_ in sc)}
+    cmp["adam_5_steps"] = adam
+
+    # one dataset frame of each generator at 16^3
+    tmp = tempfile.mkdtemp()
+    try:
+        ds_err = {}
+        for kind, fn in (("smoke", mldg.generate_smoke_dataset),
+                         ("flip", mldg.generate_flip_dataset)):
+            for d_ in (dev, "cpu"):
+                fn(os.path.join(tmp, kind, str(d_)), num_sims=1,
+                   num_frames=1, res=16, device=d_)
+            base = os.path.join(tmp, kind, "cpu", "sim_000000")
+            for f_ in sorted(os.listdir(base)):
+                a_ = np.load(os.path.join(base, f_))["data"]
+                b_ = np.load(os.path.join(tmp, kind, str(dev), "sim_000000",
+                                          f_))["data"]
+                require(a_.shape == b_.shape and a_.dtype == b_.dtype,
+                        f"dataset {kind} {f_}: shapes")
+                ds_err[f"{kind}/{f_}"] = float(np.abs(a_ - b_).max())
+        tol = {"parts": 1e-4, "pvel": 1e-4}
+        for k_, e in ds_err.items():
+            require(e < tol.get(k_.split("/")[1].split("_")[0], 2e-4),
+                    f"dataset card vs CPU: {k_} {e}")
+        cmp["dataset_frame_16"] = ds_err
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["card_vs_cpu"] = cmp
+    print(f"ML card vs CPU: {json.dumps(cmp)}", flush=True)
+    return numbers, k2_err
 
 
 def main():
@@ -868,6 +1493,7 @@ def main():
     # form that passes invalid slots through
     flip_kernels = {"advect_bucket": fadk.advect_blend_live,
                     "advect_bucket_public": fadk.advect_blend,
+                    "advect_bucket_no_blend": fadk.advect,
                     "rebin_fused": rbk.rebin_fused,
                     "rebin_fused_slab": rbk.rebin_fused_slab,
                     "rebin": rbk.rebin_pass,
@@ -1204,7 +1830,45 @@ def main():
         errs["advect_bucket"] = max(errs["advect_bucket"], check_call(
             "advect_bucket", (b_, f_, v_, vo_, dt_,
                               torch.tensor(pend, device=dev),
-                              fparams.flip_ratio, d_, mode, ring), {}))
+                              fparams.flip_ratio, d_, mode),
+            {"ring_only": ring}))
+    # K3's form without the blend (advect: the kernel's kBlend = false
+    # instances, advect_pallas) with and without stopping, and the blend
+    # form without stopping (kStop = false), on the same sweep (the 24^3
+    # corner dam and the developed 128^3 inputs) against their plain
+    # versions, held as the step's form is (abs 1e-6); the form without the
+    # blend passes the velocities through untouched
+    forms_err = {"no_blend": 0.0, "no_stop": 0.0}
+    forms_bitwise = {"no_blend": True, "no_stop": True}
+    for b_, f_, v_, vo_, dt_, pend, mode, ring, d_ in options:
+        if pend:
+            for stop in (True, False):
+                got = fadk.advect(b_, f_, v_, dt_, d_, mode, ring_only=ring,
+                                  stop_in_obstacle=stop)
+                ref = fb.advect_bucketed(b_, f_, v_, dt_, d_, mode, stop,
+                                         ring)
+                for f in fields6:
+                    same = torch.equal(getattr(got, f), getattr(ref, f))
+                    if f in ("vx", "vy", "vz"):
+                        require(same, f"advect (no blend): {f} changed")
+                    forms_bitwise["no_blend"] &= same
+                    forms_err["no_blend"] = max(forms_err["no_blend"], float(
+                        (getattr(got, f) - getattr(ref, f)).abs().max()))
+        args = (b_, f_, v_, vo_, dt_, torch.tensor(pend, device=dev),
+                fparams.flip_ratio, d_, mode)
+        got = fadk.advect_blend(*args, ring_only=ring, stop_in_obstacle=False)
+        ref = fadk.advect_blend_plain(*args, ring_only=ring,
+                                      stop_in_obstacle=False)
+        for f in fields6:
+            forms_bitwise["no_stop"] &= torch.equal(getattr(got, f),
+                                                    getattr(ref, f))
+            forms_err["no_stop"] = max(forms_err["no_stop"], float(
+                (getattr(got, f) - getattr(ref, f)).abs().max()))
+    require(max(forms_err.values()) <= 1e-6,
+            f"advect forms without blend / stop: max abs err {forms_err}")
+    print(f"advect_bucket's forms without the blend and without stopping vs "
+          f"plain over {len(options)} cases: {forms_err}, bit for bit "
+          f"{forms_bitwise}", flush=True)
     # the rebin on a 24^3 overflow (displacements of a cell), the overflow
     # fixture of tests/test_flip_bucket.py and made-up buckets over
     # 19x23x29 (1, 24 and 40 slots, up to 1.45 cells from the centre): the
@@ -1248,15 +1912,17 @@ def main():
     live = int(bk128.valid.sum())
     fk = {}
 
-    def time_kernel(kind, kname, calls, fn, plain, nbytes, nops, what):
+    def time_kernel(kind, kname, calls, fn, plain, nbytes, nops, what,
+                    graph=False):
         """Device ms per launch of ``fn`` over the recorded calls, the
         plain version's ms, and the bound from the bytes and operations
-        the function needs for these inputs."""
+        the function needs for these inputs (``graph``: ``fn`` only
+        allocates and launches, timed_launches' graph fallback)."""
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = nops / FP32_OPS_PER_S * 1e3
         ms, call_ms, timed_by = timed_launches(
             torch, replay(calls, fn), 5, kname, len(calls),
-            graph=kname.startswith("extrap_layer"))
+            graph=graph or kname.startswith("extrap_layer"))
         fk[kind] = {
             "ms": ms, "call_ms": call_ms, "timed_by": timed_by,
             "plain_ms": cuda_ms(torch, replay(calls, plain), 1) / len(calls),
@@ -1321,7 +1987,8 @@ def main():
             "extrap_layer": 20 * sum(len(a[0]) for a, _ in
                                      dev_calls["extrap_layer"]) * T
             / len(dev_calls["extrap_layer"])}
-    for kind, kname in (("advect_bucket", "advect_live_kernel<false>"),
+    for kind, kname in (("advect_bucket",
+                         "advect_live_kernel<false,true,true>"),
                         ("rebin_fused", "rebin_fused_kernel<false>"),
                         ("p2g_levelset", "p2g_levelset_kernel"),
                         ("extrap_layer", "extrap_layer_kernel<true>")):
@@ -1348,6 +2015,48 @@ def main():
           f"{fk['advect_bucket_public']['bound_ms'] * 1e3:.1f} us, "
           f"{fk['advect_bucket_public']['bound_by']}; P {P}, {live} live, "
           "invalid slots copied through)", flush=True)
+    # K3's two other instances on the same inputs (RK4): without the blend,
+    # the live slots' positions read and written, vel alone staged (~500
+    # operations a particle: the RK4 less the blend's ~120); the blend form
+    # without stopping, the step form's bytes less the obstacle mask
+    ring128 = fparams.ring_only_obstacles
+    vb = sum(valid_bytes_read(a[0]) for a, _ in adv_calls) / len(adv_calls)
+    # each timed through its live form (outputs uninitialised, the kernel
+    # writes the live slots; the public wrappers first copy every slot's
+    # fields, 0.4-0.8 ms here), so that the profiler, CUDA events and a
+    # graph replay all read the kernel; the public wrappers' events time
+    # with their copies beside it
+    no_blend_calls = [((bk128, flags128, vel128, None, dt128, None, 0.0, fdom,
+                        2, ring128, True, False, "advect"), {})]
+
+    def no_blend_plain(b_, f_, v_, _vo, dt_, _p, _fr, d_, mode, ring, stop,
+                       _through, _who):
+        return fb.advect_bucketed(b_, f_, v_, dt_, d_, mode, stop, ring)
+    time_kernel("advect_bucket_no_blend",
+                "advect_live_kernel<false,false,true>", no_blend_calls,
+                fadk._advect_cuda, no_blend_plain,
+                24 * live + vb + 12 * T + (0 if ring128 else T), 500 * live,
+                f"P {P}, {live} live, without the blend", graph=True)
+    no_stop_calls = [((bk128, flags128, vel128, vold128, dt128,
+                       torch.tensor(True, device=dev), fparams.flip_ratio,
+                       fdom, 2), {"ring_only": ring128,
+                                  "stop_in_obstacle": False})]
+    time_kernel("advect_bucket_no_stop",
+                "advect_live_kernel<false,true,false>", no_stop_calls,
+                fadk.advect_blend_live, fadk.advect_blend_plain,
+                48 * live + vb + 24 * T, 600 * live,
+                f"P {P}, {live} live, without stopping", graph=True)
+    for kind, pub_calls, pub in (
+            ("advect_bucket_no_blend",
+             [((bk128, flags128, vel128, dt128, fdom, 2),
+               {"ring_only": ring128})], fadk.advect),
+            ("advect_bucket_no_stop", no_stop_calls, fadk.advect_blend)):
+        fk[kind]["public_call_ms"] = cuda_ms(torch, replay(pub_calls, pub),
+                                             5)
+        print(f"{kind}: the kernel {fk[kind]['ms'] * 1e3:.1f} us "
+              f"({fk[kind]['timed_by']}), the public wrapper with its "
+              f"copies {fk[kind]['public_call_ms'] * 1e3:.1f} us",
+              flush=True)
     # the developed bench dam's full-mode (ghost-fluid) solve: rhs and A0-Ak
     # in, p out, against its iterations x 24 flops per cell
     (cg_args, cg_kw), = dev_calls["cg_solve"]
@@ -1751,7 +2460,7 @@ def main():
             ("rebin_zshard", "rebin_zshard_kernel",
              mean_valid_bytes(zcalls["rebin_zshard"]) + 25 * zP * t_slab
              + 24 * z_live, 10 * z_live),
-            ("advect_bucket_zshard", "advect_live_kernel<true>",
+            ("advect_bucket_zshard", "advect_live_kernel<true,true,true>",
              advect_bytes(zcalls["advect_bucket_zshard"],
                           t_slab + 4 * FLIP_RES ** 2,
                           fparams.ring_only_obstacles), 620 * z_live),
@@ -4182,19 +4891,42 @@ def main():
         torch.cuda.synchronize()
         gold[name] = {"s": time.perf_counter() - t0_,
                       "grids": len(rec_.results),
+                      "diffs": {n_: d for n_, d, _, _ in rec_.results},
+                      "sha256": hashlib.sha256("".join(
+                          rec_.digests).encode()).hexdigest()[:12],
                       "worst_share_of_threshold": max(
                           (d / t if t > 0 else 0.0)
                           for _, d, t, _ in rec_.results)}
         del out
     gold_s = time.perf_counter() - t_gold
+    # the flat layout sums its scatters in one order (core/interp.py:
+    # add_at): the sloshing liquid, which parted whole particles from run
+    # to run under atomics, run again gives the same grids bit for bit
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = refgolden.run_ref_scene("test_1090_waveBench", dev)
+    again = hashlib.sha256("".join(again.digests).encode()).hexdigest()[:12]
+    require(again == gold["test_1090_waveBench"]["sha256"],
+            f"test_1090_waveBench run again: grids {again}, first run "
+            f"{gold['test_1090_waveBench']['sha256']}")
     scene_numbers["ref_goldens"] = {
-        "scenes": gold, "total_s": gold_s,
+        "scenes": gold, "total_s": gold_s, "repeat_sha256": again,
         "left_out": {**refgolden.LEFT_OUT, **refgolden.LEFT_OUT_ON_CARD}}
     print(f"reference goldens on the card: {len(gold)} scenes, "
           f"{sum(v['grids'] for v in gold.values())} grids, all within "
           f"their thresholds, {gold_s:.1f} s; slowest "
           f"{max(gold, key=lambda k: gold[k]['s'])} "
           f"{max(v['s'] for v in gold.values()):.1f} s", flush=True)
+
+    # 31. the ML toolbox: scenes/mlflip.py's stages, ML-FLIP at ML_RES^3
+    # with the net in the loop, the other pipelines, card against CPU
+    import types
+    ml_numbers, ml_k2_err = ml_toolbox_phase(torch, dev, types.SimpleNamespace(
+        check_call=check_call, cg_check_by_residual=cg_check_by_residual,
+        tracked_iterations=tracked_iterations, time_kernel=time_kernel,
+        errs=errs, fk=fk, scene_kernels=scene_kernels,
+        scene_paths=scene_paths, smoke_paths=smoke_paths, card=card))
+    k2_err = max(k2_err, ml_k2_err)
+    torch.cuda.empty_cache()
 
     # the smoke paths: the bench path (phase 2) and phases 17-19's
     smoke_paths = {"smoke_128": launches, **smoke_paths}
@@ -4266,7 +4998,8 @@ def main():
          "karman_3d_solve": fk["cg_solve_karman"],
          "fire_3d_solve": fk["cg_solve_fire"],
          "kepsilon_channel_solve": fk["cg_solve_kepsilon"],
-         "flip06_128_solve": fk["cg_solve_flip06"]},
+         "flip06_128_solve": fk["cg_solve_flip06"],
+         "mlflip_128_solve": fk["cg_solve_mlflip"]},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function
@@ -4299,10 +5032,24 @@ def main():
             entry["max_abs_err_with_obstacle"] = obstacle_err
             entry["public_form"] = fk["advect_bucket_public"]
             entry["poison_checks"] = poison_checks
+            # the kernel's other instances: held and timed in phase 7, on
+            # no main path (the port's FLIP steps blend and stop)
+            # (advect_pallas, and the kernel's stop_in_obstacle=False)
+            for form, inst, line in (
+                    ("no_blend", "<false,false,true>", 990),
+                    ("no_stop", "<false,true,false>", 80)):
+                entry[f"{form}_form"] = {
+                    "name": f"advect_bucket_{form}", "route": "cuda",
+                    "source": entry["source"], "replaces": f"{fbp}:{line}",
+                    "instance": "advect_live_kernel" + inst, "launches": 0,
+                    "max_abs_err": forms_err[form],
+                    "bitwise": forms_bitwise[form], "library_ms": None,
+                    **fk[f"advect_bucket_{form}"]}
         if kind == "extrap_layer":
             entry["flat_path"] = fk["extrap_layer_flat"]
             entry["karman_3d_path"] = fk["extrap_layer_karman"]
             entry["flip06_128_path"] = fk["extrap_layer_flip06"]
+            entry["mlflip_128_path"] = fk["extrap_layer_mlflip"]
         kernels.append(entry)
     # the layer kernel's 2D instance, on the 2D flat dam's layers
     kernels.append({
@@ -4340,7 +5087,7 @@ def main():
         "flat_128": flat_numbers, "apic_128": apic_numbers,
         **new_numbers, "flat_2d": d2_numbers,
         "scene_functions": scene_fn_numbers, **scene_numbers,
-        "breadth_ops": a13,
+        "breadth_ops": a13, "ml_toolbox": ml_numbers,
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

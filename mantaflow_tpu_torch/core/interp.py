@@ -190,6 +190,51 @@ def interpol_mac_fast(mac, pos_x, pos_y, pos_z, tables=None):
     return u, v, w
 
 
+def add_at(acc, index, values):
+    """``acc[index[i]] += values[i]`` along dim 0, with every sum in the
+    same order on every run. On a GPU ``index_add_`` adds by atomics, in
+    whatever order the threads arrive, so a chaotic scene run twice parts
+    after a few frames: there the sums go through ``sorted_add_at``. A
+    CPU's ``index_add_`` already adds in index order."""
+    if acc.is_cuda:
+        return sorted_add_at(acc, index, values)
+    return acc.index_add_(0, index, values)
+
+
+#: rows of one run of equal indices that ``sorted_add_at`` sums in turn;
+#: a longer run is summed in pieces of this many, then the pieces' sums
+#: in turn (``segment_reduce`` walks each run's column in one thread, so
+#: one long run, such as the flat layout's parked slots, 77,184 of them at
+#: 128^3, would hold the launch up). A liquid pressed against a wall puts
+#: over 64 particles in a cell (``test_1090_waveBench``)
+RUN_PIECE = 256
+
+
+def sorted_add_at(acc, index, values):
+    """``add_at`` by sorting: the rows ordered by index (stably, so equal
+    indices keep their order), each run of equal indices summed in turn
+    (``segment_reduce``; past ``RUN_PIECE`` rows, in pieces), each sum
+    added to its own row. On a CPU, into zeros (as every caller's
+    ``acc``) and with runs of up to ``RUN_PIECE`` rows, equal to
+    ``index_add_`` bit for bit."""
+    if index.numel() == 0:
+        return acc
+    dev = index.device
+    order = torch.argsort(index, stable=True)
+    rows, counts = torch.unique_consecutive(index[order], return_counts=True)
+    pieces = (counts + RUN_PIECE - 1) // RUN_PIECE
+    run = torch.repeat_interleave(
+        torch.arange(len(counts), device=dev), pieces)
+    k = torch.arange(len(run), device=dev) - (torch.cumsum(pieces, 0)
+                                              - pieces)[run]
+    lengths = torch.clamp(counts[run] - k * RUN_PIECE, max=RUN_PIECE)
+    part = torch.segment_reduce(values[order], "sum", lengths=lengths,
+                                axis=0)
+    acc[rows.long()] += torch.segment_reduce(part, "sum", lengths=pieces,
+                                             axis=0)
+    return acc
+
+
 def scatter_rows(shape, base, w, values):
     """Row-packed scatter-add, the inverse of interpol_rows: accumulates
     w*values into an auxiliary (T, 8|4) table with one scatter, then folds
@@ -208,7 +253,7 @@ def _fold_rows(shape, base, upd, m: int):
     offs = _corner_offsets(shape)
     k = len(offs)
     aux = torch.zeros((n, m * k), dtype=torch.float32, device=upd.device)
-    aux.index_add_(0, base.reshape(-1), upd.reshape(-1, m * k))
+    add_at(aux, base.reshape(-1), upd.reshape(-1, m * k))
     # one channel per row: a roll of a column would read every channel
     aux = aux.t().contiguous()
     outs = []

@@ -2,8 +2,15 @@
 // first stage, over the live slots only: the hand-written Hopper kernel
 // behind ops/advect_bucket_kernels.py (advect_blend_live, the step's form,
 // and advect_blend, which first copies every slot through), and in its
-// z-slab form (advect_live_kernel<true>) behind advect_blend_slab_live /
+// z-slab form (advect_live_kernel<true, ...>) behind advect_blend_slab_live /
 // advect_blend_slab, one launch per shard of the sharded step.
+//
+// advect_live_kernel<kSlab, kBlend, kStop>: kBlend = false is the form
+// without the blend (advect_pallas; ops/advect_bucket_kernels.py:advect):
+// positions only, vel_old, pending and the slot velocities neither read nor
+// written. kStop = false is stop_in_obstacle=False: no stage is zeroed for
+// leaving the bounds or entering an obstacle, and no final bisection; the
+// clamp to [0, n-1] stays, and the obstacle mask is neither read nor staged.
 //
 // Replaces the TPU kernel mantaflow_tpu/ops/flip_bucket_pallas.py:
 // _advect_kernel/_advect_tile (advect_blend_pallas, advect_pallas; the
@@ -14,12 +21,12 @@
 //
 // Semantics (flip_bucket.advect_bucketed after flip_update_bucketed):
 //   blend (where *pending): v = r (v + vnew - vold) + (1-r) vnew
-//   stages: u = clip(interpolMAC(vel, q) * dt, -1, 1), zeroed where q is out
-//     of bounds (bnd=1) or, unless ring_only, in an obstacle (the own cell's
-//     flag at stage 1, flags at trunc(q) after); Euler / RK2 midpoint / the
-//     fork's RK4 (2,2,2,1)/6
-//   p' = clip(p + clip(du, -1, 1), 0, n-1) (KnClampPositions), then
-//   bisectBacktracePos with 4 probes when p' is in an obstacle
+//   stages: u = clip(interpolMAC(vel, q) * dt, -1, 1), with kStop zeroed
+//     where q is out of bounds (bnd=1) or, unless ring_only, in an obstacle
+//     (the own cell's flag at stage 1, flags at trunc(q) after); Euler /
+//     RK2 midpoint / the fork's RK4 (2,2,2,1)/6
+//   p' = clip(p + clip(du, -1, 1), 0, n-1) (KnClampPositions), then with
+//   kStop bisectBacktracePos with 4 probes when p' is in an obstacle
 // The blend and stage 1 share their weights. The arithmetic keeps the plain
 // version's operation order (built with -fmad=false), so the two agree to
 // float rounding of the same sums.
@@ -117,12 +124,12 @@ struct AdvectArgs {
   const float* __restrict__ py;
   const float* __restrict__ pz;
   const unsigned char* __restrict__ valid;
-  const float* __restrict__ vx;  // blend inputs
+  const float* __restrict__ vx;  // blend inputs (kBlend)
   const float* __restrict__ vy;
   const float* __restrict__ vz;
   const float* __restrict__ vel;      // (3, gnz, sy, sx)
   const float* __restrict__ vel_old;  // (3, gnz, sy, sx)
-  const unsigned char* __restrict__ obs;  // (gnz, sy, sx), unless ring_only
+  const unsigned char* __restrict__ obs;  // (gnz, sy, sx): kStop, !ring_only
   const float* dt;
   const unsigned char* pending;
   float* opx;
@@ -231,13 +238,14 @@ __device__ __forceinline__ float mac_at(const G& g, int c, float qx, float qy,
 
 // dt-scale, clamp and obstacle stage-zeroing of a raw evaluation.
 // own_cell: the stage-1 probe reads the bucket cell's own flag.
-template <class G>
+template <bool kStop, class G>
 __device__ __forceinline__ void to_step(const G& g, float dt,
                                         const float raw[3], float qx, float qy,
                                         float qz, bool own_cell, int cx,
                                         int cy, int cz, float u[3]) {
   const AdvectArgs& a = g.a;
   for (int k = 0; k < 3; ++k) u[k] = clip1(raw[k] * dt);
+  if constexpr (!kStop) return;
   bool bad = !in_bounds(a, qx, qy, qz);
   if (!a.ring_only)
     bad = bad || (own_cell ? g.obs_at(cz, cy, cx)
@@ -245,17 +253,18 @@ __device__ __forceinline__ void to_step(const G& g, float dt,
   if (bad) u[0] = u[1] = u[2] = 0.f;
 }
 
-template <class G>
+template <bool kStop, class G>
 __device__ __forceinline__ void eval_u(const G& g, float dt, float qx,
                                        float qy, float qz, float u[3]) {
   float raw[3];
   for (int c = 0; c < 3; ++c) raw[c] = mac_at<false>(g, c, qx, qy, qz);
-  to_step(g, dt, raw, qx, qy, qz, false, 0, 0, 0, u);
+  to_step<kStop>(g, dt, raw, qx, qy, qz, false, 0, 0, 0, u);
 }
 
 // One live slot i of cell (cx, cy, cz), cz global, its drift-0 position
-// (x0, y0, z0): the blend, the stages, the clamp and the bisection.
-template <class G>
+// (x0, y0, z0): the blend (kBlend), the stages, the clamp and (kStop) the
+// bisection.
+template <bool kBlend, bool kStop, class G>
 __device__ __forceinline__ void advect_slot(const G& g, long long i, int cx,
                                             int cy, int cz, float x0,
                                             float y0, float z0) {
@@ -265,34 +274,36 @@ __device__ __forceinline__ void advect_slot(const G& g, long long i, int cx,
   // stage 1 at the drift-0 positions, shared with the blend
   float raw[3];
   for (int c = 0; c < 3; ++c) raw[c] = mac_at<false>(g, c, x0, y0, z0);
-  const float pv[3] = {a.vx[i], a.vy[i], a.vz[i]};
-  float nv[3];
-  const bool pend = *a.pending != 0;
-  for (int c = 0; c < 3; ++c) {
-    const float vold = mac_at<true>(g, c, x0, y0, z0);
-    nv[c] = pend ? a.flip_ratio * (pv[c] + (raw[c] - vold)) +
-                       a.pic_ratio * raw[c]
-                 : pv[c];
+  if constexpr (kBlend) {
+    const float pv[3] = {a.vx[i], a.vy[i], a.vz[i]};
+    float nv[3];
+    const bool pend = *a.pending != 0;
+    for (int c = 0; c < 3; ++c) {
+      const float vold = mac_at<true>(g, c, x0, y0, z0);
+      nv[c] = pend ? a.flip_ratio * (pv[c] + (raw[c] - vold)) +
+                         a.pic_ratio * raw[c]
+                   : pv[c];
+    }
+    a.ovx[i] = nv[0];
+    a.ovy[i] = nv[1];
+    a.ovz[i] = nv[2];
   }
-  a.ovx[i] = nv[0];
-  a.ovy[i] = nv[1];
-  a.ovz[i] = nv[2];
   float u0[3];
-  to_step(g, dt, raw, x0, y0, z0, true, cx, cy, cz, u0);
+  to_step<kStop>(g, dt, raw, x0, y0, z0, true, cx, cy, cz, u0);
 
   float du[3];
   if (a.mode == 0) {
     for (int k = 0; k < 3; ++k) du[k] = u0[k];
   } else if (a.mode == 1) {
-    eval_u(g, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1], z0 + 0.5f * u0[2],
-           du);
+    eval_u<kStop>(g, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1],
+                  z0 + 0.5f * u0[2], du);
   } else {
     float u1[3], u2[3], u3[3];
-    eval_u(g, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1], z0 + 0.5f * u0[2],
-           u1);
-    eval_u(g, dt, x0 + 0.5f * u1[0], y0 + 0.5f * u1[1], z0 + 0.5f * u1[2],
-           u2);
-    eval_u(g, dt, x0 + u2[0], y0 + u2[1], z0 + u2[2], u3);
+    eval_u<kStop>(g, dt, x0 + 0.5f * u0[0], y0 + 0.5f * u0[1],
+                  z0 + 0.5f * u0[2], u1);
+    eval_u<kStop>(g, dt, x0 + 0.5f * u1[0], y0 + 0.5f * u1[1],
+                  z0 + 0.5f * u1[2], u2);
+    eval_u<kStop>(g, dt, x0 + u2[0], y0 + u2[1], z0 + u2[2], u3);
     for (int k = 0; k < 3; ++k)
       du[k] = (2.f * u0[k] + 2.f * u1[k] + 2.f * u2[k] + u3[k]) / 6.f;
   }
@@ -301,7 +312,7 @@ __device__ __forceinline__ void advect_slot(const G& g, long long i, int cx,
   float nx = fminf(fmaxf(x0 + clip1(du[0]), 0.f), static_cast<float>(a.sx - 1));
   float ny = fminf(fmaxf(y0 + clip1(du[1]), 0.f), static_cast<float>(a.sy - 1));
   float nz = fminf(fmaxf(z0 + clip1(du[2]), 0.f), static_cast<float>(a.sz - 1));
-  if (obstacle_at(g, nx, ny, nz)) {
+  if (kStop && obstacle_at(g, nx, ny, nz)) {
     // bisectBacktracePos (particle.h:494-505): 4 bisection probes
     float s = 0.f;
     for (int k = 1; k < 5; ++k) {
@@ -365,7 +376,7 @@ __device__ __forceinline__ void stage_grid_async(float* dst, const float* src,
   }
 }
 
-template <bool kSlab>
+template <bool kSlab, bool kBlend, bool kStop>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     advect_live_kernel(AdvectArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -416,9 +427,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   const int zt = a.zb + tz0;  // global z of the tile's first plane
   stage_grid_async<kVx, kVy, kVz>(svel, a.vel, a, tx0 - kVelLo, ty0 - kVelLo,
                                   zt - kVelLo);
-  stage_grid_async<kOx, kOy, kOz>(sold, a.vel_old, a, tx0 - kOldLo,
-                                  ty0 - kOldLo, zt - kOldLo);
-  if (!a.ring_only) {
+  if (kBlend)
+    stage_grid_async<kOx, kOy, kOz>(sold, a.vel_old, a, tx0 - kOldLo,
+                                    ty0 - kOldLo, zt - kOldLo);
+  if (kStop && !a.ring_only) {
     for (int e = t; e < kObsWin; e += kThreads) {
       long long off;
       const bool in = window_cell<kBx, kBy>(a, e, tx0 - kObsLo, ty0 - kObsLo,
@@ -483,10 +495,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
                      z0 >= static_cast<float>(zg) &&
                      z0 < static_cast<float>(zg + 1);
     if (own)
-      advect_slot(staged, i, x, y, zg, x0, y0, z0);
+      advect_slot<kBlend, kStop>(staged, i, x, y, zg, x0, y0, z0);
     else
-      advect_slot(global, i, x, y, zg, x0, y0, z0);
+      advect_slot<kBlend, kStop>(global, i, x, y, zg, x0, y0, z0);
   }
+}
+
+template <bool kSlab, bool kBlend>
+void (*pick_stop(int stop))(AdvectArgs) {
+  return stop ? advect_live_kernel<kSlab, kBlend, true>
+              : advect_live_kernel<kSlab, kBlend, false>;
+}
+
+template <bool kSlab>
+void (*pick_blend(int blend, int stop))(AdvectArgs) {
+  return blend ? pick_stop<kSlab, true>(stop) : pick_stop<kSlab, false>(stop);
 }
 
 }  // namespace
@@ -501,7 +524,8 @@ extern "C" int advect_bucket_launch(
     float* opx, float* opy, float* opz, float* ovx, float* ovy, float* ovz,
     long long T, int P, int sx, int sy, int sz, int zb, int zlo, int gnz,
     float flip_ratio, float pic_ratio, int mode, int ring_only, int slab,
-    int bx, int by, int bz, long long smem, int device, void* stream) {
+    int blend, int stop, int bx, int by, int bz, long long smem, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem != live_smem_bytes(P)) return static_cast<int>(cudaErrorInvalidValue);
@@ -511,8 +535,8 @@ extern "C" int advect_bucket_launch(
   AdvectArgs a{px, py, pz, valid, vx, vy, vz, vel, vel_old, obs, dt, pending,
                opx, opy, opz, ovx, ovy, ovz, T, P, sx, sy, sz, nz, zb, zlo,
                gnz, flip_ratio, pic_ratio, mode, ring_only};
-  void (*fn)(AdvectArgs) =
-      slab ? advect_live_kernel<true> : advect_live_kernel<false>;
+  void (*fn)(AdvectArgs) = slab ? pick_blend<true>(blend, stop)
+                                : pick_blend<false>(blend, stop);
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

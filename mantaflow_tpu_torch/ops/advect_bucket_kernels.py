@@ -10,11 +10,14 @@ live slots only (each cell's slots up to its first invalid one), from a
 launch plan of tiles (``advect_plan``); ``advect_blend`` first copies every
 slot's fields into its outputs, so that invalid slots pass through as on
 the TPU. ``advect_blend_live``, the step's form, writes the live slots
-alone: the rebin that consumes its output reads nothing else. The form
-without the blend (``advect_pallas``) and advection that does not stop in
-obstacles have no caller on the port's path and are not ported
-(ROADMAP.md). On a CPU tensor every form runs the plain PyTorch version,
-``advect_blend_plain``: ``flip_update_bucketed`` then ``advect_bucketed``.
+alone: the rebin that consumes its output reads nothing else. ``advect`` is
+the form without the blend (``advect_pallas``): the positions alone, from
+the kernel's ``kBlend = false`` instances, the velocities passed through.
+Every form takes ``stop_in_obstacle`` (the kernel's ``kStop``); with
+``False`` no stage is zeroed and no position bisected back out of an
+obstacle. On a CPU tensor every form runs the plain PyTorch version,
+``advect_blend_plain`` (``flip_update_bucketed`` then ``advect_bucketed``)
+or, for ``advect``, ``advect_bucketed``.
 
 ``advect_blend_zshard`` is the port of ``advect_blend_zshard_spmd``: the
 same step on a bucket set cut into z-slabs (``parallel/sharding.py``). Each
@@ -46,7 +49,8 @@ from .rebin_kernels import check_buckets
 def advect_blend_plain(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
                        flip_ratio: float, dom: Domain,
                        integration_mode: int = 2,
-                       ring_only: bool = False) -> fb.Buckets:
+                       *, ring_only: bool = False,
+                       stop_in_obstacle: bool = True) -> fb.Buckets:
     """The kernel's function in PyTorch: the blend where ``pending`` (a
     bool or 0-dim bool tensor), then the advection."""
     blended = fb.flip_update_bucketed(bk, vel, vel_old, flip_ratio, dom)
@@ -56,7 +60,7 @@ def advect_blend_plain(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
         vy=torch.where(pending, blended.vy, bk.vy),
         vz=torch.where(pending, blended.vz, bk.vz))
     return fb.advect_bucketed(bk, flags, vel, dt, dom, integration_mode,
-                              ring_only)
+                              stop_in_obstacle, ring_only)
 
 
 # csrc/advect_bucket.cu's launch plan: a block per tile of cells, and the
@@ -105,7 +109,7 @@ def advect_plan(shape, ppc: int) -> AdvectPlan:
 
 
 _ARGS = ((ctypes.c_void_p,) * 18 + (ctypes.c_longlong,)
-         + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 6
+         + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 8
          + (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p))
 _HALO = 2  # grid planes each shard takes from each neighbour
 _FIELDS = ("px", "py", "pz", "vx", "vy", "vz")
@@ -126,50 +130,58 @@ def _check_grid(g, shape, dev, who, name):
 
 
 def _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom: Domain,
-            integration_mode, ring_only, through, slab=None):
+            integration_mode, ring_only, through, slab=None, stop=True):
     """One launch over the live slots of ``bk``; ``through``: the outputs
     start as copies of the inputs, else uninitialised. ``slab`` = (z_base,
     zlo): the z-slab form, its cells from global plane z_base, its grids
-    from plane zlo."""
+    from plane zlo. ``vel_old`` None: the form without the blend, whose
+    outputs are the positions alone. ``stop``: stop_in_obstacle."""
     dev = bk.px.device
     if integration_mode not in (0, 1, 2):
         raise ValueError("unknown integration type")
+    blend = vel_old is not None
     dt_t = _scalar(dt, torch.float32, dev, "dt")
-    pend_t = _scalar(pending, torch.bool, dev, "pending")
+    pend_t = _scalar(pending, torch.bool, dev, "pending") if blend else None
+    names = _FIELDS if blend else _FIELDS[:3]
     out = {n: (torch.clone if through else torch.empty_like)(getattr(bk, n))
-           for n in _FIELDS}
+           for n in names}
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
     sz, sy, sx = dom.shape
     z_base, zlo = slab if slab is not None else (0, 0)
     plan = advect_plan((bk.ncells // (sy * sx), sy, sx), bk.ppc)
     _build.launcher("advect_bucket", _ARGS)(
         *(getattr(bk, n).data_ptr() for n in _FIELDS[:3]),
         bk.valid.data_ptr(),
-        *(getattr(bk, n).data_ptr() for n in _FIELDS[3:]),
-        vel.data_ptr(), vel_old.data_ptr(),
-        obs.data_ptr() if obs is not None else None,
-        dt_t.data_ptr(), pend_t.data_ptr(),
-        *(out[n].data_ptr() for n in _FIELDS),
+        *(ptr(getattr(bk, n)) if blend else None for n in _FIELDS[3:]),
+        vel.data_ptr(), ptr(vel_old), ptr(obs), dt_t.data_ptr(),
+        ptr(pend_t), *(ptr(out.get(n)) for n in _FIELDS),
         bk.ncells, bk.ppc, sx, sy, sz, int(z_base), int(zlo), vel.shape[1],
         float(flip_ratio), 1.0 - float(flip_ratio), int(integration_mode),
-        int(ring_only), int(slab is not None), *plan.grid, plan.smem_bytes,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        int(ring_only), int(slab is not None), int(blend), int(stop),
+        *plan.grid, plan.smem_bytes, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     return dataclasses.replace(bk, **out)
 
 
-def _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio,
-                       dom, integration_mode, ring_only, through, who):
+def _advect_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio, dom,
+                 integration_mode, ring_only, stop, through, who):
+    """The one-domain kernel over ``bk``; ``vel_old`` None: without the
+    blend."""
     check_buckets(bk, dom, who)
     dev = bk.px.device
     for name, g in (("vel", vel), ("vel_old", vel_old)):
-        _check_grid(g, (3,) + dom.shape, dev, who, name)
+        if g is not None:
+            _check_grid(g, (3,) + dom.shape, dev, who, name)
     obs = None
-    if not ring_only:
+    if stop and not ring_only:
         if tuple(flags.shape) != dom.shape or flags.device != dev:
             raise ValueError(f"{who}: flags must be a {dom.shape} tensor on "
                              f"{dev}")
         obs = fl.is_obstacle(flags).contiguous()
     return _launch(bk, obs, vel, vel_old, dt, pending, flip_ratio, dom,
-                   integration_mode, ring_only, through)
+                   integration_mode, ring_only, through, stop=stop)
 
 
 def _device(bk, who):
@@ -179,21 +191,45 @@ def _device(bk, who):
     return dev
 
 
+def advect(bk: fb.Buckets, flags, vel, dt, dom: Domain,
+           integration_mode: int = 2, *, ring_only: bool = False,
+           stop_in_obstacle: bool = True) -> fb.Buckets:
+    """Advection of the positions through ``vel`` by ``dt`` without the
+    blend (flip_bucket_pallas.py:advect_pallas): the slot velocities pass
+    through untouched, as do the invalid slots' positions. ``dt`` may be a
+    0-dim device tensor. CUDA tensors run the kernel's ``kBlend = false``
+    instance on copies of the positions, CPU tensors ``advect_bucketed``."""
+    if _device(bk, "advect").type == "cpu":
+        return fb.advect_bucketed(bk, flags, vel, dt, dom, integration_mode,
+                                  stop_in_obstacle, ring_only)
+    out = _advect_cuda(bk, flags, vel, None, dt, None, 0.0, dom,
+                       integration_mode, ring_only, stop_in_obstacle, True,
+                       "advect")
+    advect.launches += 1
+    return out
+
+
+advect.launches = 0  # kernel launches (CUDA only)
+
+
 def advect_blend(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
                  flip_ratio: float, dom: Domain, integration_mode: int = 2,
-                 ring_only: bool = False) -> fb.Buckets:
+                 *, ring_only: bool = False,
+                 stop_in_obstacle: bool = True) -> fb.Buckets:
     """FLIP blend of (vel, vel_old) at the drift-0 positions where
     ``pending``, then advection through ``vel`` by ``dt``, stopping in
-    obstacles; invalid slots pass through. ``dt`` and ``pending`` may be
-    0-dim device tensors (no host sync). CUDA tensors run the kernel on
-    copies of the inputs, CPU tensors ``advect_blend_plain``."""
+    obstacles unless ``stop_in_obstacle`` is False; invalid slots pass
+    through. ``dt`` and ``pending`` may be 0-dim device tensors (no host
+    sync). CUDA tensors run the kernel on copies of the inputs, CPU tensors
+    ``advect_blend_plain``."""
     if _device(bk, "advect_blend").type == "cpu":
         return advect_blend_plain(bk, flags, vel, vel_old, dt, pending,
                                   flip_ratio, dom, integration_mode,
-                                  ring_only)
-    out = _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending,
-                             flip_ratio, dom, integration_mode, ring_only,
-                             True, "advect_blend")
+                                  ring_only=ring_only,
+                                  stop_in_obstacle=stop_in_obstacle)
+    out = _advect_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio, dom,
+                       integration_mode, ring_only, stop_in_obstacle, True,
+                       "advect_blend")
     advect_blend.launches += 1
     return out
 
@@ -204,7 +240,8 @@ advect_blend.launches = 0  # kernel launches (CUDA only)
 def advect_blend_live(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
                       flip_ratio: float, dom: Domain,
                       integration_mode: int = 2,
-                      ring_only: bool = False) -> fb.Buckets:
+                      *, ring_only: bool = False,
+                      stop_in_obstacle: bool = True) -> fb.Buckets:
     """The step's form of ``advect_blend``: on the card only the live slots
     (each cell's slots up to its first invalid one) of the result are
     written, and the other slots' fields are undefined. Its one consumer is
@@ -216,10 +253,11 @@ def advect_blend_live(bk: fb.Buckets, flags, vel, vel_old, dt, pending,
     if _device(bk, "advect_blend_live").type == "cpu":
         return advect_blend_plain(bk, flags, vel, vel_old, dt, pending,
                                   flip_ratio, dom, integration_mode,
-                                  ring_only)
-    out = _advect_blend_cuda(bk, flags, vel, vel_old, dt, pending,
-                             flip_ratio, dom, integration_mode, ring_only,
-                             False, "advect_blend_live")
+                                  ring_only=ring_only,
+                                  stop_in_obstacle=stop_in_obstacle)
+    out = _advect_cuda(bk, flags, vel, vel_old, dt, pending, flip_ratio, dom,
+                       integration_mode, ring_only, stop_in_obstacle, False,
+                       "advect_blend_live")
     advect_blend_live.launches += 1
     return out
 
@@ -230,7 +268,8 @@ advect_blend_live.launches = 0  # kernel launches (CUDA only)
 def advect_blend_slab_plain(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
                             flip_ratio: float, dom: Domain, z_base: int,
                             integration_mode: int = 2,
-                            ring_only: bool = False) -> fb.Buckets:
+                            *, ring_only: bool = False,
+                            stop_in_obstacle: bool = True) -> fb.Buckets:
     """The z-slab kernel's function in PyTorch: ``bk`` is a slab's buckets
     (global planes from ``z_base``), ``vel``/``vel_old`` (3, lz+4, sy, sx)
     and ``obs`` (lz+4, sy, sx) bool (None with ``ring_only``) its planes
@@ -249,7 +288,9 @@ def advect_blend_slab_plain(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
         flags = torch.where(fb.embed_z(obs, 0, zlo, sz), fl.TypeObstacle,
                             flags)
     out = advect_blend_plain(whole, flags, vel_w, old_w, dt, pending,
-                             flip_ratio, dom, integration_mode, ring_only)
+                             flip_ratio, dom, integration_mode,
+                             ring_only=ring_only,
+                             stop_in_obstacle=stop_in_obstacle)
     cells = slice(z_base * dom.shape[1] * dom.shape[2],
                   (z_base + lz) * dom.shape[1] * dom.shape[2])
     return dataclasses.replace(bk, **{
@@ -257,7 +298,7 @@ def advect_blend_slab_plain(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
 
 
 def _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending, flip_ratio,
-                            dom, z_base, integration_mode, ring_only,
+                            dom, z_base, integration_mode, ring_only, stop,
                             through, who):
     sz, sy, sx = dom.shape
     lz = bk.ncells // (sy * sx)
@@ -266,20 +307,22 @@ def _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending, flip_ratio,
     grid = (3, lz + 2 * _HALO, sy, sx)
     for name, g in (("vel", vel), ("vel_old", vel_old)):
         _check_grid(g, grid, dev, who, name)
-    if not ring_only and (obs is None or obs.dtype != torch.bool
-                          or tuple(obs.shape) != grid[1:]
-                          or not obs.is_contiguous() or obs.device != dev):
+    need_obs = stop and not ring_only
+    if need_obs and (obs is None or obs.dtype != torch.bool
+                     or tuple(obs.shape) != grid[1:]
+                     or not obs.is_contiguous() or obs.device != dev):
         raise ValueError(f"{who}: obs must be a contiguous bool {grid[1:]} "
                          f"tensor on {dev}")
-    return _launch(bk, None if ring_only else obs, vel, vel_old, dt,
+    return _launch(bk, obs if need_obs else None, vel, vel_old, dt,
                    pending, flip_ratio, dom, integration_mode, ring_only,
-                   through, slab=(z_base, z_base - _HALO))
+                   through, slab=(z_base, z_base - _HALO), stop=stop)
 
 
 def advect_blend_slab(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
                       flip_ratio: float, dom: Domain, z_base: int,
                       integration_mode: int = 2,
-                      ring_only: bool = False) -> fb.Buckets:
+                      *, ring_only: bool = False,
+                      stop_in_obstacle: bool = True) -> fb.Buckets:
     """``advect_blend`` on one z-slab (arguments as
     ``advect_blend_slab_plain``), invalid slots passed through. CUDA
     tensors run the kernel's z-slab form on copies of the inputs, CPU
@@ -287,10 +330,12 @@ def advect_blend_slab(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
     if _device(bk, "advect_blend_slab").type == "cpu":
         return advect_blend_slab_plain(bk, obs, vel, vel_old, dt, pending,
                                        flip_ratio, dom, z_base,
-                                       integration_mode, ring_only)
+                                       integration_mode, ring_only=ring_only,
+                                       stop_in_obstacle=stop_in_obstacle)
     out = _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending,
                                   flip_ratio, dom, z_base, integration_mode,
-                                  ring_only, True, "advect_blend_slab")
+                                  ring_only, stop_in_obstacle, True,
+                                  "advect_blend_slab")
     advect_blend_slab.launches += 1
     return out
 
@@ -301,7 +346,8 @@ advect_blend_slab.launches = 0  # kernel launches (CUDA only)
 def advect_blend_slab_live(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
                            flip_ratio: float, dom: Domain, z_base: int,
                            integration_mode: int = 2,
-                           ring_only: bool = False) -> fb.Buckets:
+                           *, ring_only: bool = False,
+                           stop_in_obstacle: bool = True) -> fb.Buckets:
     """The sharded step's form of ``advect_blend_slab``: on the card only
     the live slots of the result are written, the others' fields are
     undefined (as ``advect_blend_live``; its one consumer is the slab's
@@ -309,10 +355,12 @@ def advect_blend_slab_live(bk: fb.Buckets, obs, vel, vel_old, dt, pending,
     if _device(bk, "advect_blend_slab_live").type == "cpu":
         return advect_blend_slab_plain(bk, obs, vel, vel_old, dt, pending,
                                        flip_ratio, dom, z_base,
-                                       integration_mode, ring_only)
+                                       integration_mode, ring_only=ring_only,
+                                       stop_in_obstacle=stop_in_obstacle)
     out = _advect_blend_slab_cuda(bk, obs, vel, vel_old, dt, pending,
                                   flip_ratio, dom, z_base, integration_mode,
-                                  ring_only, False, "advect_blend_slab_live")
+                                  ring_only, stop_in_obstacle, False,
+                                  "advect_blend_slab_live")
     advect_blend_slab_live.launches += 1
     return out
 
@@ -323,7 +371,9 @@ advect_blend_slab_live.launches = 0  # kernel launches (CUDA only)
 def advect_blend_zshard(sbk: shd.ShardedBuckets, flags, vel, vel_old, dt,
                         pending, flip_ratio: float, dom: Domain,
                         mesh: shd.ZMesh, integration_mode: int = 2,
-                        ring_only: bool = False) -> shd.ShardedBuckets:
+                        *, ring_only: bool = False,
+                        stop_in_obstacle: bool = True
+                        ) -> shd.ShardedBuckets:
     """``advect_blend_live`` of a z-sharded bucket set, the grids whole on
     the lead: each shard takes its slab of ``vel``, ``vel_old`` and (unless
     ``ring_only``) the obstacle mask with two planes of each neighbour and
@@ -333,7 +383,7 @@ def advect_blend_zshard(sbk: shd.ShardedBuckets, flags, vel, vel_old, dt,
     lz = mesh.planes(dom.shape[0])
     vel_h = shd.halo_z(shd.scatter_z(vel, mesh, 1), _HALO, 1)
     old_h = shd.halo_z(shd.scatter_z(vel_old, mesh, 1), _HALO, 1)
-    obs_h = ([None] * mesh.n if ring_only else
+    obs_h = ([None] * mesh.n if ring_only or not stop_in_obstacle else
              shd.halo_z(shd.scatter_z(fl.is_obstacle(flags), mesh, 0),
                         _HALO, 0))
     slabs = []
@@ -342,5 +392,6 @@ def advect_blend_zshard(sbk: shd.ShardedBuckets, flags, vel, vel_old, dt,
         slabs.append(advect_blend_slab_live(
             b, obs_h[i], vel_h[i], old_h[i], torch.as_tensor(dt).to(dev),
             torch.as_tensor(pending).to(dev), flip_ratio, dom, i * lz,
-            integration_mode, ring_only))
+            integration_mode, ring_only=ring_only,
+            stop_in_obstacle=stop_in_obstacle))
     return dataclasses.replace(sbk, slabs=slabs)

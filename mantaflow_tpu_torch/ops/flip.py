@@ -4,13 +4,15 @@ particle level sets.
 Port of the part of ``mantaflow_tpu/ops/flip.py`` (``source/plugin/flip.cpp``)
 that the flat FLIP step and the particle API use. The reference's serial
 per-particle scatter kernels (knMapLinearVec3ToMACGrid :619) are scatter-adds
-over corner weights (``index_add_``), its cell-indexed neighbour searches
+over corner weights (``add_at``), its cell-indexed neighbour searches
 (ComputeUnionLevelsetPindex :300) a bounded-window scatter-min
 (``scatter_reduce_`` with ``amin``, which takes the minimum in any order).
 The JAX package leaves these to XLA's scatters and gathers, with no Pallas
-kernel, and so does the port: on a GPU they run as PyTorch's own
-``index_add_`` (atomics, so the order of a sum changes from run to run),
-``scatter_reduce_`` and indexing.
+kernel, and so does the port: on a GPU they run as PyTorch ops,
+scatter-adds sorted by cell (``core/interp.py:add_at``: every sum in the
+same order on every run, as in the reference's serial loops),
+``scatter_reduce_`` and indexing. The particle counts add integers, in
+any order.
 
 Covered: mapPartsToMAC (:637), mapPartsToGrid[Vec3] (:682), mapGridToParts
 (:699), mapMACToParts (:717), flipVelocityUpdate (:738), markFluidCells
@@ -35,9 +37,10 @@ import torch
 
 from ..core import flags as fl
 from ..core.domain import Domain
-from ..core.interp import (_axis_weights, _base_and_weights, build_mac_pack,
-                           interpol, interpol_fast, interpol_mac_fast,
-                           interpol_mac_packed, scatter_rows2)
+from ..core.interp import (_axis_weights, _base_and_weights, add_at,
+                           build_mac_pack, interpol, interpol_fast,
+                           interpol_mac_fast, interpol_mac_packed,
+                           scatter_rows2)
 from ..core.masks import axis_index, interior_mask, shift
 from ..core.particles import PDELETE, PNEW, Particles, pos_columns
 from ..utils.mtrand import RandomStream
@@ -72,9 +75,9 @@ def _scatter_weighted(shape, flat, w, val):
     n = shape[0] * shape[1] * shape[2]
     idx = flat.reshape(-1)
     acc = torch.zeros((n,), dtype=torch.float32, device=w.device)
-    acc.index_add_(0, idx, (w * val).reshape(-1))
+    add_at(acc, idx, (w * val).reshape(-1))
     wsum = torch.zeros((n,), dtype=torch.float32, device=w.device)
-    wsum.index_add_(0, idx, w.reshape(-1))
+    add_at(wsum, idx, w.reshape(-1))
     return acc.reshape(shape), wsum.reshape(shape)
 
 
@@ -419,8 +422,8 @@ def _averaged_positions(parts: Particles, dom: Domain, radius: float, ptype,
                 w = torch.where(ok, torch.clamp(1.0 - d2 * sradius_inv,
                                                 min=0.0), 0.0)
                 flat = ((ckk * sy + cjk) * sx + cik).to(torch.int64)
-                wacc.index_add_(0, flat, w)
-                pacc.index_add_(0, flat, w[:, None] * pos)
+                add_at(wacc, flat, w)
+                add_at(pacc, flat, w[:, None] * pos)
     return (wacc > VECTOR_EPSILON,
             pacc / torch.clamp(wacc, min=1e-30)[:, None])
 

@@ -304,13 +304,16 @@ _TAPS = {
 
 def advect_bucketed(bk: Buckets, flags, vel, dt, dom: Domain,
                     integration_mode: int = 2,
+                    stop_in_obstacle: bool = True,
                     ring_only: bool = False) -> Buckets:
-    """RK4/RK2/Euler particle advection on the bucket layout, stopping in
-    obstacles (the reference's ``stop_in_obstacle=True``, which every caller
-    passes). Stage displacements are clamped to one cell per axis. ``ring_only=True``
-    promises that the only obstacle cells are the bnd=1 ring, so every
-    flags-at-trunc(pos) probe reduces to a bounds test. ``dt`` is a float or
-    a 0-dim tensor."""
+    """RK4/RK2/Euler particle advection on the bucket layout. Stage
+    displacements are clamped to one cell per axis. With
+    ``stop_in_obstacle`` a stage that starts out of bounds (bnd=1) or in an
+    obstacle moves nothing, and a final position in an obstacle is bisected
+    back out; without it neither happens, and only the clamp to [0, n-1]
+    remains. ``ring_only=True`` promises that the only obstacle cells are
+    the bnd=1 ring, so every flags-at-trunc(pos) probe reduces to a bounds
+    test. ``dt`` is a float or a 0-dim tensor."""
     device = bk.px.device
     cx, cy, cz = _cell_coords(dom, device)
     obs_flat = (flags.reshape(-1) & fl.TypeObstacle) != 0
@@ -326,6 +329,8 @@ def advect_bucketed(bk: Buckets, flags, vel, dt, dom: Domain,
         u = torch.clamp(uvw[0] * dt, -1.0, 1.0)
         v = torch.clamp(uvw[1] * dt, -1.0, 1.0)
         w = torch.clamp(uvw[2] * dt, -1.0, 1.0)
+        if not stop_in_obstacle:
+            return u, v, w
         bad = ~_in_bounds_pt(px, py, pz, dom, 1)
         if not ring_only:
             bad = bad | (obs_flat[None, :] if obs_taps == (0,) else
@@ -364,18 +369,19 @@ def advect_bucketed(bk: Buckets, flags, vel, dt, dom: Domain,
     nx = torch.clamp(x0 + torch.clamp(du, -1.0, 1.0), 0.0, sx - 1.0)
     ny = torch.clamp(y0 + torch.clamp(dv, -1.0, 1.0), 0.0, sy - 1.0)
     nz = torch.clamp(z0 + torch.clamp(dw, -1.0, 1.0), 0.0, sz - 1.0)
-    in_obs = obstacle_probe(nx, ny, nz, (-1, 0, 1))
-    # bisectBacktracePos (particle.h:494-505): 4 bisection probes
-    s = torch.zeros_like(nx)
-    for i in range(1, 5):
-        t = s + 1.0 / (1 << i)
-        obs = obstacle_probe(x0 * (1.0 - t) + nx * t,
-                             y0 * (1.0 - t) + ny * t,
-                             z0 * (1.0 - t) + nz * t, (-1, 0, 1))
-        s = torch.where(obs, s, t)
-    nx = torch.where(in_obs, x0 * (1.0 - s) + nx * s, nx)
-    ny = torch.where(in_obs, y0 * (1.0 - s) + ny * s, ny)
-    nz = torch.where(in_obs, z0 * (1.0 - s) + nz * s, nz)
+    if stop_in_obstacle:
+        in_obs = obstacle_probe(nx, ny, nz, (-1, 0, 1))
+        # bisectBacktracePos (particle.h:494-505): 4 bisection probes
+        s = torch.zeros_like(nx)
+        for i in range(1, 5):
+            t = s + 1.0 / (1 << i)
+            obs = obstacle_probe(x0 * (1.0 - t) + nx * t,
+                                 y0 * (1.0 - t) + ny * t,
+                                 z0 * (1.0 - t) + nz * t, (-1, 0, 1))
+            s = torch.where(obs, s, t)
+        nx = torch.where(in_obs, x0 * (1.0 - s) + nx * s, nx)
+        ny = torch.where(in_obs, y0 * (1.0 - s) + ny * s, ny)
+        nz = torch.where(in_obs, z0 * (1.0 - s) + nz * s, nz)
 
     live = bk.valid
     return dataclasses.replace(bk, px=torch.where(live, nx, x0),

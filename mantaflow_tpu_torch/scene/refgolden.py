@@ -14,6 +14,7 @@ the port's ``io/uni.py`` and the grids are copied to the host with
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import time
@@ -76,6 +77,8 @@ class RefGoldenRecorder:
     def __init__(self, test_name: str):
         self.test_name = test_name
         self.results: list[tuple[str, float, float, bool]] = []
+        #: sha256 of each compared grid's bytes, in the order of results
+        self.digests: list[str] = []
 
     def do_test_grid(self, name: str, grid, threshold: float,
                      threshold_strict: float = 0.0,
@@ -103,6 +106,8 @@ class RefGoldenRecorder:
             raise AssertionError(
                 f"{self.test_name}/{name}: shape {arr.shape} vs golden "
                 f"{np.asarray(golden).shape}")
+        self.digests.append(hashlib.sha256(
+            np.ascontiguousarray(arr).tobytes()).hexdigest())
         ad = np.abs(arr.astype(np.float64) - np.asarray(golden, np.float64))
         if frac_above is not None:
             diff = float((ad > frac_above).mean())

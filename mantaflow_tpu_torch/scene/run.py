@@ -22,9 +22,10 @@ Scenes of ``scenes/`` that cannot run unedited on the port:
 
 - ``zflip.py`` calls ``jax.numpy`` itself; ``zflip_api`` is held at the API
   level instead (``tests/test_torch_scene_api.py``).
-- ``mlflip.py`` needs ``ml/``, the ML toolbox, which the port lacks.
-- ``smoke_fused_128.py`` reads ``np.asarray(state.density)``, which a CUDA
-  tensor refuses: it runs with ``--device cpu`` only.
+- ``mlflip.py`` and ``smoke_fused_128.py`` read ``np.asarray`` of a state
+  tensor (``state.ptype``, ``state.density``), which a CUDA tensor
+  refuses: they run with ``--device cpu`` only. ``mlflip.py``'s three
+  stages run on the card through the port's API (``ml/mlflip.py``).
 """
 
 from __future__ import annotations

@@ -113,11 +113,12 @@ def cpu_fixture(request):
 
 
 def _args(fx, mode, pending, ring_only, dt=0.5):
+    """(positional arguments, keywords) of one advection call."""
     dom, flags, obstacle, bk, vel = fx
     dev = bk.px.device
-    return (bk, flags if ring_only else obstacle, vel, vel * 0.85,
-            torch.tensor(dt, device=dev), torch.tensor(pending, device=dev),
-            0.97, dom, mode, ring_only)
+    return ((bk, flags if ring_only else obstacle, vel, vel * 0.85,
+             torch.tensor(dt, device=dev), torch.tensor(pending, device=dev),
+             0.97, dom, mode), {"ring_only": ring_only})
 
 
 def _assert_live_close(got, ref, valid, atol=1e-6):
@@ -171,10 +172,10 @@ def test_step_form_matches_plain_and_jax_cpu_branch(cpu_fixture, mode,
     import jax.numpy as jnp
     from mantaflow_tpu.ops import flip_bucket as jfb
     which, *fx = cpu_fixture
-    args = _args(fx, mode, pending, ring_only)
-    got = advk.advect_blend_live(*args)
+    args, kw = _args(fx, mode, pending, ring_only)
+    got = advk.advect_blend_live(*args, **kw)
     assert advk.advect_blend_live.launches == 0
-    _assert_buckets_equal(got, advk.advect_blend_plain(*args))
+    _assert_buckets_equal(got, advk.advect_blend_plain(*args, **kw))
     jdom, jbk, jflags, jvel = _jax_inputs(fx, ring_only)
     ref = jbk
     if pending:
@@ -188,7 +189,8 @@ def test_step_form_matches_plain_and_jax_cpu_branch(cpu_fixture, mode,
 
 def _advected(fx, mode=2, dt=2.5):
     """The step form's output at a large dt (movers on every axis)."""
-    return advk.advect_blend_live(*_args(fx, mode, True, False, dt=dt))
+    args, kw = _args(fx, mode, True, False, dt=dt)
+    return advk.advect_blend_live(*args, **kw)
 
 
 def test_rebin_ignores_invalid_slots(cpu_fixture):
@@ -368,17 +370,18 @@ def _made_up(ppc, fill, device, seed=5):
             torch.tensor(vel.astype(np.float32), device=device))
 
 
-def _check_step_form(args):
+def _check_step_form(call):
     """The step form against the plain version on the live slots, the
     public form on every slot (invalid slots exactly the input's), the two
     forms' live slots equal; one launch each."""
+    args, kw = call
     before = (advk.advect_blend_live.launches, advk.advect_blend.launches)
-    got = advk.advect_blend_live(*args)
-    public = advk.advect_blend(*args)
+    got = advk.advect_blend_live(*args, **kw)
+    public = advk.advect_blend(*args, **kw)
     torch.cuda.synchronize()
     assert (advk.advect_blend_live.launches,
             advk.advect_blend.launches) == (before[0] + 1, before[1] + 1)
-    ref = advk.advect_blend_plain(*args)
+    ref = advk.advect_blend_plain(*args, **kw)
     bk = args[0]
     live = bk.valid
     for f in FIELDS:
@@ -416,10 +419,10 @@ def test_step_form_kernel_writes_no_invalid_slot(cuda):
     outputs start as copies; the kernel writes the live slots alone), and
     its live slots equal the step form's on the clean input."""
     fx = _made_up(24, "random", cuda)
-    args = _args(fx, 2, True, False, dt=2.0)
+    args, kw = _args(fx, 2, True, False, dt=2.0)
     bad = _poisoned(args[0])
-    out = advk.advect_blend(bad, *args[1:])
-    clean = advk.advect_blend_live(*args)
+    out = advk.advect_blend(bad, *args[1:], **kw)
+    clean = advk.advect_blend_live(*args, **kw)
     live = bad.valid
     for f in FIELDS:
         g, b_ = getattr(out, f), getattr(bad, f)
@@ -442,10 +445,9 @@ def test_slab_step_form_kernel_matches_plain_and_one_domain(cuda, n):
     dt, pend = torch.tensor(2.5, device=cuda), torch.tensor(True,
                                                             device=cuda)
     whole = advk.advect_blend_live(bk, obstacle, vel, vel * 0.85, dt, pend,
-                                   0.97, dom, 2, False)
+                                   0.97, dom, 2, ring_only=False)
     for i, b in enumerate(shd.shard_buckets(bk, mesh).slabs):
-        args = (b, obh[i], vh[i], oh[i], dt, pend, 0.97, dom, i * lz, 2,
-                False)
+        args = (b, obh[i], vh[i], oh[i], dt, pend, 0.97, dom, i * lz, 2)
         before = advk.advect_blend_slab_live.launches
         got = advk.advect_blend_slab_live(*args)
         torch.cuda.synchronize()

@@ -44,5 +44,6 @@ def test_step_form_matches_pallas_kernel(cpu_fixture, ring_only):
         jbk, jflags, jvel, jvel * 0.85, 0.5, p, 0.97, jdom, 0,
         ring_only=ring_only, interpret=True))
     for pending in (True, False):
-        got = advk.advect_blend_live(*_args(fx, 0, pending, ring_only))
+        args, kw = _args(fx, 0, pending, ring_only)
+        got = advk.advect_blend_live(*args, **kw)
         _assert_live_close(got, kernel(jnp.asarray(pending)), fx[3].valid)

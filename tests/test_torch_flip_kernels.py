@@ -131,6 +131,41 @@ def test_extrap_layer_2d_kernel_matches_plain(cuda, n_pairs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("ring_only", [True, False])
+@pytest.mark.parametrize("stop", [True, False])
+def test_advect_forms_kernel_matches_plain(cuda, mode, ring_only, stop):
+    """The kernel's instances without the blend (``advect``) and without
+    stopping in obstacles (every form with stop_in_obstacle=False) against
+    their plain versions, to abs 1e-6 as the step's form is held; the form
+    without the blend passes the velocities through."""
+    dom, flags, bk, vel = corner24(cuda)
+    c = torch.arange(24, device=cuda) + 0.5
+    zz, yy, xx = torch.meshgrid(c, c, c, indexing="ij")
+    sphere = ((xx - 5.0) ** 2 + (yy - 4.0) ** 2 + (zz - 4.5) ** 2).sqrt() \
+        < 3.0
+    flags = torch.where(sphere, fl.TypeObstacle, flags)
+    for dt in (0.5, 4.0):
+        dt_t = torch.tensor(dt, device=cuda)
+        before = advk.advect.launches
+        got = advk.advect(bk, flags, vel, dt_t, dom, mode,
+                          ring_only=ring_only, stop_in_obstacle=stop)
+        torch.cuda.synchronize()
+        assert advk.advect.launches == before + 1
+        ref = fb.advect_bucketed(bk, flags, vel, dt_t, dom, mode, stop,
+                                 ring_only)
+        assert _max_err(got, ref) < 1e-6
+        for f in ("vx", "vy", "vz"):
+            assert torch.equal(getattr(got, f), getattr(bk, f))
+        args = (bk, flags, vel, vel * 0.85, dt_t,
+                torch.tensor(True, device=cuda), 0.97, dom, mode)
+        kw = {"ring_only": ring_only, "stop_in_obstacle": stop}
+        got = advk.advect_blend(*args, **kw)
+        ref = advk.advect_blend_plain(*args, **kw)
+        assert _max_err(got, ref) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("ring_only", [True, False])
 @pytest.mark.parametrize("pending", [True, False])
 def test_advect_blend_kernel_matches_plain(cuda, mode, ring_only, pending):
     dom, flags, bk, vel = corner24(cuda)
@@ -143,13 +178,12 @@ def test_advect_blend_kernel_matches_plain(cuda, mode, ring_only, pending):
     vold = vel * 0.85
     for dt in (0.5, 2.5):
         args = (bk, flags, vel, vold, torch.tensor(dt, device=cuda),
-                torch.tensor(pending, device=cuda), 0.97, dom, mode,
-                ring_only)
+                torch.tensor(pending, device=cuda), 0.97, dom, mode)
         before = advk.advect_blend.launches
-        got = advk.advect_blend(*args)
+        got = advk.advect_blend(*args, ring_only=ring_only)
         torch.cuda.synchronize()
         assert advk.advect_blend.launches == before + 1
-        ref = advk.advect_blend_plain(*args)
+        ref = advk.advect_blend_plain(*args, ring_only=ring_only)
         assert torch.equal(got.valid, ref.valid)
         assert _max_err(got, ref) < 1e-6
         if not pending:
@@ -594,15 +628,15 @@ def test_advect_blend_slab_kernel_matches_plain(cuda, n, ring_only):
         dt, pend = torch.tensor(2.5, device=cuda), torch.tensor(True,
                                                                 device=cuda)
         whole = advk.advect_blend(bk, flags, vel, vel * 0.85, dt, pend, 0.97,
-                                  dom, mode, ring_only)
+                                  dom, mode, ring_only=ring_only)
         for i, b in enumerate(shd.shard_buckets(bk, mesh).slabs):
             args = (b, None if ring_only else obh[i], vh[i], oh[i], dt, pend,
-                    0.97, dom, i * lz, mode, ring_only)
+                    0.97, dom, i * lz, mode)
             before = advk.advect_blend_slab.launches
-            got = advk.advect_blend_slab(*args)
+            got = advk.advect_blend_slab(*args, ring_only=ring_only)
             torch.cuda.synchronize()
             assert advk.advect_blend_slab.launches == before + 1
-            ref = advk.advect_blend_slab_plain(*args)
+            ref = advk.advect_blend_slab_plain(*args, ring_only=ring_only)
             assert _max_err(got, ref) < 1e-6
             for f in FIELDS:
                 assert torch.equal(getattr(got, f),

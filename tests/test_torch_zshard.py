@@ -240,7 +240,7 @@ def test_zshard_advection_matches_reference(dam_steps, ring_only):
     got = advk.advect_blend_zshard(st.buckets, st.flags, st.vel, st.vel_old,
                                    st.ts.dt, st.blend_pending, 0.97,
                                    dam_steps["dom"], dam_steps["mesh"], 2,
-                                   ring_only)
+                                   ring_only=ring_only)
     got = shd.unshard_buckets(got)
     for f in FIELDS[:6]:
         np.testing.assert_allclose(getattr(got, f).numpy(),

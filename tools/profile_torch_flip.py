@@ -53,8 +53,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 # kernel name in the trace -> group
-GROUPS = {"advect_live_kernel<false>": "advect_bucket",
-          "advect_live_kernel<true>": "advect_bucket_zshard",
+GROUPS = {"advect_live_kernel<false,true,true>": "advect_bucket",
+          "advect_live_kernel<true,true,true>": "advect_bucket_zshard",
           "rebin_fused_kernel<false>": "rebin_fused",
           "rebin_fused_kernel<true>": "rebin_fused_slab",
           "rebin_pass_kernel": "rebin",
@@ -290,7 +290,8 @@ def trace_groups(prof, steps):
                if dev_us(e) > 0]
     groups = dict.fromkeys(list(GROUPS.values()) + ["other"], 0.0)
     for key, us, _ in kernels:
-        g = next((v for k, v in GROUPS.items() if k in key), "other")
+        g = next((v for k, v in GROUPS.items()
+                  if k in key.replace(", ", ",")), "other")
         groups[g] += us
     return {g: us / 1e3 / steps for g, us in groups.items()}, kernels
 

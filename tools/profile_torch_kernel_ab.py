@@ -78,10 +78,12 @@ def k3_call(args, kwargs, slab):
     """An advection call's arguments as tensors and numbers: one domain,
     (bk, flags, vel, vel_old, dt, pending, flip_ratio, dom) with the mode
     and ring_only as keywords (models/flip.py); a slab, (bk, obs, vel,
-    vel_old, dt, pending, flip_ratio, dom, z_base, mode, ring_only)."""
+    vel_old, dt, pending, flip_ratio, dom, z_base, mode) with ring_only
+    after them or as a keyword."""
     import torch
     if slab:
-        bk, obs, vel, vold, dt, pend, fr, _, z_base, mode, ring = args
+        bk, obs, vel, vold, dt, pend, fr, _, z_base, mode, *ring = args
+        ring = ring[0] if ring else kwargs["ring_only"]
         grid = {"obs": obs, "z_base": z_base}
     else:
         bk, flags, vel, vold, dt, pend, fr, _ = args
@@ -313,16 +315,17 @@ def time_checkout(repo, path, reps, out_path, only):
                         advk.advect_blend_slab)
 
     def k3_args(c):
+        """(positional arguments, keywords) of one recorded call."""
         slab = "z_base" in c
         return ((fb.Buckets(**c["buckets"]),
                  c["obs"] if slab else c["flags"], c["vel"], c["vel_old"],
                  c["dt"], c["pending"], c["flip_ratio"], dom)
-                + ((c["z_base"],) if slab else ())
-                + (c["mode"], c["ring_only"]))
+                + ((c["z_base"],) if slab else ()) + (c["mode"],),
+                {"ring_only": c["ring_only"]})
 
     def live_fields(outs_, args_):
         """The six fields of the live slots, concatenated over the calls."""
-        return [torch.cat([getattr(o, f)[a[0].valid]
+        return [torch.cat([getattr(o, f)[a[0][0].valid]
                            for o, a in zip(outs_, args_)]) for f in FIELDS6]
     k3 = {name: k3_args(inp["k3"][name])
           for name in ("bench", "obstacle", "cold")}
@@ -330,15 +333,16 @@ def time_checkout(repo, path, reps, out_path, only):
     k3_outs = {}
     for name, a_ in k3.items():
         def k3_step(a_=a_, name=name):
-            k3_outs[name] = [step_form(*a_)]
+            k3_outs[name] = [step_form(*a_[0], **a_[1])]
         timed[f"advect_{name}"] = (k3_step, 1)
 
     def k3_zshard():
-        k3_outs["zshard"] = [slab_form(*a_) for a_ in k3_slabs]
+        k3_outs["zshard"] = [slab_form(*a_[0], **a_[1]) for a_ in k3_slabs]
     timed["advect_zshard"] = (k3_zshard, len(k3_slabs))
 
     def k3_public():
-        k3_outs["public"] = [advk.advect_blend(*k3["bench"])]
+        k3_outs["public"] = [advk.advect_blend(*k3["bench"][0],
+                                               **k3["bench"][1])]
     timed["advect_public_bench"] = (k3_public, 1)
     # three rounds of reps calls each, in turn; the median per launch
     rounds = {k: [] for k in timed}
@@ -354,7 +358,7 @@ def time_checkout(repo, path, reps, out_path, only):
               [k3["bench" if name == "public" else name]])
         outs[f"k3_{name}"] = live_fields(o, a_)
     # the public form passes the invalid slots through
-    pub, (b_, *_) = k3_outs["public"][0], k3["bench"]
+    pub, (b_, *_) = k3_outs["public"][0], k3["bench"][0]
     res["advect_public_invalid_unchanged"] = all(
         torch.equal(getattr(pub, f)[~b_.valid], getattr(b_, f)[~b_.valid])
         for f in FIELDS6)
