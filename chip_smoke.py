@@ -190,9 +190,9 @@ Phases (any failed check raises, and the script exits non-zero):
 31. the ML toolbox (``mantaflow_tpu_torch/ml``): scenes/mlflip.py's three
    stages at the scene's own settings through the API (gen-data 25 frames
    at 32^3 with drop_speed 4, 120 training steps at batch 128, 10 steps
-   with the net; the scene file itself reads np.asarray of CUDA tensors
-   and runs with --device cpu only); ML-FLIP at 128^3 (the basin and
-   drop, ~2.4M particles) with that net in the loop: 1 warm step, 20 with
+   with the net; the scene file itself runs in phase 32); ML-FLIP at
+   128^3 (the basin and drop, ~2.4M particles) with that net in the
+   loop: 1 warm step, 20 with
    CUDA events, every kernel's launches counted (1 K2 and 6 K14 a step,
    nothing else), the ML block's ms, 5 steps traced (device busy, idle),
    no particle lost, finite fields, ptype in {0, fluid, empty}, K2 (by
@@ -206,7 +206,29 @@ Phases (any failed check raises, and the script exits non-zero):
    net, the ML block on equal inputs (decisions equal wherever the
    detector's probability is more than 1e-5 from the threshold), 5 Adam
    steps of each network from equal weights, one dataset frame of each
-   generator at 16^3.
+   generator at 16^3;
+32. the multi-device module (``parallel/``): the bench smoke and the flat
+   FLIP dam at 128^3 (3,830,400 particles) over 4 shards on one card
+   (``make_mesh``, ``shard_smoke_state`` / ``shard_flip_state``: grids as
+   z-slabs, particles in chunks), each 3 steps against the one-device run
+   from the same start (the smoke within 1e-5 with CG iterations within
+   2; the flat dam, whose ghost-fluid solves exit at another iterate under
+   any other order of sums, with equal flags, systems equal to 2e-5,
+   10 iterations of the slab CG against K2 to rel 1e-5 and every solve
+   below its accuracy by its true residual), then 1 warm step and 10
+   timed (CUDA events), the launches counted (the smoke: 8 slab launches of the window kernel per shard a step, no
+   one-domain window launch and no CG kernel: the slab CG; the flat dam:
+   10 layers of the layer kernel per shard a step), the smoke held by its
+   residual after 11 steps, 3 steps traced, the halo copies' ms and the
+   slab CG's us an iteration; the dry run (``parallel/dryrun.py``) at 4
+   shards; the APIC dam at 128^3, an IDP step and a VIC integration run 5
+   times each, 1 distinct result each (``tools/scatter_order.py
+   --witness``); scenes/smoke_fused_128.py (its 128^3, 10 frames of 10
+   steps), bit for bit ``smoke_run`` through the API from the same start,
+   and scenes/mlflip.py 1, both unedited through the scene runner.
+
+``python3 chip_smoke.py --only-multi`` builds the kernels and runs phase 32
+alone (no kernels line, no ok line).
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -677,9 +699,8 @@ def ml_toolbox_phase(torch, dev, h):
           f"candidates, {n_splash} splash labels; train {ML_TRAIN_STEPS} "
           f"steps {train_s:.2f} s, loss {loss_first:.4f} -> "
           f"{loss_last:.4f}; 10 steps with the net {run_s:.2f} s, "
-          f"{n_ball} ballistic of {int(st.parts.count)} particles "
-          "(the scene file's summary line reads np.asarray of CUDA "
-          "tensors: it runs with --device cpu only)", flush=True)
+          f"{n_ball} ballistic of {int(st.parts.count)} particles",
+          flush=True)
 
     # 2. ML-FLIP at ML_RES^3 with the trained net in the loop
     mdom = Domain(size=(ML_RES,) * 3)
@@ -1161,6 +1182,394 @@ def ml_toolbox_phase(torch, dev, h):
     return numbers, k2_err
 
 
+class _Helpers:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _every_kernel(advk, fadk, rbk, p2gk, lsk, blk, xk, prk):
+    """Every kernel wrapper by name, each with its ``launches`` count."""
+    return {"advect_bucket": fadk.advect_blend_live,
+            "advect_bucket_public": fadk.advect_blend,
+            "advect_bucket_no_blend": fadk.advect,
+            "rebin_fused": rbk.rebin_fused,
+            "rebin_fused_slab": rbk.rebin_fused_slab,
+            "rebin": rbk.rebin_pass, "rebin_zshard": rbk.rebin_zpass_halo,
+            "p2g_levelset": p2gk.p2g_union, "p2g_mac": p2gk.p2g_mac,
+            "union_levelset": lsk.union_levelset,
+            "flip_blend": blk.flip_update, "extrap_layer": xk.extrap_layer,
+            "cg_solve": prk.cg_solve, "window_advect": advk.window_pass,
+            "window_advect_zshard": advk.window_pass_slab,
+            "advect_bucket_zshard": fadk.advect_blend_slab_live,
+            "advect_bucket_zshard_public": fadk.advect_blend_slab,
+            "p2g_levelset_zshard": p2gk.p2g_union_slab}
+
+
+def traced_busy(torch, step, st, n):
+    """n steps of ``step`` under torch.profiler: (traced wall ms, device
+    busy ms, device launches) a step, and the last state."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            st = step(st)
+        t1.record()
+        torch.cuda.synchronize()
+    busy_us, count = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            busy_us += us
+            count += e.count
+    return t0.elapsed_time(t1) / n, busy_us / 1e3 / n, count / n, st
+
+
+def multi_device_phase(torch, dev, h):
+    """32. The multi-device module (A.3) and the repairs C.1-C.2 on the
+    card: the sharded bench smoke and the sharded flat FLIP dam at 128^3
+    over ZSHARDS shards on one card, each held against the one-device run
+    from the same start, timed and traced, with the slab CG's iterations
+    and the halo copies; the dry run at ZSHARDS shards; the float scatters'
+    repeat (tools/scatter_order.py --witness); scenes/smoke_fused_128.py
+    and scenes/mlflip.py 1, unedited, through the scene runner. Returns
+    (numbers, launches by path: smoke paths, flip paths, scene paths)."""
+    import contextlib
+    import io
+    import os
+    from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.core.shapes import Sphere
+    from mantaflow_tpu_torch.models import flip, smoke
+    from mantaflow_tpu_torch.ops import pressure as prs
+    from mantaflow_tpu_torch.parallel import dryrun
+    from mantaflow_tpu_torch.parallel import sharding as shd
+    from mantaflow_tpu_torch.scene import run as srun
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    kernels = h.every_kernel
+    mesh = shd.make_mesh(ZSHARDS)
+    numbers, smoke_p, flip_p, scene_p = {}, {}, {}, {}
+    failures = []
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def rhs_max(flags, vel, dom_, phi=None):
+        """max |negative divergence| over the interior fluid cells after a
+        projection: the solve's true residual."""
+        return float(prs.make_rhs(flags, vel, dom_, phi=phi).abs().max())
+
+    def timed(step, st, n):
+        iters = torch.zeros((), dtype=torch.int64, device=dev)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            st = step(st)
+            iters += st.cg_iters
+        t1.record()
+        torch.cuda.synchronize()
+        return st, t0.elapsed_time(t1) / n, int(iters) / n
+
+    def slab_costs(step, st):
+        """One step more with every halo_z call timed by CUDA events and
+        the slab CG's system kept; then that system solved 3 times, timed.
+        Returns (halo ms a step, halo calls, slab CG ms, its iterations)."""
+        spans, systems = [], []
+        halo, cg = shd.halo_z, prs.cg_slabs
+
+        def timed_halo(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = halo(*a, **kw)
+            e1.record()
+            spans.append((e0, e1))
+            return out
+
+        def kept_cg(*a):
+            systems.append(a)
+            return cg(*a)
+        shd.halo_z, prs.cg_slabs = timed_halo, kept_cg
+        try:
+            step(st)
+            torch.cuda.synchronize()
+        finally:
+            shd.halo_z, prs.cg_slabs = halo, cg
+        halo_ms = sum(a.elapsed_time(b) for a, b in spans)
+        n_halo = len(spans)
+        del spans
+        args = systems[-1]
+        _, it, _ = cg(*args)
+        ms = cuda_ms(torch, lambda: cg(*args), 3)
+        return halo_ms, n_halo, ms, int(it)
+
+    # -- the sharded bench smoke at 128^3 ----------------------------------
+    params = bench_params(smoke)
+    dom, st0 = bench_state(smoke, Domain, Sphere, RES, dev)
+    one, sh = st0, shd.shard_smoke_state(st0, mesh)
+    held = []
+    for k in range(3):
+        one = smoke.smoke_step(one, dom, params)
+        sh = smoke.smoke_step(sh, dom, params)
+        w = shd.unshard_smoke_state(sh)
+        err = max(float((getattr(w, f) - getattr(one, f)).abs().max())
+                  for f in ("vel", "density", "pressure"))
+        di = int(sh.cg_iters) - int(one.cg_iters)
+        held.append({"max_abs_err": err, "cg_iters_one": int(one.cg_iters),
+                     "cg_iters_slabs": int(sh.cg_iters)})
+        if not (err <= 1e-5 and torch.equal(w.flags, one.flags)
+                and abs(di) <= 2):
+            failures.append(f"smoke slabs step {k + 1}: {held[-1]}")
+    reset()
+    step_s = (lambda s: smoke.smoke_step(s, dom, params))
+    s = step_s(shd.shard_smoke_state(st0, mesh))  # warm
+    s, ms, it = timed(step_s, s, 10)
+    got = counts()
+    smoke_p["smoke_slabs_128"] = got
+    want = {"window_advect_zshard": 8 * ZSHARDS * 11}
+    for k_, n_ in got.items():
+        require(n_ == want.get(k_, 0), f"smoke slabs: {k_} launched {n_} "
+                f"times in 11 steps (expected {want.get(k_, 0)})")
+    for _ in range(8):
+        one = smoke.smoke_step(one, dom, params)
+    w = shd.unshard_smoke_state(s)
+    res_one, res_sh = (rhs_max(x.flags, x.vel, dom) for x in (one, w))
+    for who, r in (("one device", res_one), ("slabs", res_sh)):
+        if not r < params.cg_accuracy * 1.01:
+            failures.append(f"smoke after 11 steps, {who}: residual {r}")
+    traced_ms, busy_ms, n_dev, s = traced_busy(torch, step_s, s, 3)
+    halo_ms, n_halo, cg_ms, cg_it = slab_costs(step_s, s)
+    numbers["smoke_slabs_128"] = {
+        "shards": ZSHARDS, "mesh": mesh.shape, "ms_per_step": ms,
+        "cg_iters_per_step": it, "first_steps_vs_one_device": held,
+        "residual_after_11_steps": {"one_device": res_one, "slabs": res_sh},
+        "traced_wall_ms_per_step": traced_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_launches_per_step": n_dev,
+        "idle_share_traced": 1.0 - busy_ms / traced_ms,
+        "halo_ms_per_step": halo_ms, "halo_calls_per_step": n_halo,
+        "slab_cg_ms": cg_ms, "slab_cg_iterations": cg_it,
+        "slab_cg_us_per_iteration": 1e3 * cg_ms / max(cg_it, 1),
+        "launches_per_step": {k_: n_ / 11 for k_, n_ in got.items() if n_}}
+    print(f"smoke slabs 128^3 x{ZSHARDS}: {ms:.2f} ms/step, CG {it:.1f} "
+          f"it/step, busy {busy_ms:.2f} of {traced_ms:.2f} ms traced, halo "
+          f"{halo_ms:.2f} ms/step ({n_halo} calls), slab CG "
+          f"{1e3 * cg_ms / max(cg_it, 1):.1f} us/it; first steps {held}",
+          flush=True)
+    del one, sh, s, w, st0
+
+    # -- the sharded flat FLIP dam at 128^3 --------------------------------
+    # held by residual from the first step: its ghost-fluid solves to 1e-3
+    # hover near the accuracy for tens of iterations, so any other order of
+    # sums moves the exit iterate (phase 14 holds K2 against cg_plain the
+    # same way). Per step: flags equal, each solve's true residual below
+    # the accuracy; on the first the systems equal to 2e-5 (the p2g's
+    # partial sums add in shard order) and the first 10 iterations of the
+    # slab CG and K2 on the one system to rel 1e-5
+    from mantaflow_tpu_torch.core import flags as fl_
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk_
+    fparams = flip_bench_params(flip)
+    fdom = Domain(size=(FLIP_RES,) * 3, dim=3)
+    f0 = flip.make_dam_state(fdom, fparams, discretization=2, device=dev)
+    n_parts = int(f0.parts.count)
+    one, sh = f0, shd.shard_flip_state(f0, mesh)
+
+    def true_res(rhs, sten, fluid, p):
+        r = rhs.double() - prs._apply_stencil(
+            p.double(), tuple(a.double() for a in sten), fdom, fluid)
+        return float(r.abs()[fluid].max())
+
+    def kept(mod, name):
+        fn, got_ = getattr(mod, name), []
+
+        def wrap(*a, **kw):
+            got_.append((a, kw))
+            return fn(*a, **kw)
+        setattr(mod, name, wrap)
+        return fn, got_
+    held = []
+    acc = fparams.cg_accuracy
+    for k in range(3):
+        k2, k2_calls = kept(prs, "solve_pressure_system")
+        try:
+            one = flip.flip_step(one, fdom, fparams)
+        finally:
+            prs.solve_pressure_system = k2
+        sc, sc_calls = kept(prs, "cg_slabs")
+        try:
+            sh = flip.flip_step(sh, fdom, fparams)
+        finally:
+            prs.cg_slabs = sc
+        (a1, kw1), = k2_calls
+        (a2, _), = sc_calls
+        rhs1, sten1, fluid1 = a1[0], a1[3], fl_.is_fluid(a1[1])
+        rhs2 = a2[0].whole()
+        sten2 = tuple(x.whole() for x in a2[2])
+        w = shd.unshard_flip_state(sh)
+        rec = {"flags_equal": bool(torch.equal(w.flags, one.flags)),
+               "cg_iters_one": int(one.cg_iters),
+               "cg_iters_slabs": int(sh.cg_iters),
+               "max_abs_diff": max(
+                   float((getattr(w, f) - getattr(one, f)).abs().max())
+                   for f in ("vel", "phi", "pressure", "pvel")),
+               "true_residual_one": true_res(rhs1, sten1, fluid1,
+                                             one.pressure),
+               "true_residual_slabs": true_res(rhs2, sten2, fluid1,
+                                               w.pressure)}
+        ok = (rec["flags_equal"] and rec["true_residual_one"] < acc * 1.01
+              and rec["true_residual_slabs"] < acc * 1.01)
+        if k == 0:
+            rec["system_max_abs_diff"] = max(
+                float((rhs2 - rhs1).abs().max()),
+                *(float((x - y).abs().max()) for x, y in zip(sten2, sten1)))
+            p10, _, _ = prk_.cg_solve(rhs1, sten1, fdom, 0.0, 10,
+                                      fluid=fluid1)
+            q10, _, _ = prs.cg_slabs(*a2[:4], 0.0, 10)
+            rec["rel_err_at_10_iterations"] = float(
+                (q10.whole() - p10).abs().max()) / float(p10.abs().max())
+            ok = (ok and rec["system_max_abs_diff"] <= 2e-5
+                  and rec["rel_err_at_10_iterations"] < 1e-5)
+        held.append(rec)
+        if not ok:
+            failures.append(f"flat slabs step {k + 1}: {rec}")
+        del a1, a2, kw1, k2_calls, sc_calls, rhs1, rhs2, sten1, sten2
+    del one, sh, w
+    reset()
+    step_f = (lambda s: flip.flip_step(s, fdom, fparams))
+    s = step_f(shd.shard_flip_state(f0, mesh))  # warm
+    s, fms, fit = timed(step_f, s, 10)
+    got = counts()
+    flip_p["flat_slabs_128"] = got
+    # per shard and step: 2 layers a component from the weights (6), 4 a
+    # component after the solve (12, extrapolate_mac_simple) and the
+    # levelset's 3 (extrapolate_ls_simple)
+    per_step = {"extrap_layer": got["extrap_layer"] / 11}
+    want = {"extrap_layer": 10 * ZSHARDS * 11}
+    for k_, n_ in got.items():
+        require(n_ == want.get(k_, 0), f"flat slabs: {k_} launched {n_} "
+                f"times in 11 steps (expected {want.get(k_, 0)})")
+    w = shd.unshard_flip_state(s)
+    act = w.parts.active_mask()
+    require(int(w.parts.count) == n_parts, "flat slabs: particles lost")
+    require(bool(torch.isfinite(w.vel).all())
+            and bool(torch.isfinite(w.parts.pos[act]).all()),
+            "flat slabs: not finite")
+    res_sh = rhs_max(w.flags, w.vel, fdom, w.phi)
+    traced_f, busy_f, ndev_f, s = traced_busy(torch, step_f, s, 3)
+    fhalo_ms, fn_halo, fcg_ms, fcg_it = slab_costs(step_f, s)
+    numbers["flat_slabs_128"] = {
+        "shards": ZSHARDS, "particles": n_parts, "ms_per_step": fms,
+        "cg_iters_per_step": fit, "first_steps_vs_one_device": held,
+        "traced_wall_ms_per_step": traced_f,
+        "device_busy_ms_per_step": busy_f,
+        "device_launches_per_step": ndev_f,
+        "idle_share_traced": 1.0 - busy_f / traced_f,
+        "halo_ms_per_step": fhalo_ms, "halo_calls_per_step": fn_halo,
+        "slab_cg_ms": fcg_ms, "slab_cg_iterations": fcg_it,
+        "slab_cg_us_per_iteration": 1e3 * fcg_ms / max(fcg_it, 1),
+        "divergence_after_11_steps": res_sh,
+        "launches_per_step": per_step}
+    print(f"flat slabs 128^3 x{ZSHARDS}: {n_parts} particles, {fms:.2f} "
+          f"ms/step, CG {fit:.1f} it/step, busy {busy_f:.2f} of "
+          f"{traced_f:.2f} ms traced, halo {fhalo_ms:.2f} ms/step, slab CG "
+          f"{1e3 * fcg_ms / max(fcg_it, 1):.1f} us/it, K14 "
+          f"{per_step['extrap_layer']:.0f} a step; first steps {held}",
+          flush=True)
+    del s, w, f0
+
+    # -- the dry run at ZSHARDS shards on the card -------------------------
+    reset()
+    t0 = time.perf_counter()
+    lines = dryrun.dryrun(ZSHARDS)
+    numbers["dryrun"] = {"shards": ZSHARDS, "lines": lines,
+                         "s": time.perf_counter() - t0}
+    require(len(lines) == 5, f"dry run: {lines}")
+    got = counts()
+    smoke_p["dryrun"] = {k_: got[k_] for k_ in
+                         ("window_advect", "window_advect_zshard",
+                          "cg_solve")}
+    flip_p["dryrun"] = {k_: (0 if k_ in smoke_p["dryrun"] else n_)
+                        for k_, n_ in got.items()}
+
+    # -- C.2: the float scatters repeat bit for bit ------------------------
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import scatter_order
+    with contextlib.redirect_stdout(io.StringIO()):
+        wit = scatter_order.witness(dev, res=FLIP_RES, runs=5)
+    numbers["scatter_repeat"] = wit
+    for k_, v in wit.items():
+        require(v["distinct_results"] == 1, f"{k_}: {v['distinct_results']}"
+                " distinct results over 5 runs")
+    print("scatter repeat: " + ", ".join(
+        f"{k_} {v['distinct_results']} distinct over 5 runs" for k_, v in
+        wit.items()), flush=True)
+
+    # -- C.1: the two scenes that read np.asarray of card tensors ---------
+    out_dir = os.path.join(here, "build", "scene_out")
+    os.makedirs(out_dir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            g = srun.run_scene(os.path.join(here, "scenes",
+                                            "smoke_fused_128.py"), [], dev)
+        torch.cuda.synchronize()
+        sf_s = time.perf_counter() - t0
+        smoke_p["smoke_fused_128_scene"] = counts()
+        sf_lines = out.getvalue().splitlines()
+        require(len(sf_lines) == 10 and os.path.exists(
+            "smoke128_final.npz"), f"smoke_fused_128: {sf_lines[-2:]}")
+        # the same run through the port's API, from the same start
+        sdom = Domain(size=(128, 128, 128), dim=3)
+        sp = smoke.SmokeParams(buoyancy=(0.0, -6e-4, 0.0),
+                               vorticity_confinement=0.1, window=3,
+                               adaptive_dt=True, cfl=3.0, dt_max=2.0)
+        ref = smoke.make_smoke_state(sdom, sp, source_shape=Sphere(
+            center=(64.0, 12.8, 64.0), radius=128 * 0.14), device=dev)
+        for _ in range(10):
+            ref = smoke.smoke_run(ref, sdom, sp, 10)
+        for f in ("flags", "vel", "density", "pressure"):
+            require(torch.equal(getattr(g["state"], f), getattr(ref, f)),
+                    f"smoke_fused_128: {f} differs from smoke_run")
+        del g, ref
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            g = srun.run_scene(os.path.join(here, "scenes", "mlflip.py"),
+                               ["1"], dev)
+        torch.cuda.synchronize()
+        ml_s = time.perf_counter() - t0
+        scene_p["mlflip_scene_1"] = counts()
+        ml_last = out.getvalue().strip().splitlines()[-1]
+        require(ml_last.startswith("done:") and g["state"].vel.is_cuda,
+                f"mlflip.py 1: {ml_last}")
+        del g
+    finally:
+        os.chdir(cwd)
+    numbers["scenes_on_card"] = {
+        "smoke_fused_128": {"s": sf_s, "last_line": sf_lines[-1],
+                            "bitwise_vs_smoke_run": True},
+        "mlflip_1": {"s": ml_s, "last_line": ml_last}}
+    print(f"scenes on the card: smoke_fused_128.py {sf_s:.1f} s "
+          f"({sf_lines[-1]}), bit for bit smoke_run; mlflip.py 1 "
+          f"{ml_s:.1f} s ({ml_last})", flush=True)
+    torch.cuda.empty_cache()
+    require(not failures, "; ".join(failures))
+    return numbers, smoke_p, flip_p, scene_p
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1228,6 +1637,13 @@ def main():
                 print(f"[{name}] {line.strip()}")
     print(f"build: {build_s:.1f} s for {', '.join(_build.SOURCES)}",
           flush=True)
+    if "--only-multi" in sys.argv[1:]:
+        # phase 32 alone, for a quick call: no kernels line, no ok line
+        md = multi_device_phase(torch, dev, _Helpers(every_kernel=_every_kernel(
+            advk, fadk, rbk, p2gk, lsk, blk, xk, prk)))[0]
+        print(card)
+        print(json.dumps({"multi_device": md}))
+        return
 
     # -- 2. main path: the bench smoke step at 128^3 -------------------------
     # first after the build, so that no earlier phase's work on the host or
@@ -2535,11 +2951,7 @@ def main():
     # -- 14-15. the flat-layout FLIP and APIC dams at 128^3 -----------------
     # the particles as (N, 3) tensors, their transfers PyTorch's scatters
     # and gathers; per step 10 K14 launches and 1 K2 and nothing else
-    every_kernel = {**flip_kernels, "window_advect": advk.window_pass,
-                    "window_advect_zshard": advk.window_pass_slab,
-                    "advect_bucket_zshard": fadk.advect_blend_slab_live,
-                    "advect_bucket_zshard_public": fadk.advect_blend_slab,
-                    "p2g_levelset_zshard": p2gk.p2g_union_slab}
+    every_kernel = _every_kernel(advk, fadk, rbk, p2gk, lsk, blk, xk, prk)
     flat_per_step = {"extrap_layer": 10, "cg_solve": 1}
     flat_sites = {k: sites[k] for k in flat_per_step}
 
@@ -4928,6 +5340,13 @@ def main():
     k2_err = max(k2_err, ml_k2_err)
     torch.cuda.empty_cache()
 
+    # 32. the multi-device module and the repairs C.1-C.2
+    md_numbers, md_smoke, md_flip, md_scene = multi_device_phase(
+        torch, dev, _Helpers(every_kernel=every_kernel))
+    smoke_paths.update(md_smoke)
+    flip_paths.update(md_flip)
+    scene_paths.update(md_scene)
+
     # the smoke paths: the bench path (phase 2) and phases 17-19's
     smoke_paths = {"smoke_128": launches, **smoke_paths}
     k1_3d_by_path = {k: v["window_advect"] for k, v in smoke_paths.items()
@@ -4961,7 +5380,8 @@ def main():
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
          "replaces": "mantaflow_tpu/ops/advection_pallas.py:284",
          "replaces_call": "mantaflow_tpu/ops/advection_pallas.py:530",
-         "launches": smoke_paths["smoke_zshard_128"]["window_advect_zshard"],
+         "launches": sum(v["window_advect_zshard"]
+                         for v in smoke_paths.values()),
          "launches_by_path": {k: v["window_advect_zshard"]
                               for k, v in smoke_paths.items()},
          "max_abs_err": k1z_err, "ms": k1z_ms, "plain_ms": k1z_plain_ms,
@@ -5071,7 +5491,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mantaflow_tpu_torch/csrc/{src}.cu",
-            "replaces": repl, "launches": z_launches[name],
+            "replaces": repl,
+            "launches": sum(v.get(name, 0) for v in flip_paths.values()),
             "launches_by_path": {k: v.get(name, 0)
                                  for k, v in flip_paths.items()},
             "max_abs_err": errs[name], "library_ms": None, **zk[name]})
@@ -5088,6 +5509,7 @@ def main():
         **new_numbers, "flat_2d": d2_numbers,
         "scene_functions": scene_fn_numbers, **scene_numbers,
         "breadth_ops": a13, "ml_toolbox": ml_numbers,
+        "multi_device": md_numbers,
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

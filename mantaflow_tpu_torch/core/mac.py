@@ -17,6 +17,25 @@ import torch
 from .masks import shift
 
 
+def zeros(shape, dtype=torch.float32, device=None):
+    """Allocate a MAC grid for a [z,y,x] domain shape (the JAX package's
+    ``zeros``; ``device`` None: the port's device, CUDA unless the caller
+    or the scene runner names one)."""
+    from .. import resolve_device
+    return torch.zeros((3,) + tuple(shape), dtype=dtype,
+                       device=resolve_device(device))
+
+
+def neg_divergence(vel):
+    """Per-cell negative divergence, the pressure RHS core (MakeRhs,
+    plugin/pressure.cpp:44-49). Valid on interior cells."""
+    u, v, w = vel[0], vel[1], vel[2]
+    d = (u - shift(u, 1, "x")) + (v - shift(v, 1, "y"))
+    if vel.shape[-3] > 1:
+        d = d + (w - shift(w, 1, "z"))
+    return d
+
+
 def get_centered(vel):
     """Cell-centered velocity (MACGrid::getCentered, grid.h:462-474).
 

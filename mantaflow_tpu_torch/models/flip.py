@@ -76,6 +76,7 @@ from ..ops import p2g_kernels as p2gk
 from ..ops import pressure as prs
 from ..ops import rebin_kernels as rbk
 from ..parallel import sharding as shd
+from ..parallel.slabs import per_slab, slab_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +176,10 @@ def make_dam_state(dom: Domain, params: FlipParams,
 
 def flip_step(state: FlipState, dom: Domain, params: FlipParams) -> FlipState:
     """One FLIP or APIC step on the flat layout, following
-    mantaflow_tpu/models/flip.py:flip_step."""
+    mantaflow_tpu/models/flip.py:flip_step. A state from
+    ``sharding.shard_flip_state`` runs ``_flip_step_slabs``."""
+    if shd.is_sharded(state):
+        return _flip_step_slabs(state, dom, params)
     flags, vel = state.flags, state.vel
     parts, pvel = state.parts, state.pvel
     ts = state.ts
@@ -237,6 +241,139 @@ def flip_step(state: FlipState, dom: Domain, params: FlipParams) -> FlipState:
     return FlipState(flags=flags, vel=vel, vel_old=vel_old,
                      pressure=pressure, phi=phi, parts=parts, pvel=pvel,
                      cpx=cpx, cpy=cpy, cpz=cpz, ts=ts, cg_iters=iters)
+
+
+def _chunk_parts(state: FlipState, i: int, offset: int):
+    """Shard i's chunk of the sharded state's particles, its count the
+    rows of the chunk below the global count."""
+    pos = state.parts.pos.parts[i]
+    count = torch.clamp(state.parts.count.to(pos.device) - offset, 0,
+                        pos.shape[0]).to(state.parts.count.dtype)
+    return cp.Particles(pos=pos, flags=state.parts.flags.parts[i],
+                        count=count)
+
+
+def _flip_step_slabs(state: FlipState, dom: Domain,
+                     params: FlipParams) -> FlipState:
+    """``flip_step`` on a sharded flat state (grids as z-slabs, particles
+    as chunks), the JAX package's step under GSPMD written out:
+    - the particle stages (advection, g2p) read the whole grids, gathered
+      on each shard once a step;
+    - the p2g: each shard scatters its chunk into whole-grid sums
+      (``add_at``), the sums added in shard order (``psum``);
+    - the fluid marks: the shards' occupied cells ORed; the particle
+      levelset: the shards' levelsets' minimum;
+    - every grid stage on each shard's slab (``parallel/slabs.py``), the
+      extrapolation layers (K14 on a GPU) on slabs extended by their
+      count, the solve by the slab CG (``pressure.solve_pressure_slabs``).
+    """
+    if not dom.is3d:
+        raise ValueError("a sharded flat state needs a 3D domain")
+    mesh = state.vel.mesh
+    lead = mesh.lead
+    ts = state.ts
+    if params.adaptive_dt:
+        vmax = shd.pmax([torch.max(v[0] ** 2 + v[1] ** 2 + v[2] ** 2)
+                         for v in state.vel.parts], lead)
+        ts = slv.adapt_timestep(ts, torch.sqrt(vmax), params.cfl,
+                                params.dt_min, params.dt_max,
+                                params.frame_length)
+    dt = ts.dt
+    offs = state.parts.pos.offsets()
+
+    def whole_on(i, grid):
+        return grid.to(mesh.device(i))
+
+    flags_w, vel_w = state.flags.whole(), state.vel.whole()
+    chunks = []
+    for i in range(mesh.n):
+        p = cp.advect_in_grid(_chunk_parts(state, i, offs[i]),
+                              whole_on(i, flags_w), whole_on(i, vel_w),
+                              dt.to(mesh.device(i)), dom,
+                              params.integration_mode,
+                              delete_in_obstacle=False,
+                              stop_in_obstacle=True)
+        chunks.append(p)
+
+    # p2g: whole-grid sums per shard, added in shard order
+    sums = []
+    for i, p in enumerate(chunks):
+        if params.apic:
+            sums.append(ao.apic_sums(p, state.pvel.parts[i],
+                                     state.cpx.parts[i], state.cpy.parts[i],
+                                     state.cpz.parts[i], dom))
+        else:
+            sums.append(fo.p2g_sums(p, state.pvel.parts[i], dom))
+    acc = shd.psum([a for a, _ in sums], lead)
+    wsum = shd.psum([w for _, w in sums], lead)
+    vel, weight = (ao.apic_finish if params.apic else fo.p2g_finish)(
+        acc, wsum)
+    vel, weight = shd.Slabs.of(vel, mesh), shd.Slabs.of(weight, mesh)
+    vel_old = vel
+    dist = params.extrap_weight_dist
+    vel, _ = slab_stage(lambda sd, v, w: xtr.extrapolate_mac_from_weight(
+        v, w, sd, dist), dist + 2, dom, vel, weight)
+
+    occupied = shd.por([fo.particle_counts(p, dom) > 0 for p in chunks],
+                       lead)
+    flags = per_slab(lambda o, f: fo.mark_occupied_cells(o, f, dom),
+                     shd.Slabs.of(occupied, mesh), state.flags)
+    vel = slab_stage(lambda sd, f, v, dt_: ext.add_gravity(
+        f, v, params.gravity, dt_, sd, scale=params.gravity_scale), 1, dom,
+        flags, vel, dt)
+
+    phi = state.phi
+    if params.ghost_fluid:
+        flags_w = flags.whole()
+        phi = shd.Slabs.of(shd.pmin(
+            [fo.union_particle_levelset(p, whole_on(i, flags_w), dom,
+                                        params.radius_factor)
+             for i, p in enumerate(chunks)], lead), mesh)
+        phi = slab_stage(lambda sd, ph: xtr.extrapolate_ls_simple(
+            ph, sd, distance=4, inside=True), 6, dom, phi)
+
+    def wall(v):
+        return slab_stage(lambda sd, f, v_: ext.set_wall_bcs(f, v_, sd), 1,
+                          dom, flags, v)
+    vel = wall(vel)
+    vel, pressure, _, iters, _ = prs.solve_pressure_slabs(
+        vel, flags, dom, cg_accuracy=params.cg_accuracy,
+        phi=phi if params.ghost_fluid else None,
+        cg_max_iter_fac=params.cg_max_iter_fac,
+        preconditioner=params.preconditioner)
+    vel = wall(vel)
+    dist = params.extrap_vel_dist
+    vel = slab_stage(lambda sd, f, v: xtr.extrapolate_mac_simple(
+        f, v, sd, dist), dist + 2, dom, flags, vel)
+
+    # g2p from the whole grids
+    flags_w, vel_w = flags.whole(), vel.whole()
+    vel_old_w = vel_old.whole()
+    pvel, cpx, cpy, cpz = [], [], [], []
+    for i, p in enumerate(chunks):
+        if params.apic:
+            got = ao.apic_map_mac_to_parts(
+                p, whole_on(i, vel_w), whole_on(i, flags_w), dom,
+                old=(state.pvel.parts[i], state.cpx.parts[i],
+                     state.cpy.parts[i], state.cpz.parts[i]))
+        else:
+            got = (fo.flip_velocity_update(
+                p, state.pvel.parts[i], whole_on(i, flags_w),
+                whole_on(i, vel_w), whole_on(i, vel_old_w),
+                params.flip_ratio), state.cpx.parts[i],
+                state.cpy.parts[i], state.cpz.parts[i])
+        for lst, g in zip((pvel, cpx, cpy, cpz), got):
+            lst.append(g)
+
+    parts = dataclasses.replace(
+        state.parts, pos=state.parts.pos.like(p.pos for p in chunks),
+        flags=state.parts.flags.like(p.flags for p in chunks))
+    ts = slv.step(ts, params.frame_length)
+    like = state.pvel.like
+    return FlipState(flags=flags, vel=vel, vel_old=vel_old,
+                     pressure=pressure, phi=phi, parts=parts,
+                     pvel=like(pvel), cpx=like(cpx), cpy=like(cpy),
+                     cpz=like(cpz), ts=ts, cg_iters=iters)
 
 
 def flip_run(state: FlipState, dom: Domain, params: FlipParams,

@@ -18,6 +18,8 @@ test once per V-cycle and CG iteration.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
@@ -32,6 +34,8 @@ from ..ops import advection_kernels as advk
 from ..ops import extforces as ext
 from ..ops import multigrid
 from ..ops import pressure as prs
+from ..parallel import sharding as shd
+from ..parallel.slabs import per_slab, slab_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +127,15 @@ def smoke_step(state: SmokeState, dom: Domain, params: SmokeParams,
     passes over the mesh's z-slabs (``advection_kernels.window_pass_zshard``:
     one launch of the window kernel's z-slab form per shard); the rest of the
     step stays whole on the lead, as the z-sharded FLIP step's grids do. It
-    needs the Pallas window path (``window > 0``, ``use_pallas``, 3D)."""
+    needs the Pallas window path (``window > 0``, ``use_pallas``, 3D).
+
+    A state from ``sharding.shard_smoke_state`` (grids as the mesh's
+    z-slabs) runs every stage per slab (``_smoke_step_slabs``), as the JAX
+    package's step runs under GSPMD on a sharded state."""
+    if shd.is_sharded(state):
+        if zshard is not None and zshard != state.vel.mesh:
+            raise ValueError("the state is sharded over another mesh")
+        return _smoke_step_slabs(state, dom, params)
     if zshard is not None and not (params.window > 0 and params.use_pallas
                                    and dom.is3d):
         raise ValueError("zshard needs window > 0, use_pallas and a 3D "
@@ -185,12 +197,97 @@ def smoke_step(state: SmokeState, dom: Domain, params: SmokeParams,
                       mg=state.mg, cg_iters=iters)
 
 
+def _smoke_step_slabs(state: SmokeState, dom: Domain,
+                      params: SmokeParams) -> SmokeState:
+    """``smoke_step`` on a sharded state: every grid stage on each shard's
+    z-slab (``parallel/slabs.py``), each extended by its stencil's reach;
+    the window passes (``window > 0``) one launch of the window kernel's
+    z-slab form per shard (``advection_kernels.advect_*_slabs``), the
+    exact gathers (``window == 0``) on slabs extended by the step's largest
+    backtrace, the solve by the slab CG (``pressure.solve_pressure_slabs``).
+    The adaptive dt's maximum is the maximum of the shards'."""
+    if not dom.is3d:
+        raise ValueError("a sharded smoke state needs a 3D domain")
+    mesh = state.vel.mesh
+    flags, vel, density = state.flags, state.vel, state.density
+    ts = state.ts
+
+    vmax = None
+    if params.adaptive_dt or params.window == 0:
+        vmax = shd.pmax([torch.max(v[0] ** 2 + v[1] ** 2 + v[2] ** 2)
+                         for v in vel.parts], mesh.lead)
+    if params.adaptive_dt:
+        ts = slv.adapt_timestep(ts, torch.sqrt(vmax), params.cfl,
+                                params.dt_min, params.dt_max,
+                                params.frame_length)
+    dt = ts.dt
+
+    density = per_slab(lambda s, d: torch.where(s > 0.0, s, d),
+                       state.source, density)
+
+    order = params.advection_order
+    if params.window > 0:
+        density = advk.advect_real_slabs(flags, vel, density, dt, dom,
+                                         params.window, order=order)
+        vel = advk.advect_mac_slabs(
+            flags, vel, vel, dt, dom, params.window, order=order,
+            strength=params.mac_strength,
+            has_outflow=bool(params.open_bound) or not params.use_pallas)
+    else:
+        # the backtrace reaches ceil(max|u| dt) cells, its corners one
+        # more; MacCormack chains two traces and a clamp at the first
+        reach_ = int(math.ceil(float(torch.sqrt(vmax) * dt))) + 2
+        h = 2 * reach_ + 3
+        density = slab_stage(lambda sd, f, v, g, dt_: adv.advect_real(
+            f, v, g, dt_, order=order, clamp_mode=params.clamp_mode),
+            h, dom, flags, vel, density, dt)
+        vel = slab_stage(lambda sd, f, v, dt_: adv.advect_mac(
+            f, v, v, dt_, order=order, strength=params.mac_strength,
+            clamp_mode=params.clamp_mode), h, dom, flags, vel, dt)
+
+    if params.open_bound:
+        flags, density = per_slab(
+            lambda f, d: ext.reset_outflow_grids(f, dom, None, d)[::2],
+            flags, density)
+
+    vel = slab_stage(lambda sd, f, v: ext.set_wall_bcs(f, v, sd), 1, dom,
+                     flags, vel)
+    vel = slab_stage(lambda sd, f, d, v, dt_: ext.add_buoyancy(
+        f, d, v, params.buoyancy, dt_, sd), 1, dom, flags, density, vel, dt)
+    if params.vorticity_confinement > 0.0:
+        # centred velocity, its curl, the gradient of |curl| and the
+        # force's face average: four planes
+        vel = slab_stage(lambda sd, v, f: ext.vorticity_confinement(
+            v, f, sd, params.vorticity_confinement), 4, dom, vel, flags)
+
+    vel, pressure, _, iters, _ = prs.solve_pressure_slabs(
+        vel, flags, dom, cg_accuracy=params.cg_accuracy,
+        cg_max_iter_fac=params.cg_max_iter_fac,
+        preconditioner=params.preconditioner)
+
+    if params.dissolve_speed > 0:
+        density = per_slab(lambda f, d: ext.dissolve_smoke(
+            f, d, dom, None, params.dissolve_speed, True)[0], flags, density)
+
+    ts = slv.step(ts, params.frame_length)
+    return SmokeState(flags=flags, vel=vel, density=density,
+                      pressure=pressure, source=state.source, ts=ts,
+                      mg=None, cg_iters=iters)
+
+
 def smoke_run(state: SmokeState, dom: Domain, params: SmokeParams,
               n_steps: int) -> SmokeState:
     """n steps, one after the other."""
     for _ in range(n_steps):
         state = smoke_step(state, dom, params)
     return state
+
+
+def smoke_step_jit(dom: Domain, params: SmokeParams):
+    """A one-step closure over ``dom`` and ``params``
+    (mantaflow_tpu/models/smoke.py:190). The port runs eagerly, so the
+    closure is ``smoke_step`` itself with its arguments bound."""
+    return functools.partial(smoke_step, dom=dom, params=params)
 
 
 _GRIDS = ("flags", "vel", "density", "pressure", "source")

@@ -444,3 +444,135 @@ def advect_mac_pl(flags, vel, grid, dt, dom: Domain, k: int,
     with no outflow cells; ``zshard`` as in ``advect_real_pl``."""
     return _advect_mac_window(flags, vel, grid, dt, dom, k, order, strength,
                               has_outflow, zshard)
+
+
+# ---------------------------------------------------------------------------
+# the advection functions on a sharded state's own slabs (models/smoke.py's
+# sharded step): every pass one window_pass_slab launch per shard, its
+# source haloed by k+1 planes (halo_z), the stages between the passes
+# through parallel/slabs.py's slab step
+
+def _slab_centres(sdom, device):
+    """``_cell_centers`` of a slab, z in global coordinates (integers plus
+    one half: the whole grid's values exactly)."""
+    xx, yy, zz = _cell_centers(sdom, device)
+    return xx, yy, zz + float(sdom.z0)
+
+
+def _slab_pass(src, pos, dom: Domain, k: int, ok=None,
+               want_minmax: bool = False):
+    """One window pass over a sharded state's slabs: ``src`` (and ``ok``)
+    ``Slabs``, ``pos`` the per-shard (px, py, pz) of the shard's planes in
+    global coordinates. Returns the per-shard results."""
+    mesh = src.mesh
+    lz = mesh.planes(dom.shape[0])
+    src_h = shd.halo_z(src.parts, k + 1, 0, edge=True)
+    ok_h = ([None] * mesh.n if ok is None
+            else shd.halo_z(ok.parts, k + 1, 0))
+    return [window_pass_slab(src_h[i], *pos[i], dom, k, i * lz, ok_h[i],
+                             want_minmax) for i in range(mesh.n)]
+
+
+def _positions(pos_slabs, first: int):
+    """Per shard, the (px, py, pz) of a stage that returned positions as
+    ``Slabs``, from its ``first`` one."""
+    n = pos_slabs[0].mesh.n
+    return [tuple(pos_slabs[first + a].parts[i] for a in range(3))
+            for i in range(n)]
+
+
+def advect_real_slabs(flags, vel, grid, dt, dom: Domain, k: int,
+                      order: int = 2, strength: float = 1.0):
+    """``advect_real_fast`` on a sharded state's ``Slabs``, equal to it bit
+    for bit on the whole grid."""
+    from ..parallel.slabs import per_slab, slab_stage
+
+    def traces(sd, v, dt_, f):
+        xx, yy, zz = _slab_centres(sd, v.device)
+        c = macops.get_centered(v)
+        ok = (f & (fl.TypeFluid | fl.TypeEmpty)) != 0
+        return (xx - c[0] * dt_, yy - c[1] * dt_, zz - c[2] * dt_,
+                xx + c[0] * dt_, yy + c[1] * dt_, zz + c[2] * dt_,
+                interior_mask(sd, 1, v.device), ok)
+    got = slab_stage(traces, 1, dom, vel, dt, flags)
+    inter, ok = got[6], got[7]
+    if order == 1:
+        out = _slab_pass(grid, _positions(got, 0), dom, k)
+        return per_slab(lambda m, o: torch.where(m, o, 0.0), inter,
+                        grid.like(out))
+    fwd = _slab_pass(grid, _positions(got, 0), dom, k, ok, True)
+    fwd, minv, maxv, have = (grid.like(f[j] for f in fwd) for j in range(4))
+    fwd = per_slab(lambda m, f: torch.where(m, f, 0.0), inter, fwd)
+    bwd = grid.like(_slab_pass(fwd, _positions(got, 3), dom, k))
+
+    def finish(m, f, g, fw, bw, mn, mx, hv):
+        bw = torch.where(m, bw, 0.0)
+        new = _maccormack_correct(f, g, fw, bw, strength)
+        out_of = (new < mn) | (new > mx) | ~hv
+        return torch.where(m, torch.where(out_of, fw, new), new)
+    return per_slab(finish, inter, flags, grid, fwd, bwd, minv, maxv, have)
+
+
+def advect_mac_slabs(flags, vel, grid, dt, dom: Domain, k: int,
+                     order: int = 2, strength: float = 1.0,
+                     has_outflow: bool = True):
+    """``_advect_mac_window`` (``advect_mac_fast``, or ``advect_mac_pl``
+    with ``has_outflow``) on a sharded state's ``Slabs``, equal to it bit
+    for bit on the whole grid."""
+    from ..parallel.slabs import per_slab, slab_stage
+    getters = [macops.at_mac_x, macops.at_mac_y, macops.at_mac_z]
+
+    def traces(sd, v, dt_):
+        xx, yy, zz = _slab_centres(sd, v.device)
+        out = []
+        for c in range(3):
+            vf = getters[c](v)
+            out += [xx - vf[0] * dt_, yy - vf[1] * dt_, zz - vf[2] * dt_,
+                    xx + vf[0] * dt_, yy + vf[1] * dt_, zz + vf[2] * dt_]
+        return tuple(out) + (interior_mask(sd, 1, v.device),)
+    got = slab_stage(traces, 1, dom, vel, dt)
+    inter = got[18]
+
+    def scalar(parts):
+        return shd.Slabs(list(parts), grid.mesh, 0)
+    comp = [scalar(p[c] for p in grid.parts) for c in range(3)]
+
+    def sl(src, back: bool, want_minmax: bool):
+        """The three components' passes, zero outside the interior."""
+        outs, mms = [], []
+        for c in range(3):
+            got_c = _slab_pass(src[c], _positions(got, 6 * c + 3 * back),
+                               dom, k, want_minmax=want_minmax)
+            if want_minmax:
+                mms.append((scalar(g[1] for g in got_c),
+                            scalar(g[2] for g in got_c)))
+                got_c = [g[0] for g in got_c]
+            outs.append(per_slab(lambda m, v: torch.where(m, v, 0.0), inter,
+                                 scalar(got_c)))
+        return outs, mms
+    stack = (lambda *cs: torch.stack(cs))
+    if order == 1:
+        fwd, _ = sl(comp, False, False)
+        out = per_slab(stack, *fwd)
+        return (slab_stage(lambda sd, f, o, g, dt_: apply_outflow_bc(
+            f, o, g, dt_, sd), 3, dom, flags, out, grid, dt)
+            if has_outflow else out)
+    fwd, mms = sl(comp, False, True)
+    bwd, _ = sl(fwd, True, False)
+    fwd, bwd = per_slab(stack, *fwd), per_slab(stack, *bwd)
+
+    def finish(sd, f, g, fw, bw, mn0, mx0, mn1, mx1, mn2, mx2, dt_):
+        m = interior_mask(sd, 1, f.device)
+        new = _maccormack_correct_mac(f, g, fw, bw, strength, sd)
+        ok_flag = (f & (fl.TypeFluid | fl.TypeEmpty)) != 0
+        comps = [new[c] for c in range(3)]
+        for c, (mn, mx) in enumerate(((mn0, mx0), (mn1, mx1), (mn2, mx2))):
+            ax = "xyz"[c]
+            val = torch.where((new[c] < mn) | (new[c] > mx), fw[c], new[c])
+            edge = _axis_coord(sd, ax, f.device) == 0
+            front = ok_flag & (shift(ok_flag, -1, ax) | edge)
+            comps[c] = torch.where(m, torch.where(front, val, fw[c]), new[c])
+        out = torch.stack(comps)
+        return apply_outflow_bc(f, out, g, dt_, sd) if has_outflow else out
+    return slab_stage(finish, 3 if has_outflow else 1, dom, flags, grid,
+                      fwd, bwd, *(x for mm in mms for x in mm), dt)

@@ -2,8 +2,10 @@
 
 Port of ``mantaflow_tpu/ops/apic.py`` (``source/plugin/apic.cpp``):
 knApicMapLinearVec3ToMACGrid (:20-84) and knApicMapLinearMACGridToVec3
-(:108-174) as a scatter (``index_add_``) and a gather over the 8 (2D: 4)
-face corners of each particle, as ``ops/flip.py`` does. Per-particle
+(:108-174) as a scatter and a gather over the 8 (2D: 4) face corners of
+each particle. The scatter sums one (N, 16|8) row per particle and
+component through ``core/interp.py:add_at`` (sorted on a GPU, so a run
+repeats bit for bit), the row form of the flat p2g. Per-particle
 affine matrices are three Vec3 channels cpx/cpy/cpz (the rows of C).
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..core.domain import Domain
+from ..core.interp import _fold_rows
 from ..core.particles import Particles, pos_columns
 
 VECTOR_EPSILON = 1e-6
@@ -51,6 +54,14 @@ def apic_map_parts_to_mac(parts: Particles, pvel, cpx, cpy, cpz, flags,
                           dom: Domain, ptype=None, exclude: int = 0):
     """apicMapPartsToMAC (apic.cpp:87-105). Returns (vel, mass), the mass
     as accumulated (not stomped)."""
+    return apic_finish(*apic_sums(parts, pvel, cpx, cpy, cpz, dom, ptype,
+                                  exclude))
+
+
+def apic_sums(parts: Particles, pvel, cpx, cpy, cpz, dom: Domain,
+              ptype=None, exclude: int = 0):
+    """The scatter of ``apic_map_parts_to_mac``: (sum of w * v, sum of w)
+    per face, (3, z, y, x) each. A sharded step adds the shards' sums."""
     sz, sy, sx = dom.shape
     device = parts.pos.device
     active = parts.active_mask()
@@ -63,35 +74,44 @@ def apic_map_parts_to_mac(parts: Particles, pvel, cpx, cpy, cpz, flags,
     zdirs = (0, 1) if dom.is3d else (0,)
     vels, masses = [], []
     for c in range(3):
-        acc = torch.zeros((dom.num_cells,), dtype=torch.float32,
-                          device=device)
-        mass = torch.zeros((dom.num_cells,), dtype=torch.float32,
-                           device=device)
-        if c < n_comp:
-            (i0, j0, k0), (wx1, wy1, wz1), (gx, gy, gz) = _apic_weights(
-                parts.pos, dom, c)
-            pv = pvel[:, c].contiguous()
-            cp0, cp1, cp2 = pos_columns(cps[c])
-            for di in (0, 1):
-                wi = wx1 if di else 1.0 - wx1
-                for dj in (0, 1):
-                    wj = wy1 if dj else 1.0 - wy1
-                    for dk in zdirs:
-                        wk = wz1 if dk else 1.0 - wz1
-                        w = wi * wj * (wk if dom.is3d else 1.0) * af
-                        rx = gx + di - px
-                        ry = gy + dj - py
-                        rz = gz + dk - pz
-                        val = pv + cp0 * rx + cp1 * ry + cp2 * rz
-                        flat = ((k0 + dk) * sy + (j0 + dj)) * sx + (i0 + di)
-                        acc.index_add_(0, flat, w * val)
-                        mass.index_add_(0, flat, w)
+        if c >= n_comp:
+            vels.append(torch.zeros(dom.shape, dtype=torch.float32,
+                                    device=device))
+            masses.append(torch.zeros_like(vels[-1]))
+            continue
+        (i0, j0, k0), (wx1, wy1, wz1), (gx, gy, gz) = _apic_weights(
+            parts.pos, dom, c)
+        pv = pvel[:, c].contiguous()
+        cp0, cp1, cp2 = pos_columns(cps[c])
+        # the base is clamped before the corner offset, so corner (dk, dj,
+        # di) sits at base + a constant: one row of w * val, then w, per
+        # corner in interp's corner order (z, y, x), summed by one
+        # add_at and folded onto the corners
+        vals, ws = [], []
+        for dk in zdirs:
+            wk = (wz1 if dk else 1.0 - wz1) if dom.is3d else 1.0
+            for dj in (0, 1):
+                wj = wy1 if dj else 1.0 - wy1
+                for di in (0, 1):
+                    wi = wx1 if di else 1.0 - wx1
+                    w = wi * wj * wk * af
+                    val = (pv + cp0 * (gx + di - px) + cp1 * (gy + dj - py)
+                           + cp2 * (gz + dk - pz))
+                    vals.append(w * val)
+                    ws.append(w)
+        base = (k0 * sy + j0) * sx + i0
+        acc, mass = _fold_rows(dom.shape, base.long(),
+                               torch.stack(vals + ws, dim=-1), 2)
         vels.append(acc.reshape(dom.shape))
         masses.append(mass.reshape(dom.shape))
-    mass = torch.stack(masses)
+    return torch.stack(vels), torch.stack(masses)
+
+
+def apic_finish(acc, mass):
+    """``apic_map_parts_to_mac``'s (vel, mass) from its sums."""
     mass_st = torch.where(mass <= VECTOR_EPSILON, 0.0, mass)
-    vel = torch.where(mass_st > 0, torch.stack(vels)
-                      / torch.clamp(mass_st, min=1e-30), 0.0)
+    vel = torch.where(mass_st > 0, acc / torch.clamp(mass_st, min=1e-30),
+                      0.0)
     return vel, mass
 
 

@@ -116,6 +116,13 @@ def map_parts_to_mac(parts: Particles, pvel, flags, dom: Domain, ptype=None,
     velocities to faces, then safe divide. Returns (vel, weight), the
     weight with sub-epsilon faces stomped to zero (flip.cpp:653-655):
     extrapolateMACFromWeight treats weight > 0 as initialized."""
+    return p2g_finish(*p2g_sums(parts, pvel, dom, ptype, exclude))
+
+
+def p2g_sums(parts: Particles, pvel, dom: Domain, ptype=None,
+             exclude: int = 0):
+    """The scatter of ``map_parts_to_mac``: (sum of w * v, sum of w) per
+    face, (3, z, y, x) each. A sharded step adds the shards' sums."""
     af = _active(parts, ptype, exclude).to(torch.float32)
     px, py, pz = pos_columns(parts.pos)
     face_pos = [(px, py - 0.5, pz - 0.5), (px - 0.5, py, pz - 0.5),
@@ -134,10 +141,13 @@ def map_parts_to_mac(parts: Particles, pvel, flags, dom: Domain, ptype=None,
                                   pvel[:, c])
         vels.append(acc.reshape(dom.shape))
         weights.append(wsum.reshape(dom.shape))
-    weight = torch.where(torch.stack(weights) < VECTOR_EPSILON, 0.0,
-                         torch.stack(weights))
-    vel = torch.where(weight > 0, torch.stack(vels)
-                      / torch.clamp(weight, min=1e-30), 0.0)
+    return torch.stack(vels), torch.stack(weights)
+
+
+def p2g_finish(acc, wsum):
+    """``map_parts_to_mac``'s (vel, weight) from its sums."""
+    weight = torch.where(wsum < VECTOR_EPSILON, 0.0, wsum)
+    vel = torch.where(weight > 0, acc / torch.clamp(weight, min=1e-30), 0.0)
     return vel, weight
 
 
@@ -231,9 +241,15 @@ def mark_fluid_cells(parts: Particles, flags, dom: Domain, ptype=None,
     empty cells inside the obstacle band (phiObs<=0) between a fluid
     neighbour on one side and obstacle interior on the other become
     fluid."""
+    occupied = particle_counts(parts, dom, ptype, exclude) > 0
+    return mark_occupied_cells(occupied, flags, dom, phi_obs)
+
+
+def mark_occupied_cells(occupied, flags, dom: Domain, phi_obs=None):
+    """``mark_fluid_cells`` from the cells that hold a particle: a sharded
+    step ORs the shards' ``particle_counts(...) > 0``."""
     cleared = torch.where(fl.is_fluid(flags),
                           (flags | fl.TypeEmpty) & ~fl.TypeFluid, flags)
-    occupied = particle_counts(parts, dom, ptype, exclude) > 0
     mark = occupied & fl.is_empty(cleared)
     flags = torch.where(mark, (cleared | fl.TypeFluid) & ~fl.TypeEmpty,
                         cleared)

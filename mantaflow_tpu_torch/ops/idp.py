@@ -13,8 +13,8 @@ slots by per-cell rank (a stable sort and a running maximum,
 compensation, which tests the cell index k where the offset n was meant
 (implicitdensityprojection.cpp:127-129), is replicated verbatim. The
 face max/min scatters are ``scatter_reduce_`` (exact in any order); the
-density's trilinear weights accumulate with ``index_add_``, whose order
-differs on the card.
+density's trilinear weights accumulate through ``core/interp.py:add_at``,
+in one order on every run.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from ..core import flags as fl
 from ..core.domain import Domain
-from ..core.interp import _axis_weights, interpol, interpol_mac
+from ..core.interp import _axis_weights, add_at, interpol, interpol_mac
 from ..core.masks import axis_index, interior_mask, shift, shift_xyz
 from ..core.particles import Particles
 from .flip import _cell_of, _corner_arrays
@@ -142,7 +142,7 @@ def map_mass_to_grid(parts: Particles, flags, phi_obs, dom: Domain, dt,
     cflat, w = _corner_arrays(xi, yi, zi, s1, t1, f1, dom.shape)
     w = w * active[None, :]
     dens = torch.zeros((dom.num_cells,), dtype=torch.float32, device=dev)
-    dens.index_add_(0, cflat.reshape(-1).long(), w.reshape(-1))
+    add_at(dens, cflat.reshape(-1).long(), w.reshape(-1))
     dens = dens.reshape(dom.shape)
 
     fluid = fl.is_fluid(new_flags)

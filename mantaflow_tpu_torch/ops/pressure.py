@@ -21,6 +21,12 @@ Two CGs, routed as the JAX package routes on one TPU chip:
   host read per iteration, takes the rest: the l2-norm exit, the CG tail
   after a multigrid start, a ``precond_apply``, ``enforce_compatibility``
   (rhs off fluid) and ``use_pallas_cg=False``.
+
+A sharded state (``parallel/sharding.py``: grids as z-slabs) solves by
+``solve_pressure_slabs`` and ``cg_slabs``, the counterpart of the XLA CG
+that the JAX package runs on more than one device
+(``mantaflow_tpu/ops/pressure.py:529-535``): each shard iterates on its
+slab, reading one plane of each neighbour a matrix-vector product.
 """
 
 from __future__ import annotations
@@ -534,4 +540,98 @@ def solve_pressure(vel, flags, dom: Domain, cg_accuracy: float = 1e-3,
         use_pallas=use_kernel)
     vel = correct_velocity(flags, vel, pressure, dom, phi, gf_clamp, curv,
                            surf_tens)
+    return vel, pressure, rhs, iters, rn
+
+
+# ---------------------------------------------------------------------------
+# the sharded solve: each shard holds its z-slab (parallel/sharding.Slabs)
+
+def cg_slabs(rhs, fluid, stencil, dom: Domain, accuracy: float,
+             max_iter: int):
+    """``cg_loop`` with no preconditioner, from zero, with the max-norm exit
+    (PcNone, and PcMIC's plain CG), on ``Slabs``: each shard keeps its
+    slab of p, r and s; the matrix-vector product reads one plane of each
+    neighbour (``halo_z``, zeros past the domain's ends, where the whole
+    grid's stencil is zero); each dot is summed on its shard in float64,
+    the sums added on the lead in shard order (``psum``) and rounded once,
+    so a run repeats bit for bit and hardly depends on the shard count;
+    the max norm is the maximum of the shards'. Returns (pressure
+    ``Slabs``, iterations, resnorm)."""
+    from ..parallel import sharding as shd
+    mesh = rhs.mesh
+    lead = mesh.lead
+
+    def ext(parts):
+        return shd.halo_z(parts, 1, 0)
+    st_ext = [ext(a.parts) for a in stencil]
+    fl_ext = ext(fluid.parts)
+
+    def matvec(s):
+        return [_apply_stencil(se, tuple(a[i] for a in st_ext), dom,
+                               fl_ext[i])[1:-1]
+                for i, se in enumerate(ext(s))]
+
+    def dot(a, b):
+        return shd.psum([torch.sum(x * y, dtype=torch.float64)
+                         for x, y in zip(a, b)], lead).to(torch.float32)
+
+    def norm(r):
+        return shd.pmax([torch.max(torch.abs(x)) for x in r], lead)
+    p = [torch.zeros_like(x) for x in rhs.parts]
+    r = list(rhs.parts)
+    s = r
+    sigma = dot(r, r)
+    rn = norm(r)
+    it = 0
+    done = bool(rn < accuracy)
+    while it < max_iter and not done:
+        tmp = matvec(s)
+        dp = dot(tmp, s)
+        alpha = torch.where(torch.abs(dp) > 0, sigma / dp, 0.0)
+        a_ = [alpha.to(x.device) for x in p]
+        p = [x + a * y for x, a, y in zip(p, a_, s)]
+        r = [x - a * y for x, a, y in zip(r, a_, tmp)]
+        rn = norm(r)
+        done = bool(rn < accuracy)
+        sigma_new = dot(r, r)
+        if not done:
+            beta = sigma_new / sigma
+            s = [x + beta.to(x.device) * y for x, y in zip(r, s)]
+            sigma = sigma_new
+        it += 1
+    return (rhs.like(p), torch.tensor(it, dtype=torch.int32, device=lead),
+            rn)
+
+
+def solve_pressure_slabs(vel, flags, dom: Domain, cg_accuracy: float = 1e-3,
+                         phi=None, gf_clamp: float = 1e-4,
+                         cg_max_iter_fac: float = 1.5,
+                         preconditioner: int = PcNone):
+    """``solve_pressure`` on a sharded state's ``Slabs``: the right-hand
+    side, the stencil (ghost fluid with ``phi``) and the velocity
+    correction through the slab step (``parallel/slabs.py``), the solve by
+    ``cg_slabs`` (the system the CG kernel takes on one device, solved the
+    way its plain version solves it). Returns (vel', pressure, rhs,
+    iterations, resnorm), each grid as ``Slabs``. Multigrid is not
+    sharded: PcMGStatic/PcMGDynamic raise."""
+    from ..parallel.slabs import per_slab, slab_stage
+    if preconditioner in (PcMGDynamic, PcMGStatic):
+        raise ValueError("a sharded state solves by plain CG (PcNone, "
+                         "PcMIC): multigrid V-cycles are not sharded")
+    if cg_accuracy < 1e-7:
+        raise ValueError("zero-pressure fixing (cg_accuracy < 1e-7) is not "
+                         "sharded")
+    rhs = slab_stage(lambda sd, f, v, ph: make_rhs(f, v, sd, phi=ph,
+                                                   gf_clamp=gf_clamp),
+                     1, dom, flags, vel, phi)
+    stencil = slab_stage(lambda sd, f, ph: make_laplace_stencil(
+        f, sd, phi=ph, gf_clamp=gf_clamp), 1, dom, flags, phi)
+    max_iter = int(cg_max_iter_fac * max(dom.size)) * (1 if dom.is3d else 4)
+    if preconditioner == PcMIC:
+        max_iter *= 12
+    fluid = per_slab(fl.is_fluid, flags)
+    pressure, iters, rn = cg_slabs(rhs, fluid, stencil, dom, cg_accuracy,
+                                   max_iter)
+    vel = slab_stage(lambda sd, f, v, p, ph: correct_velocity(
+        f, v, p, sd, ph, gf_clamp), 2, dom, flags, vel, pressure, phi)
     return vel, pressure, rhs, iters, rn

@@ -7,8 +7,9 @@ VortexKernel :24-53, advectSelf/applyToMesh :60-85;
 VICintegration :192, densityFromLevelset :298).
 
 The particle kernel is an (M, N) pairwise evaluation (vortex particle
-counts are small); the VIC splat is one ``index_add_`` per offset and
-component, and its three Poisson solves take the l2 exit, so they run
+counts are small); the VIC splat sums one row of three components per
+offset through ``core/interp.py:add_at`` (one order on every run), and
+its three Poisson solves take the l2 exit, so they run
 ``pressure.cg_loop`` as the JAX package's do.
 """
 
@@ -22,7 +23,7 @@ import torch
 from ..core import flags as fl
 from ..core import mac as macops
 from ..core.domain import Domain
-from ..core.interp import interpol
+from ..core.interp import add_at, interpol
 from ..core.masks import interior_mask
 from . import pressure as prs
 
@@ -218,13 +219,11 @@ def vic_integration(tri_centers, tri_vort, tri_areas, flags, dom: Domain,
         wsum = wsum + w
     wnorm = 1.0 / torch.clamp(wsum, min=1e-12)
 
-    vort = torch.zeros((3, nvox), dtype=torch.float32, device=dev)
+    vort = torch.zeros((nvox, 3), dtype=torch.float32, device=dev)
     for (di, dj, dk) in offsets:
         w, flat = weight_at(di, dj, dk)
-        ww = w * wnorm
-        for c in range(3):
-            vort[c].index_add_(0, flat, ww * tv[:, c])
-    vort = vort.reshape((3,) + dom.shape)
+        add_at(vort, flat, (w * wnorm)[:, None] * tv[:, :3])
+    vort = vort.t().reshape((3,) + dom.shape)
 
     curl = macops.curl_centered(vort)
     stencil = prs.make_laplace_stencil(flags, dom)

@@ -29,11 +29,23 @@ halo the sources with ``halo_z(..., edge=True)``
 A ``ShardedBuckets`` answers ``whole()``, ``cell_counts()`` and
 ``from_whole()`` as ``ops.flip_bucket.Buckets`` does, so that code which
 only needs the whole bucket set or its per-cell counts takes either.
+
+The rest of the JAX package's module: ``make_mesh`` (a ``ZMesh`` that
+reads as its (z, y) mesh), the partition specs as tuples,
+``pad_to_multiple``, and ``shard_smoke_state`` / ``shard_flip_state``.
+These keep a state's grids as the mesh's z-slabs (``Slabs``) and the flat
+layout's particle arrays as contiguous chunks over every shard
+(``Chunks``); ``models/smoke.py`` and ``models/flip.py`` step such a state
+per slab (``parallel/slabs.py``). Only z is decomposed, over all ``n``
+shards, where the JAX package's GSPMD cuts z and y: a layout difference
+that leaves results as they are. Where the JAX package pads a z extent
+that the mesh does not divide, ``ZMesh.planes`` raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -65,6 +77,67 @@ class ZMesh:
         return lz
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh(ZMesh):
+    """``make_mesh``'s mesh: a ``ZMesh`` of ``n`` z shards that reads, by
+    ``shape`` and ``axis_names``, as the JAX package's (z, y) device mesh
+    of the same ``n``. Only z is decomposed: the (z, y) factoring is a
+    name, the slabs are the ``ZMesh``'s, and results do not depend on
+    the layout."""
+    axis_names: tuple[str, ...] = ("z", "y")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name to size, z outermost, as ``dict(jax Mesh.shape)``."""
+        if len(self.axis_names) == 1:
+            return {self.axis_names[0]: self.n}
+        a = math.isqrt(self.n)
+        while self.n % a:
+            a -= 1
+        return dict(zip(self.axis_names, (self.n // a, a)))
+
+
+def make_mesh(n_devices: int | None = None, axis_names=("z", "y"),
+              devices=None) -> Mesh:
+    """A mesh of ``n_devices`` shards (sharding.py:make_mesh), shard i on
+    ``devices[i % len(devices)]``, so that more shards than cards share
+    them. ``devices=None``: every visible CUDA device, raising without one;
+    ``n_devices=None``: one shard per device."""
+    if len(axis_names) not in (1, 2):
+        raise ValueError(f"a mesh has one or two axes, got {axis_names}")
+    zm = make_zmesh(1, devices)
+    n = len(zm.devices) if n_devices is None else n_devices
+    return Mesh(n=make_zmesh(n, zm.devices).n, devices=zm.devices,
+                axis_names=tuple(axis_names))
+
+
+def scalar_grid_spec(mesh: Mesh) -> tuple:
+    """A [z, y, x] grid's partition entries (sharding.py:scalar_grid_spec)
+    as a tuple of ``PartitionSpec``'s entries."""
+    if len(mesh.axis_names) == 1:
+        return ("z", None, None)
+    return ("z", "y", None)
+
+
+def mac_grid_spec(mesh: Mesh) -> tuple:
+    """A (3, z, y, x) grid's partition entries (sharding.py:mac_grid_spec)."""
+    if len(mesh.axis_names) == 1:
+        return (None, "z", None, None)
+    return (None, "z", "y", None)
+
+
+def particle_spec(mesh: Mesh) -> tuple:
+    """(N, ...) particle arrays' partition entries (sharding.py:
+    particle_spec): the particle axis over every shard of the mesh. The
+    port cuts it into ``n`` contiguous chunks (``Chunks``)."""
+    axes = tuple(mesh.axis_names)
+    return (axes if len(axes) > 1 else axes[0],)
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
 def make_zmesh(n: int, devices=None) -> ZMesh:
     """A z mesh of ``n`` shards. ``devices=None`` takes every visible CUDA
     device and raises without one, as ``resolve_device`` does; the devices
@@ -92,24 +165,40 @@ def halo_z(slabs, h: int, dim: int, edge: bool = False):
     """Each shard's slab extended by ``h`` planes from each neighbour along
     ``dim``, copied to its device. Past the domain's two ends: zeros, as
     ``lax.ppermute`` leaves them (flip_bucket_pallas.py:_halo_z), or with
-    ``edge`` the end plane repeated (advection_pallas.py:551-556)."""
+    ``edge`` the end plane repeated (advection_pallas.py:551-556). A halo
+    deeper than a neighbour's slab continues into the next shard's."""
     n = len(slabs)
+
+    def planes(i, lo: bool, want: int):
+        """``want`` planes next to shard i, from its neighbours outward."""
+        got, j, dev = [], i, slabs[i].device
+        while want > 0:
+            j = j - 1 if lo else j + 1
+            if not 0 <= j < n:
+                shape = list(slabs[i].shape)
+                shape[dim] = want
+                if edge:
+                    end = slabs[0 if lo else n - 1]
+                    pad = end.narrow(dim, 0 if lo else end.shape[dim] - 1,
+                                     1).to(dev).expand(shape)
+                else:
+                    pad = slabs[i].new_zeros(shape)
+                got.append(pad)
+                break
+            s = slabs[j]
+            take = min(want, s.shape[dim])
+            got.append(s.narrow(dim, s.shape[dim] - take if lo else 0, take)
+                       .to(dev))
+            want -= take
+        return torch.cat(got[::-1] if lo else got, dim)
+
     out = []
     for i, s in enumerate(slabs):
-        if s.shape[dim] < h:
-            raise ValueError(f"halo_z: a slab of {s.shape[dim]} planes "
-                             f"cannot give {h}")
-        shape = list(s.shape)
-        shape[dim] = h
-
-        def end(plane):
-            return (s.narrow(dim, plane, 1).expand(shape) if edge
-                    else s.new_zeros(shape))
-        lo = (slabs[i - 1].narrow(dim, slabs[i - 1].shape[dim] - h, h)
-              .to(s.device) if i > 0 else end(0))
-        hi = (slabs[i + 1].narrow(dim, 0, h).to(s.device) if i < n - 1
-              else end(s.shape[dim] - 1))
-        out.append(torch.cat([lo, s, hi], dim))
+        if h == 0:
+            out.append(s)
+            continue
+        out.append(torch.cat([planes(i, True, h), s, planes(i, False, h)],
+                             dim))
     return out
 
 
@@ -218,3 +307,154 @@ def unshard_flip_bucket_state(state):
     """The inverse of ``shard_flip_bucket_state``: the buckets whole on the
     lead."""
     return dataclasses.replace(state, buckets=unshard_buckets(state.buckets))
+
+
+# ---------------------------------------------------------------------------
+# sharded grids and particle arrays (the flat layout and the smoke state)
+
+@dataclasses.dataclass
+class Slabs:
+    """A grid cut into the mesh's z-slabs: ``parts[i]``, shard i's
+    contiguous planes on its device, ``dim`` the z axis of each part (0 for
+    a [z, y, x] grid, 1 for a (3, z, y, x) MAC grid)."""
+    parts: list
+    mesh: ZMesh
+    dim: int
+
+    @staticmethod
+    def of(grid, mesh: ZMesh) -> "Slabs":
+        """A whole grid (z the third axis from the end) cut into slabs."""
+        dim = grid.dim() - 3
+        return Slabs(scatter_z(grid, mesh, dim), mesh, dim)
+
+    def whole(self):
+        """The grid joined on the lead."""
+        return gather_z(self.parts, self.mesh, self.dim)
+
+    def like(self, parts) -> "Slabs":
+        """Other per-shard tensors of this layout."""
+        return Slabs(list(parts), self.mesh, self.dim)
+
+
+@dataclasses.dataclass
+class Chunks:
+    """An (N, ...) particle array cut into ``mesh.n`` contiguous chunks of
+    ``ceil(N / n)`` rows (the last ones shorter), ``parts[i]`` on shard i's
+    device (the port's ``particle_spec``)."""
+    parts: list
+    mesh: ZMesh
+
+    @staticmethod
+    def of(arr, mesh: ZMesh) -> "Chunks":
+        size = -(-arr.shape[0] // mesh.n)
+        return Chunks([arr[i * size:(i + 1) * size].to(mesh.device(i))
+                       .contiguous() for i in range(mesh.n)], mesh)
+
+    def whole(self):
+        return torch.cat([p.to(self.mesh.lead) for p in self.parts], 0)
+
+    def like(self, parts) -> "Chunks":
+        return Chunks(list(parts), self.mesh)
+
+    def offsets(self) -> list[int]:
+        """The global row of each chunk's first row."""
+        out, at = [], 0
+        for p in self.parts:
+            out.append(at)
+            at += p.shape[0]
+        return out
+
+
+def _reduce(op, values, device):
+    total = values[0].to(device)
+    for v in values[1:]:
+        total = op(total, v.to(device))
+    return total
+
+
+def pmax(values, device):
+    """The elementwise maximum of one tensor per shard, on ``device``
+    (exact in any order)."""
+    return _reduce(torch.maximum, values, device)
+
+
+def pmin(values, device):
+    """The elementwise minimum of one tensor per shard, on ``device``."""
+    return _reduce(torch.minimum, values, device)
+
+
+def por(values, device):
+    """The elementwise OR of one boolean tensor per shard, on
+    ``device``."""
+    return _reduce(torch.logical_or, values, device)
+
+
+def is_sharded(state) -> bool:
+    """True for a state that ``shard_smoke_state`` or ``shard_flip_state``
+    made."""
+    return isinstance(getattr(state, "vel", None), Slabs)
+
+
+_SMOKE_GRIDS = ("flags", "vel", "density", "pressure", "source")
+
+
+def _lead_ts(ts, mesh):
+    return dataclasses.replace(ts, **{
+        f.name: getattr(ts, f.name).to(mesh.lead)
+        for f in dataclasses.fields(ts)})
+
+
+def shard_smoke_state(state, mesh: ZMesh):
+    """A ``SmokeState`` whose grids are the mesh's z-slabs (sharding.py:
+    shard_smoke_state); its time state and counters stay on the lead.
+    ``models.smoke.smoke_step`` takes it unchanged. No multigrid
+    hierarchy: a sharded solve is plain CG."""
+    if is_sharded(state):
+        raise ValueError("the state is sharded already")
+    if state.mg is not None:
+        raise ValueError("a sharded smoke state solves by plain CG: "
+                         "PcMGStatic/PcMGDynamic are not sharded")
+    mesh.planes(state.flags.shape[0])
+    return dataclasses.replace(
+        state, **{g: Slabs.of(getattr(state, g), mesh)
+                  for g in _SMOKE_GRIDS}, ts=_lead_ts(state.ts, mesh))
+
+
+def unshard_smoke_state(state):
+    """The inverse of ``shard_smoke_state``: every grid whole on the
+    lead."""
+    return dataclasses.replace(state, **{
+        g: getattr(state, g).whole() for g in _SMOKE_GRIDS})
+
+
+_FLAT_PARTICLE = ("pvel", "cpx", "cpy", "cpz")
+
+
+def shard_flip_state(state, mesh: ZMesh):
+    """A flat-layout ``FlipState`` on the mesh (sharding.py:
+    shard_flip_state): grids as z-slabs, the particle arrays (``pos``,
+    particle ``flags``, ``pvel``, ``cpx/cpy/cpz``) as contiguous chunks
+    over every shard, ``count`` and the time state on the lead.
+    ``models.flip.flip_step`` takes it unchanged."""
+    if is_sharded(state):
+        raise ValueError("the state is sharded already")
+    mesh.planes(state.flags.shape[0])
+    parts = dataclasses.replace(
+        state.parts, pos=Chunks.of(state.parts.pos, mesh),
+        flags=Chunks.of(state.parts.flags, mesh),
+        count=state.parts.count.to(mesh.lead))
+    return dataclasses.replace(
+        state, **{g: Slabs.of(getattr(state, g), mesh) for g in _GRIDS},
+        **{c: Chunks.of(getattr(state, c), mesh) for c in _FLAT_PARTICLE},
+        parts=parts, ts=_lead_ts(state.ts, mesh))
+
+
+def unshard_flip_state(state):
+    """The inverse of ``shard_flip_state``: grids and particle arrays
+    whole on the lead."""
+    parts = dataclasses.replace(state.parts, pos=state.parts.pos.whole(),
+                                flags=state.parts.flags.whole())
+    return dataclasses.replace(
+        state, **{g: getattr(state, g).whole() for g in _GRIDS},
+        **{c: getattr(state, c).whole() for c in _FLAT_PARTICLE},
+        parts=parts)

@@ -18,24 +18,31 @@ every ``mantaflow_tpu*`` module the scene imported is the port's, and puts
 back whatever ``mantaflow_tpu*`` entries were there before, so a process
 that also holds the JAX package keeps it.
 
-Scenes of ``scenes/`` that cannot run unedited on the port:
+One scene of ``scenes/`` cannot run unedited on the port: ``zflip.py``
+calls ``jax.numpy`` itself; ``zflip_api`` is held at the API level instead
+(``tests/test_torch_scene_api.py``).
 
-- ``zflip.py`` calls ``jax.numpy`` itself; ``zflip_api`` is held at the API
-  level instead (``tests/test_torch_scene_api.py``).
-- ``mlflip.py`` and ``smoke_fused_128.py`` read ``np.asarray`` of a state
-  tensor (``state.ptype``, ``state.density``), which a CUDA tensor
-  refuses: they run with ``--device cpu`` only. ``mlflip.py``'s three
-  stages run on the card through the port's API (``ml/mlflip.py``).
+A scene reads its results as a JAX scene does, ``np.asarray(state.density)``
+of a state field on any device. The scene's own module gets its ``numpy``
+from ``_SceneNumpy`` (``import numpy`` there resolves through the scene's
+``__builtins__``): numpy itself, but for ``asarray`` and ``array``, which
+first take a torch tensor to the host (``.detach().cpu()``). Numpy stays as
+it is everywhere else, the port's modules and the scene's other imports
+included, and numpy or host arrays pass through unchanged.
 """
 
 from __future__ import annotations
 
+import builtins
 import contextlib
 import importlib
 import importlib.abc
 import importlib.util
 import runpy
 import sys
+import types
+
+import numpy
 
 ALIAS = "mantaflow_tpu"
 PORT = "mantaflow_tpu_torch"
@@ -111,6 +118,52 @@ def _check_port_only(scene_globals):
             raise RuntimeError(f"scene global {k} comes from {mod}")
 
 
+def _host(x):
+    """A torch tensor as a host tensor numpy can read; anything else as
+    it is."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    return x
+
+
+class _SceneNumpy(types.ModuleType):
+    """numpy as a scene's own module sees it: every name is numpy's, but
+    ``asarray`` and ``array`` take a torch tensor on any device, as the
+    JAX package's scenes call them on a state field."""
+
+    def __init__(self):
+        super().__init__("numpy", numpy.__doc__)
+
+    def __getattr__(self, name):
+        return getattr(numpy, name)
+
+    @staticmethod
+    def asarray(a, *args, **kwargs):
+        return numpy.asarray(_host(a), *args, **kwargs)
+
+    @staticmethod
+    def array(a, *args, **kwargs):
+        return numpy.array(_host(a), *args, **kwargs)
+
+
+def _scene_builtins():
+    """The builtins of a scene's module: ``import numpy`` (and
+    ``numpy.<sub>``, ``from numpy import ...``) there gives the scene's
+    numpy; every other import is Python's own."""
+    scene_np = _SceneNumpy()
+    real_import = builtins.__import__
+
+    def scene_import(name, globals=None, locals=None, fromlist=(), level=0):
+        mod = real_import(name, globals, locals, fromlist, level)
+        if level == 0 and name == "numpy":
+            return scene_np
+        if level == 0 and name.startswith("numpy.") and not fromlist:
+            return scene_np
+        return mod
+    return {**vars(builtins), "__import__": scene_import}
+
+
 def run_scene(path: str, argv=(), device=None) -> dict:
     """Run the scene file at ``path`` with ``sys.argv = [path, *argv]`` on
     ``device`` (None: CUDA, raising without a GPU); returns its globals."""
@@ -120,7 +173,9 @@ def run_scene(path: str, argv=(), device=None) -> dict:
     sys.argv = [str(path)] + [str(a) for a in argv]
     try:
         with _aliased(device):
-            out = runpy.run_path(str(path), run_name="__main__")
+            out = runpy.run_path(
+                str(path), {"__builtins__": _scene_builtins()},
+                run_name="__main__")
             _check_port_only(out)
     finally:
         sys.argv = old_argv

@@ -12,6 +12,9 @@ against the JAX package's run of the same file.
   scene's parameters on 24^3.
 - The runner as its own process: it loads neither ``jax`` nor the JAX
   package, and without ``--device`` and without a GPU it raises.
+- The scene's own numpy (``run._SceneNumpy``): ``np.asarray`` and
+  ``np.array`` of a state tensor read it from any device; nothing outside
+  the scene sees it.
 """
 
 import os
@@ -108,6 +111,47 @@ def test_in_process_run_keeps_the_jax_package(tmp_path):
              if k == "mantaflow_tpu" or k.startswith("mantaflow_tpu.")}
     assert after == before
     assert sys.modules["mantaflow_tpu"].__name__ == "mantaflow_tpu"
+
+
+_NUMPY_SCENE = (
+    "import numpy as np\n"
+    "import numpy.linalg as la\n"
+    "from numpy import asarray\n"
+    "from mantaflow_tpu.core.domain import Domain\n"
+    "from mantaflow_tpu.core.shapes import Sphere\n"
+    "from mantaflow_tpu.models import smoke\n"
+    "dom = Domain(size=(12, 12, 12), dim=3)\n"
+    "params = smoke.SmokeParams(window=3, adaptive_dt=True)\n"
+    "state = smoke.make_smoke_state(dom, params, source_shape=Sphere("
+    "center=(6, 2, 6), radius=2))\n"
+    "state = smoke.smoke_run(state, dom, params, 2)\n"
+    "d = np.asarray(state.density)\n"
+    "v = np.array(state.vel, dtype=np.float64)\n"
+    "a = asarray(state.pressure)\n"
+    "host = np.arange(4.0)\n"
+    "same = np.asarray(host) is host\n"
+    "norm = float(la.norm(d))\n")
+
+
+def test_scene_numpy_reaches_only_the_scene(tmp_path):
+    """The scene's own ``import numpy`` gives the runner's numpy, whose
+    asarray and array read a torch tensor; numpy and host arrays pass
+    through, and numpy is numpy itself for the port and after the run."""
+    import mantaflow_tpu_torch.models.smoke as tsmoke
+    real = (np.asarray, np.array)
+    scene = tmp_path / "scene.py"
+    scene.write_text(_NUMPY_SCENE)
+    g = srun.run_scene(str(scene), [], "cpu")
+    assert isinstance(g["np"], srun._SceneNumpy)
+    assert g["np"].float32 is np.float32 and g["la"] is np.linalg
+    assert type(g["d"]) is np.ndarray and g["d"].shape == (12, 12, 12)
+    assert g["v"].dtype == np.float64 and g["v"].shape == (3, 12, 12, 12)
+    assert type(g["a"]) is np.ndarray and g["same"] and g["norm"] > 0
+    np.testing.assert_array_equal(
+        g["d"], g["state"].density.detach().cpu().numpy())
+    assert (np.asarray, np.array) == real
+    assert tsmoke.np is np and sys.modules["numpy"] is np
+    assert srun._SceneNumpy.asarray(g["d"]) is g["d"]
 
 
 def _run_jax_scene(path, argv):
