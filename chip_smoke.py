@@ -227,8 +227,27 @@ Phases (any failed check raises, and the script exits non-zero):
    steps), bit for bit ``smoke_run`` through the API from the same start,
    and scenes/mlflip.py 1, both unedited through the scene runner.
 
+33. every scene of scenes/ the port runs (SCENE_GROUPS: 31 files, the two
+   chains flip02_surface.py -> flip03_gen.py and guiding_3d01_low.py ->
+   guiding_3d02_high.py each in one MANTA_OUT), unedited, through the
+   scene runner on the card at the files' own grid sizes, frame counts
+   cut: every Solver.step timed by CUDA events, K2 and K14 launches and
+   K2 iterations counted, every float field finite, the last line's
+   counts against the state; each held against a CPU twin of the same
+   file and argv (worker processes of this script,
+   ``--scene-twin``, run alongside) by ``scene/snapshot.py``'s rules
+   (flags and counts exact, a levelset within 2e-4 of its scale, the
+   rest within 1e-2 of max(1, scale), each device's last solve under its
+   accuracy by its true residual; SCENE_KNOWN's fields, ROADMAP C, by that
+   residual alone), flip03_levelset.py over its first 6 steps of 120;
+   the last K2 solve of fire.py, flip05_nbflip.py and plume_2d.py and the
+   last step's K14 layers of flip05_nbflip.py and freesurface.py against
+   their plain versions, timed; then idp_apic02_3d.py (IDP
+   volume-preserving APIC) at 128^3, 150 steps, the median of the last
+   10, 3 steps traced (device busy, launches, idle).
+
 ``python3 chip_smoke.py --only-multi`` builds the kernels and runs phase 32
-alone (no kernels line, no ok line).
+alone, ``--only-scenes`` phase 33 alone (no kernels line, no ok line).
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -1570,6 +1589,706 @@ def multi_device_phase(torch, dev, h):
     return numbers, smoke_p, flip_p, scene_p
 
 
+#: phase 33: the scenes of scenes/ on the card, unedited, through the
+#: runner. Groups share one directory (MANTA_OUT, the cwd); a run is (file,
+#: argv, env). Every file keeps its own grid size; only frame counts are
+#: cut. zflip.py (jax.numpy) and run.py (drives zflip.py) cannot run on
+#: the port; flip06_obstacle.py, smoke_fused_128.py and mlflip.py run in
+#: phases 29 and 32
+SCENE_GROUPS = (
+    ("simpleplume", (("simpleplume.py", ("4",), {}),)),
+    ("plume_adaptDt", (("plume_adaptDt.py", ("3",), {}),)),
+    ("plume_2d", (("plume_2d.py", (), {}),)),
+    ("karman", (("karman.py", (), {"FRAMES": "2"}),)),
+    ("lidDrivenCavity", (("lidDrivenCavity.py", ("6",), {}),)),
+    ("fire", (("fire.py", ("4",), {}),)),
+    ("turbulence", (("turbulence.py", ("3",), {}),)),
+    ("waveletTurbulence", (("waveletTurbulence.py", (), {"FRAMES": "2"}),)),
+    ("waveletTurbulenceObs", (("waveletTurbulenceObs.py", ("2",), {}),)),
+    ("waveEquation", (("waveEquation.py", ("8",), {}),)),
+    ("benchmark_wave", (("benchmark_wave.py", ("0.1",), {}),)),
+    ("movingObstacle", (("movingObstacle.py", ("6",), {}),)),
+    ("meshload", (("meshload.py", ("3",), {}),)),
+    ("guiding_2d", (("guiding_2d.py", ("3",), {}),)),
+    ("guiding_3d", (("guiding_3d01_low.py", ("2",), {}),
+                    ("guiding_3d02_high.py", ("1",), {}))),
+    ("numpy_array_simple", (("numpy_array_simple.py", ("4",), {}),)),
+    ("numpy_write_read", (("numpy_write_read.py", ("2",), {}),)),
+    ("flip01_simple", (("flip01_simple.py", (), {"FRAMES": "2"}),)),
+    ("flip02_chain", (("flip02_surface.py", ("4",),
+                       {"MANTA_SAVE_PARTS": "1"}),
+                      ("flip03_gen.py", ("2",), {}))),
+    ("flip03_levelset", (("flip03_levelset.py", (), {}),)),
+    ("flip04_adaptDt", (("flip04_adaptDt.py", ("2",), {}),)),
+    ("flip05_nbflip", (("flip05_nbflip.py", ("2",), {}),)),
+    ("freesurface", (("freesurface.py", (), {"FRAMES": "2"}),)),
+    ("surfaceTension", (("surfaceTension.py", ("3",), {}),)),
+    ("apic01_simple", (("apic01_simple.py", ("6",), {}),)),
+    ("idp_apic01_simple", (("idp_apic01_simple.py", ("5",), {}),)),
+    ("idp_apic02_3d", (("idp_apic02_3d.py", ("2",), {}),)),
+    ("surfaceTurbulence", (("surfaceTurbulence.py", ("2",), {}),)),
+    ("benchmark_dam", (("benchmark_dam.py", ("10", "0.1"), {}),)),
+)
+#: scenes the card runs whole but holds against the CPU over their first
+#: Solver.step calls only (the CPU twin of 120 frames at 48^3 takes minutes)
+SCENE_CUT = {"flip03_levelset.py": 6}
+#: the last K2 solve of these scenes, and the last step's K14 layers of
+#: those, against their plain versions
+SCENE_K2_CHECK = ("fire.py", "flip05_nbflip.py", "plume_2d.py")
+SCENE_K14_CHECK = ("flip05_nbflip.py", "freesurface.py")
+#: the headline: IDP volume-preserving APIC at 128^3, timed and traced
+IDP_HEAD_RES = 128
+IDP_HEAD_FRAMES = 150
+SCENE_TWIN_WORKERS = 6  # CPU twins at a time, one torch thread each
+#: card-vs-CPU differences kept in ROADMAP C, each measured (NVIDIA H100
+#: 80GB HBM3, 700 W). None: the field is held by each device's residual of
+#: its last solve alone. K2 sums in another order than the plain CG, so a
+#: solve exits at another iterate within its accuracy; these fields grow
+#: that apart: the 2D plume's 400 steps (vel 0.56), particles resting on a
+#: cell face (benchmark_wave's grid index), a near-zero phi that flips
+#: sign and moves the inside extrapolation's layers (flip04's phi 0.88) and
+#: adjustNumber's reseeding (flip03_levelset's particles). The port
+#: against itself with every solve's accuracy x 0.7 parts the same fields
+#: by as much (tools/scene_cg_sensitivity.py). A number: the field's own
+#: limit; flip03_gen's improved particle levelset, whose largest
+#: eigenvalue jumps where the card's sums move a cell's average (phi
+#: 2.97e-3)
+SCENE_KNOWN = {
+    "plume_2d.py": dict.fromkeys(("density", "pressure", "vel")),
+    "benchmark_wave.py": {"gIdx": None},
+    "flip04_adaptDt.py": {"phi": None},
+    "flip03_levelset.py": dict.fromkeys((
+        "gpi", "pVel", "phi", "phiParts", "pp.flags", "pp.pos", "pressure",
+        "tmpVec3", "vel", "velOld")),
+    "flip03_gen.py": {"phi": 1e-2},
+}
+#: the last printed line's counts and the globals they count
+SCENE_COUNTS = (
+    (r"(\d+) particles", ("pp",)),
+    (r"(\d+) mesh tris", ("mesh",)),
+    (r"(\d+) coarse, (\d+) surface, (\d+) displaced",
+     ("pp", "surfacePoints", "surfacePointsDisplaced")),
+)
+
+
+class _SceneCut(Exception):
+    """Raised by the cut wrapper of Solver.step; carries the scene's
+    globals."""
+
+    def __init__(self, scene_globals):
+        super().__init__("cut")
+        self.scene_globals = scene_globals
+
+
+class SolveWatch:
+    """Keeps the last linear solve of a scene run: every
+    ``pressure.solve_pressure_system`` (solvePressure, solvePressureSystem,
+    cgSolveDiffusion, the PD guiding's and the VIC's projections, K2's
+    route included) and every ``waves.cg_solve_wave_eq`` (cgSolveWE).
+    ``residual()`` gives the last solve's accuracy, whether it exited on its
+    own residual, its true residual in float64 over the fluid cells, max
+    |rhs - A p| (a sum of squares for the l2 exits), and the limit that
+    residual is held to: the accuracy with 1 % for the updated residual's
+    drift, plus the residual that rounding p to float32 alone leaves,
+    float32's epsilon x the largest row sum of |A| x max |p| (it matters
+    where p is large: benchmark_wave.py's pressure reaches 841, and a
+    float64 CG on its system exits at the same iteration)."""
+
+    def __init__(self):
+        import inspect
+        from mantaflow_tpu_torch.ops import pressure as prs
+        from mantaflow_tpu_torch.ops import waves as wav
+        self.prs, self.wav, self.last = prs, wav, None
+        self.orig = (prs.solve_pressure_system, wav.cg_solve_wave_eq)
+        self.sig = [inspect.signature(f) for f in self.orig]
+
+    def __enter__(self):
+        sps, we = self.orig
+
+        def solve(*a, **kw):
+            out = sps(*a, **kw)
+            b = self.sig[0].bind(*a, **kw)
+            b.apply_defaults()
+            self.last = ("pressure", b.arguments, out)
+            return out
+
+        def wave(*a, **kw):
+            out = we(*a, **kw)
+            b = self.sig[1].bind(*a, **kw)
+            b.apply_defaults()
+            self.last = ("wave", b.arguments, out)
+            return out
+        self.prs.solve_pressure_system, self.wav.cg_solve_wave_eq = solve, wave
+        return self
+
+    def __exit__(self, *exc):
+        self.prs.solve_pressure_system, self.wav.cg_solve_wave_eq = self.orig
+
+    def residual(self):
+        import torch
+        from mantaflow_tpu_torch.core import flags as fl
+        if self.last is None:
+            return None
+        kind, a, out = self.last
+        prs = self.prs
+        if kind == "pressure":
+            p, it, rn = out
+            acc, l2 = float(a["cg_accuracy"]), bool(a["use_l2_norm"])
+            fluid = fl.is_fluid(a["flags"])
+            st64 = tuple(s.double() for s in a["stencil"])
+            r = a["rhs"].double() - prs._apply_stencil(p.double(), st64,
+                                                       a["dom"], fluid)
+            r = torch.where(fluid, r, 0.0)
+        else:
+            # the wave CG's system, as cg_solve_wave_eq builds it
+            from mantaflow_tpu_torch.core.masks import interior_mask
+            p, _, it, rn = out
+            acc, l2, dom = float(a["cg_accuracy"]), True, a["dom"]
+            s = a["dt"] * a["dt"] * a["c_sqr"] * 0.5
+            a0, ai, aj, ak = prs.make_laplace_stencil(a["flags"], dom)
+            st64 = tuple(x.double() for x in (a0 * s + 1.0, ai * s, aj * s,
+                                              ak * s))
+            rhs = 2.0 * a["ut"] - a["utm1"]
+            if a["crank_nic"]:
+                rhs = rhs + s * self.wav.calc_sec_deriv_2d(a["ut"], dom)
+            rhs = torch.where(interior_mask(dom, 1, rhs.device), rhs, 0.0)
+            r = rhs.double() - prs.apply_laplace(a["flags"], p.double(), st64,
+                                                 dom)
+        true = float((r * r).sum()) if l2 else float(r.abs().max())
+        a0, ai, aj, ak = (s.abs() for s in st64)
+        rows = (a0 + ai + aj + ak + prs.shift(ai, -1, "x")
+                + prs.shift(aj, -1, "y") + prs.shift(ak, -1, "z"))
+        floor = (float(torch.finfo(torch.float32).eps) * float(rows.max())
+                 * float(p.abs().max()))
+        limit = (1.01 * acc + floor * floor * r.numel()) if l2 else (
+            1.01 * acc + floor)
+        return {"solve": kind, "accuracy": acc, "l2": l2,
+                "iterations": int(it), "exited_on_residual": float(rn) < acc,
+                "true_residual": true, "float32_floor": floor,
+                "limit": limit}
+
+
+def scene_counts_check(scene, last, snap):
+    """The counts the scene's last printed line reports, against its
+    state (the snapshot's ``name.count``)."""
+    import re as re_
+    for pat, names in SCENE_COUNTS:
+        m_ = re_.search(pat, last)
+        if m_ is None:
+            continue
+        for k, name in enumerate(names):
+            got = int(snap[f"{name}.count"][1])
+            require(got == int(m_[k + 1]), f"{scene}: {name} holds {got}, "
+                    f"the last line says {last!r}")
+
+
+def run_scene_recorded(torch, path, argv, env, device, cut=None,
+                       trace_from=None, step_hook=None, on_card=False):
+    """Run one scene file through the runner on ``device`` in the current
+    directory, with ``env`` set and the process statics reset first.
+    Solver.step is wrapped: ``on_card``, a CUDA event after each step, and
+    from step ``trace_from`` on a torch.profiler trace; at step ``cut`` the
+    state's snapshot and the last solve's residual are taken (the run
+    stops there unless ``on_card``, where it runs on). ``step_hook(n)``
+    runs after step n. Returns (globals, record)."""
+    import io
+    import os
+    from mantaflow_tpu_torch.ops import obstacles as obs_
+    from mantaflow_tpu_torch.scene import api as sapi
+    from mantaflow_tpu_torch.scene import run as srun
+    from mantaflow_tpu_torch.scene import snapshot as snp
+    from mantaflow_tpu_torch.scene.vortex_api import reset_process_statics
+
+    rec = {"events": [], "steps": 0, "traced_steps": 0}
+    orig_step = sapi.Solver.step
+    watch = SolveWatch()
+
+    def step(self, frame=-1):
+        orig_step(self, frame)
+        rec["steps"] += 1
+        n = rec["steps"]
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec["events"].append(ev)
+            if "prof" in rec:
+                rec["traced_steps"] += 1
+            elif trace_from is not None and n >= trace_from:
+                from torch.profiler import ProfilerActivity, profile
+                rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                rec["prof"].__enter__()
+                rec["trace_t0"] = ev
+        if step_hook is not None:
+            step_hook(n)
+        if cut is not None and n == cut:
+            g_ = sys._getframe(1).f_globals
+            rec["cut_snapshot"] = snp.snapshot(g_)
+            rec["cut_residual"] = watch.residual()
+            if not on_card:
+                raise _SceneCut(g_)
+
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    reset_process_statics()
+    obs_.MovingObstacleState._next_id_bit = 10
+    sapi._debug_level[0] = 1
+    out = io.StringIO()
+    sapi.Solver.step = step
+    t0 = time.perf_counter()
+    if on_card:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rec["events"].append(e0)
+    try:
+        with watch, contextlib.redirect_stdout(out):
+            try:
+                g_ = srun.run_scene(path, list(argv), device)
+            except _SceneCut as c:
+                g_ = c.scene_globals
+        if on_card:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            torch.cuda.synchronize()
+            if "prof" in rec:
+                rec["prof"].__exit__(None, None, None)
+                rec["traced_ms"] = rec["trace_t0"].elapsed_time(t1)
+    finally:
+        sapi.Solver.step = orig_step
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["stdout"] = out.getvalue()
+    rec["residual"] = watch.residual()
+    return g_, rec
+
+
+def scene_twin_main(args):
+    """``python3 chip_smoke.py --scene-twin DIR GROUP``: phase 33's CPU
+    twin of one scene group, run in DIR (one torch thread); writes each
+    run's snapshot (``snapshot.save``) and a JSON record (residuals, wall
+    seconds, last line) there."""
+    import os
+    import torch
+    from mantaflow_tpu_torch.scene import snapshot as snp
+    torch.set_num_threads(1)
+    out_dir, group = args
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.chdir(out_dir)
+    recs = []
+    for i, (scene, argv, env) in enumerate(dict(SCENE_GROUPS)[group]):
+        env = {**env, "MANTA_OUT": out_dir}
+        g_, r_ = run_scene_recorded(torch, os.path.join(here, "scenes",
+                                                        scene),
+                                    argv, env, "cpu",
+                                    cut=SCENE_CUT.get(scene))
+        snap = r_.get("cut_snapshot") or snp.snapshot(g_)
+        snp.save(os.path.join(out_dir, f"cpu_{i}.npz"), snap)
+        recs.append({"scene": scene, "wall_s": r_["wall_s"],
+                     "steps": r_["steps"],
+                     "residual": r_.get("cut_residual") or r_["residual"],
+                     "last_line": (r_["stdout"].strip().splitlines()
+                                   or [""])[-1]})
+        del g_
+    with open(os.path.join(out_dir, "cpu.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def scenes_phase(torch, dev, h):
+    """33. Every scene of SCENE_GROUPS, unedited, through the runner on the
+    card: each group in its own directory (MANTA_OUT), the process statics
+    reset before each run; every Solver.step timed by CUDA events; K2 and
+    K14 launches and K2 iterations counted; every float field finite; the
+    last line's counts against the state; each run held against its CPU
+    twin (worker processes of this script, run alongside) by the rules of
+    ``scene/snapshot.py``: flags, counts and particle flags exact, a
+    levelset within 2e-4 of its scale, every other field within 1e-2 of
+    max(1, scale) with each device's last solve under its accuracy by its
+    true residual (SCENE_KNOWN: fields held by that residual alone); the
+    last K2 solves and K14 layers of SCENE_K2_CHECK / SCENE_K14_CHECK
+    against their plain versions, timed; then idp_apic02_3d.py at
+    IDP_HEAD_RES^3, timed and traced. ``h``: ``every_kernel`` (the kernel
+    wrappers by name). Returns (numbers, launches by path, kernel records
+    for the kernels line, K2's max abs error)."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="scenes_")
+    t_phase = time.perf_counter()
+
+    # the CPU twins, SCENE_TWIN_WORKERS at a time, beside the card runs
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    dirs = {}
+    for group, _ in SCENE_GROUPS:
+        dirs[group] = os.path.join(root, group)
+        os.makedirs(os.path.join(dirs[group], "cpu"))
+        os.makedirs(os.path.join(dirs[group], "card"))
+
+    procs = []
+
+    def twin(group):
+        p_ = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--scene-twin",
+             os.path.join(dirs[group], "cpu"), group], env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        procs.append(p_)
+        _, err_ = p_.communicate(timeout=900)
+        return p_.returncode, err_[-3000:]
+    pool = concurrent.futures.ThreadPoolExecutor(SCENE_TWIN_WORKERS)
+    # the longest twins (their CPU seconds on the H100 machine) first
+    order = sorted((g for g, _ in SCENE_GROUPS), key=lambda g: g not in (
+        "guiding_3d", "flip03_levelset", "plume_2d", "guiding_2d",
+        "plume_adaptDt", "flip02_chain", "simpleplume", "fire"))
+    twins = {g: pool.submit(twin, g) for g in order}
+    try:
+        return _scene_groups(torch, dev, h, twins, dirs, root, t_phase)
+    finally:
+        # a failed phase leaves no twin running
+        pool.shutdown(wait=False, cancel_futures=True)
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _scene_groups(torch, dev, h, twins, dirs, root, t_phase):
+    """scenes_phase's card runs, each group held against its twin (the
+    future ``twins[group]``), then the headline."""
+    import os
+    from statistics import median
+    from mantaflow_tpu_torch.ops import extrapolation_kernels as xk
+    from mantaflow_tpu_torch.ops import pressure as prs
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    from mantaflow_tpu_torch.scene import snapshot as snp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    numbers, paths, fk, failures = {}, {}, {}, []
+    k2_err = 0.0
+
+    kernels = h.every_kernel
+
+    def time_k(kind, kname, calls, fn, plain, nbytes, nops):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        ms, call_ms, timed_by = timed_launches(
+            torch, replay(calls, fn), 5, kname, len(calls),
+            graph=kname.startswith("extrap_layer"))
+        fk[kind] = {
+            "ms": ms, "call_ms": call_ms, "timed_by": timed_by,
+            "plain_ms": cuda_ms(torch, replay(calls, plain), 1) / len(calls),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        print(f"{kind}: {ms * 1e3:.1f} us/launch (bound "
+              f"{fk[kind]['bound_ms'] * 1e3:.1f} us, {fk[kind]['bound_by']})"
+              f", plain {fk[kind]['plain_ms']:.2f} ms", flush=True)
+
+    def card_run(scene, argv, env_, trace_from=None, keep=False):
+        """The card run of one scene with K2's and K14's calls counted (and,
+        ``keep``, those of the last step kept)."""
+        calls = {"cg_solve": [], "extrap_layer": []}
+        last = {}
+        iters = torch.zeros((), dtype=torch.int64, device=dev)
+        origs = {"cg_solve": (prk, prk.cg_solve),
+                 "extrap_layer": (xk, xk.extrap_layer)}
+        wrapped = {}
+        for name, (mod, orig) in origs.items():
+            def fn(*a, _orig=orig, _name=name, **kw):
+                if keep:
+                    calls[_name].append((a, kw))
+                out = _orig(*a, **kw)
+                if _name == "cg_solve":
+                    iters.add_(out[1])
+                return out
+            fn.launches = 0
+            wrapped[name] = fn
+            setattr(mod, name, fn)
+
+        def hook(n):
+            if keep:
+                last.update({k: list(v) for k, v in calls.items()})
+                for v in calls.values():
+                    v.clear()
+        torch.cuda.synchronize()
+        for fn_ in kernels.values():
+            fn_.launches = 0
+        try:
+            g_, r_ = run_scene_recorded(
+                torch, os.path.join(here, "scenes", scene), argv, env_, dev,
+                cut=SCENE_CUT.get(scene), trace_from=trace_from,
+                step_hook=hook, on_card=True)
+        finally:
+            for name, (mod, orig) in origs.items():
+                setattr(mod, name, orig)
+        got = {k: getattr(fn_, "launches", 0) for k, fn_ in kernels.items()}
+        got.update({k: fn_.launches for k, fn_ in wrapped.items()})
+        r_["launches"] = got
+        r_["k2_iterations"] = int(iters)
+        r_["last_calls"] = last
+        ev = r_["events"]
+        r_["spans"] = [ev[i - 1].elapsed_time(ev[i])
+                       for i in range(1, len(ev))]
+        return g_, r_
+
+    def held(scene, card_snap, cpu_snap, card_res, cpu_res):
+        """Card against CPU by the phase's rules; returns the record."""
+        known = SCENE_KNOWN.get(scene, {})
+        cmp_ = snp.compare(card_snap, cpu_snap, 1e-2, limits={
+            k: float("inf") if v is None else v for k, v in known.items()})
+        bad = snp.failures(cmp_)
+        for who, r_ in (("card", card_res), ("cpu", cpu_res)):
+            if r_ is not None and r_["exited_on_residual"] and not (
+                    r_["true_residual"] < r_["limit"]):
+                bad[f"residual_{who}"] = (r_["true_residual"], r_["limit"])
+        if bad:
+            failures.append(f"{scene} card vs CPU: {bad}")
+        # a field held by residual alone has no limit (null)
+        return {"max_abs_diff": {k: v[0] for k, v in cmp_.items()},
+                "limit": {k: None if v[1] == float("inf") else v[1]
+                          for k, v in cmp_.items()},
+                "held_by_residual": sorted(k for k, v in known.items()
+                                           if v is None),
+                "residual_card": card_res, "residual_cpu": cpu_res,
+                "beyond": sorted(bad)}
+
+    for group, runs in SCENE_GROUPS:
+        gdir = os.path.join(dirs[group], "card")
+        cwd = os.getcwd()
+        os.chdir(gdir)
+        recs = []
+        try:
+            for scene, argv, env_ in runs:
+                keep = scene in SCENE_K2_CHECK or scene in SCENE_K14_CHECK
+                g_, r_ = card_run(scene, argv, {**env_, "MANTA_OUT": gdir},
+                                  keep=keep)
+                snap = snp.snapshot(g_)
+                for k, (kind, a) in snap.items():
+                    if kind != "exact":
+                        require(bool(np.isfinite(a).all()),
+                                f"{scene}: {k} not finite")
+                last = (r_["stdout"].strip().splitlines() or [""])[-1]
+                scene_counts_check(scene, last, snap)
+                steps = max(r_["steps"], 1)
+                # the first span holds the scene's set-up too
+                spans = r_["spans"][1:] or r_["spans"]
+                rec = {"scene": scene, "argv": list(argv), "env": env_,
+                       "steps": r_["steps"], "frames": {
+                           k[:-6]: int(v[1]) for k, v in snap.items()
+                           if k.endswith(".frame")},
+                       "wall_s": r_["wall_s"],
+                       "ms_per_step_median": median(spans) if spans
+                       else None,
+                       "k2_iterations_per_step": r_["k2_iterations"] / steps,
+                       "k2_launches_per_step":
+                           r_["launches"]["cg_solve"] / steps,
+                       "k14_launches_per_step":
+                           r_["launches"]["extrap_layer"] / steps,
+                       "last_line": last}
+                paths[f"scene_{scene[:-3]}"] = r_["launches"]
+                recs.append((rec, r_.get("cut_snapshot") or snap,
+                             r_.get("cut_residual") or r_["residual"],
+                             r_["last_calls"]))
+                del g_, snap
+        finally:
+            os.chdir(cwd)
+        # the kernels against their plain versions on the last calls
+        for rec, _, _, last_calls in recs:
+            scene = rec["scene"]
+            if scene in SCENE_K2_CHECK:
+                (args, kw), = last_calls["cg_solve"][-1:]
+                dom_ = args[2]
+                tracked, _ = tracked_iterations(args[0], args[1], kw["fluid"],
+                                                dom_)
+                k2_err = max(k2_err, cg_check_by_residual(
+                    args[0], args[1], kw["fluid"], args[3], args[4], dom_,
+                    early=tracked))
+                it = int(prk.cg_solve(*args, **kw)[1])
+                n_ = dom_.num_cells
+                kind = f"cg_solve_scene_{scene[:-3]}"
+                time_k(kind, "cg_kernel<false>", last_calls["cg_solve"][-1:],
+                       prk.cg_solve, prs.cg_plain, 6 * 4 * n_,
+                       it * 24 * n_)
+                fk[kind].update(iterations=it, max_iterations=args[4],
+                                us_per_iteration=fk[kind]["ms"] * 1e3
+                                / max(it, 1), tracked_iterations=tracked)
+                rec["k2_vs_plain"] = fk[kind]
+            if scene in SCENE_K14_CHECK:
+                layers = last_calls["extrap_layer"]
+                require(layers, f"{scene}: no K14 layer in the last step")
+                for args, kw in layers:
+                    a_ = xk.extrap_layer(*args, **kw)
+                    b_ = xk.extrap_layer_plain(*args, **kw)
+                    for x_, y_ in zip(a_[0] + a_[1], b_[0] + b_[1]):
+                        require(torch.equal(x_, y_),
+                                f"{scene}: extrap_layer differs from plain")
+                n_ = args[2].num_cells
+                pairs = sum(len(a[0]) for a, _ in layers) / len(layers)
+                kind = f"extrap_layer_scene_{scene[:-3]}"
+                time_k(kind, "extrap_layer_kernel<true>", layers,
+                       xk.extrap_layer, xk.extrap_layer_plain,
+                       pairs * 16 * n_, pairs * 20 * n_)
+                fk[kind]["layers_last_step"] = len(layers)
+                rec["k14_vs_plain"] = fk[kind]
+        # the CPU twin, then card against CPU
+        rc, err = twins[group].result()
+        require(rc == 0, f"{group}: the CPU twin failed: {err}")
+        with open(os.path.join(dirs[group], "cpu", "cpu.json")) as f:
+            cpu_recs = json.load(f)
+        out = []
+        for i, ((rec, card_snap, card_res, _), crec) in enumerate(
+                zip(recs, cpu_recs)):
+            cpu_snap = snp.load(os.path.join(dirs[group], "cpu",
+                                             f"cpu_{i}.npz"))
+            rec["cpu_wall_s"] = crec["wall_s"]
+            rec["card_vs_cpu"] = held(rec["scene"], card_snap, cpu_snap,
+                                      card_res, crec["residual"])
+            if rec["scene"] in SCENE_CUT:
+                rec["card_vs_cpu"]["steps_compared"] = SCENE_CUT[rec["scene"]]
+            out.append(rec)
+        numbers[group] = out
+        print(json.dumps({"scene_group": group, "runs": out}), flush=True)
+        del recs
+
+    # the headline: idp_apic02_3d.py at IDP_HEAD_RES^3, the last 3 steps
+    # traced
+    gdir = os.path.join(root, "idp_head")
+    os.makedirs(gdir)
+    cwd = os.getcwd()
+    os.chdir(gdir)
+    try:
+        g_, r_ = card_run("idp_apic02_3d.py",
+                          (str(IDP_HEAD_FRAMES), str(IDP_HEAD_RES)),
+                          {"MANTA_OUT": gdir},
+                          trace_from=IDP_HEAD_FRAMES - 3)
+        snap = snp.snapshot(g_)
+    finally:
+        os.chdir(cwd)
+    for k, (kind, a) in snap.items():
+        if kind != "exact":
+            require(bool(np.isfinite(a).all()), f"IDP head: {k} not finite")
+    last = r_["stdout"].strip().splitlines()[-1]
+    scene_counts_check("idp_apic02_3d.py", last, snap)
+    busy_us, dev_count = 0.0, 0
+    for e in r_["prof"].key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            busy_us += us
+            dev_count += e.count
+    nt = max(r_["traced_steps"], 1)
+    busy = busy_us / 1e3 / nt
+    require(busy > 0, "IDP head: the trace holds no device time")
+    traced = r_["traced_ms"] / nt
+    steps = r_["steps"]
+    # a step: the pressure solve through K2 (the IDP density solve runs
+    # cg_loop), extrapolateMACFromWeight's 2 layers and
+    # extrapolateMACSimple's 5
+    require(r_["launches"]["cg_solve"] == steps
+            and r_["launches"]["extrap_layer"] == 7 * steps,
+            f"IDP head: {r_['launches']} launches in {steps} steps")
+    head = {"res": IDP_HEAD_RES, "frames": IDP_HEAD_FRAMES, "steps": steps,
+            "wall_s": r_["wall_s"],
+            "ms_per_step_median_last10": median(r_["spans"][-10:]),
+            "ms_per_step_all": r_["spans"],
+            "k2_iterations_per_step": r_["k2_iterations"] / steps,
+            "k2_launches_per_step": r_["launches"]["cg_solve"] / steps,
+            "k14_launches_per_step": r_["launches"]["extrap_layer"] / steps,
+            "traced_steps": r_["traced_steps"],
+            "traced_wall_ms_per_step": traced,
+            "device_busy_ms_per_step": busy,
+            "device_launches_per_step": dev_count / nt,
+            "idle_share_traced": 1.0 - busy / traced,
+            "particles": int(snap["pp.count"][1]), "last_line": last,
+            "residual": r_["residual"]}
+    paths[f"scene_idp_apic02_3d_{IDP_HEAD_RES}"] = r_["launches"]
+    numbers[f"idp_apic02_3d_{IDP_HEAD_RES}"] = head
+    print(f"idp_apic02_3d {IDP_HEAD_RES}^3 x {IDP_HEAD_FRAMES}: {steps} "
+          f"steps in {r_['wall_s']:.1f} s, "
+          f"{head['ms_per_step_median_last10']:.1f} ms/step (median of the "
+          f"last 10), K2 {head['k2_iterations_per_step']:.0f} it/step; "
+          f"traced {traced:.1f} ms/step, busy {busy:.1f}, "
+          f"{dev_count / nt:.0f} launches a step, idle "
+          f"{100 * head['idle_share_traced']:.1f} %", flush=True)
+    del g_, snap, r_
+    torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    require(not failures, "; ".join(failures))
+    return numbers, paths, fk, k2_err
+
+
+def cg_check_by_residual(rhs, stencil, fluid, acc, max_iter, dom_,
+                         early=10):
+    """K2 against cg_plain on a flat step's system. The max-norm
+    residual of these solves hovers near the accuracy for tens of
+    iterations before it exits, so rounding anywhere moves the exit
+    iteration (the float64 CG's too) and with it the pressure, by up
+    to a few per cent at equal iteration counts past ~20 (measured by
+    tools/profile_cg_exit.py). So: after ``early``
+    iterations with no exit the two pressures must agree to rel 1e-5
+    (the arithmetic is the same); each solve must exit on its residual
+    or at max_iter; and the true residual of each pressure, max|rhs -
+    A p| over the fluid cells in float64, must lie below the accuracy,
+    with 1 % for the drift of the updated residual from the true one.
+    Returns the max abs error after ``early`` iterations."""
+    import torch
+    from mantaflow_tpu_torch.ops import pressure as prs
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    st64 = tuple(a.double() for a in stencil)
+    n = min(early, max_iter)
+    pk, nk, _ = prk.cg_solve(rhs, stencil, dom_, 0.0, n, fluid=fluid)
+    pp, np_, _ = prs.cg_plain(rhs, stencil, dom_, 0.0, n, fluid)
+    require(int(nk) == int(np_) == n,
+            f"cg_solve: {int(nk)} and {int(np_)} of {n} iterations")
+    err = float((pk - pp).abs().max())
+    rel = err / (float(pp.abs().max()) + 1e-30)
+    require(rel < 1e-5, f"cg_solve at {n} iterations: rel err {rel}")
+    exits = []
+    for who, (p_, it, rn) in (
+            ("kernel", prk.cg_solve(rhs, stencil, dom_, acc, max_iter,
+                                    fluid=fluid)),
+            ("plain", prs.cg_plain(rhs, stencil, dom_, acc, max_iter,
+                                   fluid))):
+        it = int(it)
+        require(it == max_iter or float(rn) < acc,
+                f"cg_solve ({who}) exited at resnorm {float(rn)}")
+        r64 = rhs.double() - prs._apply_stencil(p_.double(), st64, dom_)
+        true_rn = float(torch.where(fluid, r64, 0.0).abs().max())
+        require(it == max_iter or true_rn < 1.01 * acc,
+                f"cg_solve ({who}): true residual {true_rn} at exit")
+        exits.append(f"{it} it, true residual {true_rn:.4g}")
+    print(f"cg_solve {dom_.shape}: rel err {rel:.3g} at {n} it; kernel "
+          f"exits at {exits[0]}, plain at {exits[1]}", flush=True)
+    return err
+
+
+def tracked_iterations(rhs, stencil, fluid, dom_, most=10):
+    """How many CG iterations from zero (up to ``most``) the plain
+    float32 CG stays within rel 1e-6 of the float64 CG on this system,
+    and their distance at the first iteration past that: beyond it the
+    system amplifies float32 rounding (a ghost-fluid diagonal grows
+    like 1 / the clamped fraction), so two float32 CGs that sum in
+    another order part there too, and cg_check_by_residual holds K2 to
+    cg_plain over these iterations only."""
+    import torch
+    from mantaflow_tpu_torch.ops import pressure as prs
+    st64 = tuple(a.double() for a in stencil)
+    tracked, rel = 0, 0.0
+    for n in range(1, most + 1):
+        p32 = prs.cg_plain(rhs, stencil, dom_, 0.0, n, fluid)[0]
+        p64 = prs.cg_plain(rhs.double(), st64, dom_, 0.0, n, fluid)[0]
+        rel = float((p32.double() - p64).abs().max()) / (
+            float(p64.abs().max()) + 1e-300)
+        if rel > 1e-6:
+            break
+        tracked = n
+    require(tracked > 0, f"CG float32 vs float64 at 1 iteration: {rel}")
+    return tracked, rel
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1643,6 +2362,14 @@ def main():
             advk, fadk, rbk, p2gk, lsk, blk, xk, prk)))[0]
         print(card)
         print(json.dumps({"multi_device": md}))
+        return
+    if "--only-scenes" in sys.argv[1:]:
+        # phase 33 alone, for a quick call: no kernels line, no ok line
+        sc = scenes_phase(torch, dev, _Helpers(every_kernel=_every_kernel(
+            advk, fadk, rbk, p2gk, lsk, blk, xk, prk)))
+        print(card)
+        print(json.dumps({"scenes": sc[0], "launches_by_path": sc[1],
+                          "kernels_vs_plain": sc[2]}))
         return
 
     # -- 2. main path: the bench smoke step at 128^3 -------------------------
@@ -3032,47 +3759,6 @@ def main():
                    "setup_s": setup_s}
         return numbers, cold_state, st, launches
 
-    def cg_check_by_residual(rhs, stencil, fluid, acc, max_iter, dom_,
-                             early=10):
-        """K2 against cg_plain on a flat step's system. The max-norm
-        residual of these solves hovers near the accuracy for tens of
-        iterations before it exits, so rounding anywhere moves the exit
-        iteration (the float64 CG's too) and with it the pressure, by up
-        to a few per cent at equal iteration counts past ~20 (measured by
-        tools/profile_cg_exit.py). So: after ``early``
-        iterations with no exit the two pressures must agree to rel 1e-5
-        (the arithmetic is the same); each solve must exit on its residual
-        or at max_iter; and the true residual of each pressure, max|rhs -
-        A p| over the fluid cells in float64, must lie below the accuracy,
-        with 1 % for the drift of the updated residual from the true one.
-        Returns the max abs error after ``early`` iterations."""
-        st64 = tuple(a.double() for a in stencil)
-        n = min(early, max_iter)
-        pk, nk, _ = prk.cg_solve(rhs, stencil, dom_, 0.0, n, fluid=fluid)
-        pp, np_, _ = prs.cg_plain(rhs, stencil, dom_, 0.0, n, fluid)
-        require(int(nk) == int(np_) == n,
-                f"cg_solve: {int(nk)} and {int(np_)} of {n} iterations")
-        err = float((pk - pp).abs().max())
-        rel = err / (float(pp.abs().max()) + 1e-30)
-        require(rel < 1e-5, f"cg_solve at {n} iterations: rel err {rel}")
-        exits = []
-        for who, (p_, it, rn) in (
-                ("kernel", prk.cg_solve(rhs, stencil, dom_, acc, max_iter,
-                                        fluid=fluid)),
-                ("plain", prs.cg_plain(rhs, stencil, dom_, acc, max_iter,
-                                       fluid))):
-            it = int(it)
-            require(it == max_iter or float(rn) < acc,
-                    f"cg_solve ({who}) exited at resnorm {float(rn)}")
-            r64 = rhs.double() - prs._apply_stencil(p_.double(), st64, dom_)
-            true_rn = float(torch.where(fluid, r64, 0.0).abs().max())
-            require(it == max_iter or true_rn < 1.01 * acc,
-                    f"cg_solve ({who}): true residual {true_rn} at exit")
-            exits.append(f"{it} it, true residual {true_rn:.4g}")
-        print(f"cg_solve {dom_.shape}: rel err {rel:.3g} at {n} it; kernel "
-              f"exits at {exits[0]}, plain at {exits[1]}", flush=True)
-        return err
-
     def flat_kernel_check(name, st, params_, what, dom_=fdom,
                           per_step=flat_per_step, layer_key="extrap_layer"):
         """K14 and K2 against their plain versions on every call of one
@@ -3918,27 +4604,6 @@ def main():
             step(st)
         torch.cuda.synchronize()
         return calls
-
-    def tracked_iterations(rhs, stencil, fluid, dom_, most=10):
-        """How many CG iterations from zero (up to ``most``) the plain
-        float32 CG stays within rel 1e-6 of the float64 CG on this system,
-        and their distance at the first iteration past that: beyond it the
-        system amplifies float32 rounding (a ghost-fluid diagonal grows
-        like 1 / the clamped fraction), so two float32 CGs that sum in
-        another order part there too, and cg_check_by_residual holds K2 to
-        cg_plain over these iterations only."""
-        st64 = tuple(a.double() for a in stencil)
-        tracked, rel = 0, 0.0
-        for n in range(1, most + 1):
-            p32 = prs.cg_plain(rhs, stencil, dom_, 0.0, n, fluid)[0]
-            p64 = prs.cg_plain(rhs.double(), st64, dom_, 0.0, n, fluid)[0]
-            rel = float((p32.double() - p64).abs().max()) / (
-                float(p64.abs().max()) + 1e-300)
-            if rel > 1e-6:
-                break
-            tracked = n
-        require(tracked > 0, f"CG float32 vs float64 at 1 iteration: {rel}")
-        return tracked, rel
 
     def scene_card_vs_cpu(name, setup, step, dom_, keys, solved=(),
                           acc=None):
@@ -5347,6 +6012,12 @@ def main():
     flip_paths.update(md_flip)
     scene_paths.update(md_scene)
 
+    # 33. every scene of scenes/ the port runs, unedited, on the card
+    sc_numbers, sc_paths, sc_fk, sc_k2_err = scenes_phase(
+        torch, dev, _Helpers(every_kernel=every_kernel))
+    scene_paths.update(sc_paths)
+    k2_err = max(k2_err, sc_k2_err)
+
     # the smoke paths: the bench path (phase 2) and phases 17-19's
     smoke_paths = {"smoke_128": launches, **smoke_paths}
     k1_3d_by_path = {k: v["window_advect"] for k, v in smoke_paths.items()
@@ -5419,7 +6090,9 @@ def main():
          "fire_3d_solve": fk["cg_solve_fire"],
          "kepsilon_channel_solve": fk["cg_solve_kepsilon"],
          "flip06_128_solve": fk["cg_solve_flip06"],
-         "mlflip_128_solve": fk["cg_solve_mlflip"]},
+         "mlflip_128_solve": fk["cg_solve_mlflip"],
+         "scene_solves": {k: v for k, v in sc_fk.items()
+                          if k.startswith("cg_solve")}},
     ]
     fbp = "mantaflow_tpu/ops/flip_bucket_pallas.py"
     # the TPU kernel replaced, and (rebin) the others of the same function
@@ -5470,6 +6143,8 @@ def main():
             entry["karman_3d_path"] = fk["extrap_layer_karman"]
             entry["flip06_128_path"] = fk["extrap_layer_flip06"]
             entry["mlflip_128_path"] = fk["extrap_layer_mlflip"]
+            entry["scene_paths"] = {k: v for k, v in sc_fk.items()
+                                    if k.startswith("extrap_layer")}
         kernels.append(entry)
     # the layer kernel's 2D instance, on the 2D flat dam's layers
     kernels.append({
@@ -5509,7 +6184,7 @@ def main():
         **new_numbers, "flat_2d": d2_numbers,
         "scene_functions": scene_fn_numbers, **scene_numbers,
         "breadth_ops": a13, "ml_toolbox": ml_numbers,
-        "multi_device": md_numbers,
+        "multi_device": md_numbers, "scenes": sc_numbers,
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
@@ -5519,4 +6194,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scene-twin"]:
+        scene_twin_main(sys.argv[2:])
+    else:
+        main()
