@@ -225,7 +225,16 @@ Phases (any failed check raises, and the script exits non-zero):
    times each, 1 distinct result each (``tools/scatter_order.py
    --witness``); scenes/smoke_fused_128.py (its 128^3, 10 frames of 10
    steps), bit for bit ``smoke_run`` through the API from the same start,
-   and scenes/mlflip.py 1, both unedited through the scene runner.
+   and scenes/mlflip.py 1, both unedited through the scene runner; then
+   what a sharded state once could not run, each held against one device
+   from the same start: the bench smoke at 128^3 with PcMGStatic over 4
+   slabs (the V-cycles' finest four levels on the slabs), in its closed
+   box with zero-pressure fixing over 4, and over 3 shards (43, 43, 42
+   planes), each to 1e-5; the 2D plume at 512^2 over 4 (one plane, on
+   shard 0) and the flat dam at 128^3 over 3 shards by each solve's true
+   residual, flags equal (the plume's systems equal on the first step,
+   its fields within the accuracy of their scale); each timed, its
+   launches counted.
 
 33. every scene of scenes/ the port runs (SCENE_GROUPS: 31 files, the two
    chains flip02_surface.py -> flip03_gen.py and guiding_3d01_low.py ->
@@ -245,9 +254,22 @@ Phases (any failed check raises, and the script exits non-zero):
    their plain versions, timed; then idp_apic02_3d.py (IDP
    volume-preserving APIC) at 128^3, 150 steps, the median of the last
    10, 3 steps traced (device busy, launches, idle).
+34. the fork's own experiment, unedited through the scene runner:
+   scenes/run.py at its defaults (20 frames at 32^3, the moving obstacle,
+   a 64^3 mesh every frame; each of FLIP, FIXED_VOL and CORRECT19 a child
+   process on the card, run as the runner's launcher runs it, through
+   ``--zflip-child``), then scenes/zflip.py with the static obstacle for
+   each method in this process, each held against a CPU twin of the same
+   argv (``--zflip-twin``) on ``run_zflip``'s locals and meshes, with the
+   fields that part through the CG's exit iterate bounded per
+   configuration by the sensitivity tool's numbers (ZFLIP_KNOWN); FLIP and
+   CORRECT19 at 128^3 (~4.0 M particles): the scene step, K2 and K14 a
+   step, the scene's host reads, 3 steps traced, no particle lost;
+   FIXED_VOL's host redistribution at 64^3, timed.
 
 ``python3 chip_smoke.py --only-multi`` builds the kernels and runs phase 32
-alone, ``--only-scenes`` phase 33 alone (no kernels line, no ok line).
+alone, ``--only-scenes`` phase 33 alone, ``--only-zflip`` phase 34 alone
+(no kernels line, no ok line).
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -1247,6 +1269,248 @@ def traced_busy(torch, step, st, n):
     return t0.elapsed_time(t1) / n, busy_us / 1e3 / n, count / n, st
 
 
+def multi_device_rest(torch, dev, h):
+    """Phase 32's cases of what a sharded state once could not run, each
+    held against the same state on one device from the same start: the
+    bench smoke at RES^3 with PcMGStatic over ZSHARDS slabs (the V-cycles'
+    levels on the slabs), in its closed box with zero-pressure fixing
+    (``cg_accuracy`` < 1e-7) over ZSHARDS, and over 3 shards (43, 43 and
+    42 planes at 128^3), each to 1e-5 with CG iterations within 2; the
+    flat dam at FLIP_RES^3 over 3 shards by each solve's true residual
+    (its ghost-fluid solves exit at another iterate under any other order
+    of sums) with equal flags; the 2D plume at PLUME_RES^2 over ZSHARDS
+    (one plane: shard 0 holds it, the other slabs are empty) the same way,
+    its ~850-iteration solves parting by ~1e-4 in vel (the CPU's plain CG
+    against the slab CG parts as far), with equal systems on the first
+    step and its fields within the accuracy x max(1, scale). Each
+    then timed (CUDA events) with its launches counted. ``h``:
+    ``every_kernel``. Returns (numbers, launches by smoke path, launches
+    by FLIP path, failures)."""
+    import dataclasses as dc
+    from mantaflow_tpu_torch.core import flags as fl_
+    from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.core.shapes import Cylinder, Sphere
+    from mantaflow_tpu_torch.models import flip, smoke
+    from mantaflow_tpu_torch.ops import pressure as prs
+    from mantaflow_tpu_torch.parallel import sharding as shd
+
+    kernels = h.every_kernel
+    numbers, smoke_p, flip_p, failures = {}, {}, {}, []
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def timed(step, st, n):
+        iters = torch.zeros((), dtype=torch.int64, device=dev)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            st = step(st)
+            iters += st.cg_iters
+        t1.record()
+        torch.cuda.synchronize()
+        return st, t0.elapsed_time(t1) / n, int(iters) / n
+
+    def true_res(rhs, sten, fluid, p, dom):
+        r = rhs.double() - prs._apply_stencil(
+            p.double(), tuple(a.double() for a in sten), dom, fluid)
+        return float(r.abs()[fluid].max())
+
+    def kept(mod, name, got_):
+        """``mod.name`` wrapped to keep its calls' arguments; returns the
+        original."""
+        fn = getattr(mod, name)
+
+        def wrap(*a, **kw):
+            got_.append(a)
+            return fn(*a, **kw)
+        setattr(mod, name, wrap)
+        return fn
+
+    def smoke_case(name, params, dom, st0, mesh, held_steps, timed_steps,
+                   want, by_residual=False):
+        """``held_steps`` against one device, then ``timed_steps`` timed;
+        ``want``: each kernel's launches a step. Held to 1e-5, or
+        ``by_residual`` (solves of hundreds of iterations, which exit at
+        another iterate under another order of sums): equal systems on
+        the first step, each solve under its accuracy by its true
+        residual, the fields within the accuracy x max(1, scale)."""
+        one, sh = st0, shd.shard_smoke_state(st0, mesh)
+        held, acc = [], params.cg_accuracy
+        for k in range(held_steps):
+            calls1, calls2 = [], []
+            orig = kept(prs, "solve_pressure_system", calls1)
+            try:
+                one = smoke.smoke_step(one, dom, params)
+            finally:
+                prs.solve_pressure_system = orig
+            orig = kept(prs, "cg_slabs", calls2)
+            try:
+                sh = smoke.smoke_step(sh, dom, params)
+            finally:
+                prs.cg_slabs = orig
+            w = shd.unshard_smoke_state(sh)
+            errs_ = {f: float((getattr(w, f) - getattr(one, f)).abs().max())
+                     for f in ("vel", "density", "pressure")}
+            rec = {"max_abs_err": max(errs_.values()),
+                   "cg_iters_one": int(one.cg_iters),
+                   "cg_iters_slabs": int(sh.cg_iters)}
+            ok = (torch.equal(w.flags, one.flags)
+                  and abs(int(sh.cg_iters) - int(one.cg_iters)) <= 2)
+            if by_residual:
+                (a1,), (a2,) = calls1, calls2
+                fluid = fl_.is_fluid(a1[1])
+                rhs2 = a2[0].whole()
+                sten2 = tuple(x.whole() for x in a2[2])
+                rec["true_residual_one"] = true_res(a1[0], a1[3], fluid,
+                                                    one.pressure, dom)
+                rec["true_residual_slabs"] = true_res(rhs2, sten2, fluid,
+                                                      w.pressure, dom)
+                rec["limit"] = {f: acc * max(1.0, float(
+                    getattr(one, f).abs().max())) for f in errs_}
+                ok = (ok and rec["true_residual_one"] < acc * 1.01
+                      and rec["true_residual_slabs"] < acc * 1.01
+                      and all(errs_[f] <= rec["limit"][f] for f in errs_))
+                if k == 0:
+                    rec["system_max_abs_diff"] = max(
+                        float((rhs2 - a1[0]).abs().max()),
+                        *(float((x - y).abs().max())
+                          for x, y in zip(sten2, a1[3])))
+                    ok = ok and rec["system_max_abs_diff"] == 0.0
+                del a1, a2, rhs2, sten2
+            else:
+                ok = ok and rec["max_abs_err"] <= 1e-5
+            del calls1, calls2
+            held.append(rec)
+            if not ok:
+                failures.append(f"{name} step {k + 1}: {held[-1]}")
+        del one, w
+        reset()
+        sh, ms, it = timed(lambda s: smoke.smoke_step(s, dom, params), sh,
+                           timed_steps)
+        got = counts()
+        smoke_p[name] = got
+        for k_, n_ in got.items():
+            require(n_ == want.get(k_, 0) * timed_steps,
+                    f"{name}: {k_} launched {n_} times in {timed_steps} "
+                    f"steps (expected {want.get(k_, 0)} a step)")
+        numbers[name] = {
+            "shards": mesh.n, "planes": [p.shape[0] for p in
+                                         sh.density.parts],
+            "first_steps_vs_one_device": held, "ms_per_step": ms,
+            "cg_iters_per_step": it,
+            "launches_per_step": {k_: n_ / timed_steps
+                                  for k_, n_ in got.items() if n_}}
+        print(f"{name}: {ms:.2f} ms/step over {mesh.n} shards "
+              f"{numbers[name]['planes']}, CG {it:.1f} it/step; first "
+              f"steps {held}", flush=True)
+        return sh
+
+    mesh, mesh3 = shd.make_mesh(ZSHARDS), shd.make_mesh(3)
+    zslab = {"window_advect_zshard": 8 * ZSHARDS}
+
+    # the bench smoke with PcMGStatic: its hierarchy cut level by level
+    mg = dc.replace(bench_params(smoke), preconditioner=prs.PcMGStatic)
+    dom, st0 = bench_state(smoke, Domain, Sphere, RES, dev, mg)
+    smoke_case(f"smoke_mg_slabs_{RES}", mg, dom, st0, mesh, 2, 3, zslab)
+
+    # the closed box: no empty or outflow cell, so the solve pins a cell
+    fix = dc.replace(bench_params(smoke), cg_accuracy=1e-8)
+    dom, st0 = bench_state(smoke, Domain, Sphere, RES, dev, fix)
+    require(int((fl_.is_empty(st0.flags) | fl_.is_outflow(st0.flags)).sum())
+            == 0, "the bench smoke's box is not closed")
+    smoke_case(f"smoke_fix_slabs_{RES}", fix, dom, st0, mesh, 2, 2, zslab)
+
+    # 3 shards: RES planes in GSPMD's padded layout
+    params = bench_params(smoke)
+    dom, st0 = bench_state(smoke, Domain, Sphere, RES, dev)
+    smoke_case(f"smoke_slabs3_{RES}", params, dom, st0, mesh3, 2, 3,
+               {"window_advect_zshard": 8 * 3})
+    del st0
+
+    # the 2D plume (phase 19's) on the mesh: one plane, on shard 0
+    pp = smoke.SmokeParams(buoyancy=(0.0, -4e-3, 0.0), open_bound="yY",
+                           window=K, adaptive_dt=True, cfl=float(K))
+    pdom = Domain(size=(PLUME_RES, PLUME_RES, 1), dim=2)
+    pst = smoke.make_smoke_state(pdom, pp, source_shape=Cylinder(
+        center=(PLUME_RES * 0.5, PLUME_RES * 0.1, 0.5),
+        radius=PLUME_RES * 0.14, z=(0.0, PLUME_RES * 0.02, 0.0)),
+        device=dev)
+    smoke_case(f"plume2d_slabs_{PLUME_RES}", pp, pdom, pst, mesh, 2, 2,
+               {"window_advect": 6}, by_residual=True)
+    del pst
+
+    # the flat dam over 3 shards, held by residual
+    fparams = flip_bench_params(flip)
+    fdom = Domain(size=(FLIP_RES,) * 3, dim=3)
+    f0 = flip.make_dam_state(fdom, fparams, discretization=2, device=dev)
+    n_parts = int(f0.parts.count)
+    one, sh = f0, shd.shard_flip_state(f0, mesh3)
+    held, acc = [], fparams.cg_accuracy
+    for k in range(2):
+        calls1, calls2 = [], []
+        orig = kept(prs, "solve_pressure_system", calls1)
+        try:
+            one = flip.flip_step(one, fdom, fparams)
+        finally:
+            prs.solve_pressure_system = orig
+        orig = kept(prs, "cg_slabs", calls2)
+        try:
+            sh = flip.flip_step(sh, fdom, fparams)
+        finally:
+            prs.cg_slabs = orig
+        (a1,), (a2,) = calls1, calls2
+        fluid = fl_.is_fluid(a1[1])
+        w = shd.unshard_flip_state(sh)
+        rec = {"flags_equal": bool(torch.equal(w.flags, one.flags)),
+               "cg_iters_one": int(one.cg_iters),
+               "cg_iters_slabs": int(sh.cg_iters),
+               "max_abs_diff": max(
+                   float((getattr(w, f) - getattr(one, f)).abs().max())
+                   for f in ("vel", "phi", "pressure", "pvel")),
+               "true_residual_one": true_res(a1[0], a1[3], fluid,
+                                             one.pressure, fdom),
+               "true_residual_slabs": true_res(
+                   a2[0].whole(), tuple(x.whole() for x in a2[2]), fluid,
+                   w.pressure, fdom)}
+        held.append(rec)
+        if not (rec["flags_equal"] and int(w.parts.count) == n_parts
+                and rec["true_residual_one"] < acc * 1.01
+                and rec["true_residual_slabs"] < acc * 1.01):
+            failures.append(f"flat slabs3 step {k + 1}: {rec}")
+        del a1, a2, calls1, calls2
+    del one, w
+    reset()
+    sh, fms, fit = timed(lambda s: flip.flip_step(s, fdom, fparams), sh, 3)
+    got = counts()
+    flip_p[f"flat_slabs3_{FLIP_RES}"] = got
+    for k_, n_ in got.items():
+        want = 10 * 3 * 3 if k_ == "extrap_layer" else 0
+        require(n_ == want, f"flat slabs3: {k_} launched {n_} times in 3 "
+                f"steps (expected {want})")
+    w = shd.unshard_flip_state(sh)
+    require(int(w.parts.count) == n_parts
+            and bool(torch.isfinite(w.vel).all()),
+            "flat slabs3: particles lost or not finite")
+    numbers[f"flat_slabs3_{FLIP_RES}"] = {
+        "shards": 3, "planes": [p.shape[1] for p in sh.vel.parts],
+        "particles": n_parts, "first_steps_vs_one_device": held,
+        "ms_per_step": fms, "cg_iters_per_step": fit,
+        "launches_per_step": {k_: n_ / 3 for k_, n_ in got.items() if n_}}
+    print(f"flat slabs3 {FLIP_RES}^3: {fms:.2f} ms/step, CG {fit:.1f} "
+          f"it/step; first steps {held}", flush=True)
+    del sh, w, f0
+    torch.cuda.empty_cache()
+    return numbers, smoke_p, flip_p, failures
+
+
 def multi_device_phase(torch, dev, h):
     """32. The multi-device module (A.3) and the repairs C.1-C.2 on the
     card: the sharded bench smoke and the sharded flat FLIP dam at 128^3
@@ -1254,7 +1518,9 @@ def multi_device_phase(torch, dev, h):
     from the same start, timed and traced, with the slab CG's iterations
     and the halo copies; the dry run at ZSHARDS shards; the float scatters'
     repeat (tools/scatter_order.py --witness); scenes/smoke_fused_128.py
-    and scenes/mlflip.py 1, unedited, through the scene runner. Returns
+    and scenes/mlflip.py 1, unedited, through the scene runner; and
+    ``multi_device_rest``'s cases (multigrid, zero-pressure fixing, 3
+    shards, the 2D plume on the mesh, the flat dam over 3 shards). Returns
     (numbers, launches by path: smoke paths, flip paths, scene paths)."""
     import contextlib
     import io
@@ -1506,6 +1772,14 @@ def multi_device_phase(torch, dev, h):
           flush=True)
     del s, w, f0
 
+    # -- multigrid, fixing, 3 shards and 2D on the mesh ---------------------
+    rest, rest_smoke, rest_flip, rest_failures = multi_device_rest(
+        torch, dev, h)
+    numbers["rest"] = rest
+    smoke_p.update(rest_smoke)
+    flip_p.update(rest_flip)
+    failures += rest_failures
+
     # -- the dry run at ZSHARDS shards on the card -------------------------
     reset()
     t0 = time.perf_counter()
@@ -1592,9 +1866,8 @@ def multi_device_phase(torch, dev, h):
 #: phase 33: the scenes of scenes/ on the card, unedited, through the
 #: runner. Groups share one directory (MANTA_OUT, the cwd); a run is (file,
 #: argv, env). Every file keeps its own grid size; only frame counts are
-#: cut. zflip.py (jax.numpy) and run.py (drives zflip.py) cannot run on
-#: the port; flip06_obstacle.py, smoke_fused_128.py and mlflip.py run in
-#: phases 29 and 32
+#: cut. flip06_obstacle.py, smoke_fused_128.py and mlflip.py run in phases
+#: 29 and 32, zflip.py and run.py (which drives it) in phase 34
 SCENE_GROUPS = (
     ("simpleplume", (("simpleplume.py", ("4",), {}),)),
     ("plume_adaptDt", (("plume_adaptDt.py", ("3",), {}),)),
@@ -1783,14 +2056,16 @@ def scene_counts_check(scene, last, snap):
 
 
 def run_scene_recorded(torch, path, argv, env, device, cut=None,
-                       trace_from=None, step_hook=None, on_card=False):
+                       trace_from=None, step_hook=None, on_card=False,
+                       watch=None):
     """Run one scene file through the runner on ``device`` in the current
     directory, with ``env`` set and the process statics reset first.
     Solver.step is wrapped: ``on_card``, a CUDA event after each step, and
     from step ``trace_from`` on a torch.profiler trace; at step ``cut`` the
     state's snapshot and the last solve's residual are taken (the run
     stops there unless ``on_card``, where it runs on). ``step_hook(n)``
-    runs after step n. Returns (globals, record)."""
+    runs after step n; ``watch``, a ``SolveWatch`` of the caller's, keeps
+    the solves. Returns (globals, record)."""
     import io
     import os
     from mantaflow_tpu_torch.ops import obstacles as obs_
@@ -1801,7 +2076,7 @@ def run_scene_recorded(torch, path, argv, env, device, cut=None,
 
     rec = {"events": [], "steps": 0, "traced_steps": 0}
     orig_step = sapi.Solver.step
-    watch = SolveWatch()
+    watch = watch or SolveWatch()
 
     def step(self, frame=-1):
         orig_step(self, frame)
@@ -1817,7 +2092,10 @@ def run_scene_recorded(torch, path, argv, env, device, cut=None,
                 from torch.profiler import ProfilerActivity, profile
                 rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 rec["prof"].__enter__()
-                rec["trace_t0"] = ev
+                # after the profiler's start, which the first trace of a
+                # process pays seconds for
+                rec["trace_t0"] = torch.cuda.Event(enable_timing=True)
+                rec["trace_t0"].record()
         if step_hook is not None:
             step_hook(n)
         if cut is not None and n == cut:
@@ -2220,6 +2498,557 @@ def _scene_groups(torch, dev, h, twins, dirs, root, t_phase):
     return numbers, paths, fk, k2_err
 
 
+#: phase 34: the fork's own experiment, scenes/zflip.py (FLIP, FIXED_VOL,
+#: CORRECT19) driven by scenes/run.py, unedited, on the card
+ZFLIP_METHODS = {0: "flip", 1: "fixed_vol", 2: "correct19"}
+ZFLIP_RUN_ARGV = ("20", "32", "1", "1")  # run.py's own defaults
+ZFLIP_STATIC_ARGV = ("20", "32", "2", "0")
+ZFLIP_HEAD_RES = 128  # the dam at 8 particles a cell: ~4.0 M particles
+ZFLIP_HEAD_FRAMES = 20
+ZFLIP_HEAD_METHODS = (0, 2)
+ZFLIP_FIXED_RES = 64  # FIXED_VOL's host redistribution, timed
+ZFLIP_FIXED_FRAMES = 10
+ZFLIP_ACC = 1e-3  # the accuracy of every solve of zflip.py
+ZFLIP_TWIN_WORKERS = 6
+ZFLIP_EARLY = 4  # the in-process runs are also held after this many steps
+ZFLIP_MARGIN = 1.5
+#: Per configuration of the phase (``run_M``: run.py's child of method M,
+#: ``static_M``: zflip.py M 20 32 2 0), the fields of run_zflip's locals
+#: and the meshes (``surface_*``: any frame's) in which the card's run
+#: parts from its CPU twin beyond snapshot.compare's rules, each with the
+#: largest difference that tools/scene_cg_sensitivity.py --locals run_zflip
+#: measured between the port and itself on the CPU, the same argv, with
+#: every solve's accuracy x 0.5, 0.7 and 0.85 (ROADMAP C). Each must still
+#: part, by no more than ZFLIP_MARGIN x its number; a ``nodes`` entry of
+#: None parts only where the mesh's triangle count does (the nodes are then
+#: unmatched). ``occ`` is the last frame's ``volumes`` entry and is held at
+#: the list's number. Any other field is held by the rules.
+ZFLIP_KNOWN = {
+    "run_0": {"flags": 3, "gpi": 2, "ii": 1, "jj": 1, "mgen.gpi": 3,
+              "mgen.mesh.nodes": 18, "mgen.phi": 0.2425,
+              "mgen.phiParts": 0.2425, "occ": 3, "phi": 0.2092,
+              "phiParts": 0.2092, "surface_*.count": 12,
+              "surface_*.nodes": 0.5781, "volumes": 3},
+    "run_1": {"flags": 3, "gpi": 9, "ii": 10, "jj": 6, "kk": 6,
+              "mapWeights": 3, "mgen.gpi": 15, "mgen.mesh.count": 72,
+              "mgen.mesh.nodes": None, "mgen.phi": 1.792,
+              "mgen.phiParts": 1.792, "obs.flags": 3, "pVel": 0.1327,
+              "phi": 1, "phiParts": 1.149, "pos": 10.43, "pp.pos": 10.43,
+              "pressure": 0.01031, "surface_*.count": 120,
+              "surface_*.nodes": 0.9688, "vel": 0.3651, "velOld": 0.227,
+              "volumes": 9},
+    "run_2": {"flags": 3, "gpi": 3, "ii": 1, "jj": 1, "mapWeights": 3,
+              "mgen.gpi": 2, "mgen.mesh.nodes": 18, "mgen.phi": 0.3919,
+              "mgen.phiParts": 0.3919, "obs.flags": 3, "occ": 19,
+              "pVel": 0.01617, "phi": 0.2306, "phiParts": 0.2306,
+              "pos": 0.03391, "pp.pos": 0.03391, "pressure": 0.01482,
+              "surface_*.count": 8, "surface_*.nodes": 0.9688,
+              "vel": 0.2777, "velOld": 0.1729, "volumes": 19},
+    "static_0": {"flags": 3, "gpi": 3, "ii": 1, "jj": 1, "mapWeights": 3,
+                 "occ": 4, "phi": 0.2056, "phiParts": 0.2056,
+                 "velOld": 0.04836, "volumes": 4},
+    "static_1": {"gpi": 10, "ii": 10, "jj": 6, "kk": 4, "mapWeights": 3,
+                 "obs.flags": 3, "pVel": 0.1324, "phiParts": 0.8674,
+                 "pos": 10.43, "pp.pos": 10.43, "pressure": 0.01022,
+                 "vel": 0.3646, "velOld": 0.2267, "volumes": 5},
+    "static_2": {"flags": 3, "gpi": 5, "ii": 1, "jj": 1, "mapWeights": 3,
+                 "obs.flags": 3, "occ": 19, "pVel": 0.002036,
+                 "phi": 0.2328, "phiParts": 0.2328, "pos": 0.04006,
+                 "pp.pos": 0.04006, "pressure": 0.001319, "vel": 0.1904,
+                 "velOld": 0.1773, "volumes": 19},
+}
+#: the same after ZFLIP_EARLY steps of the in-process runs (the tool's
+#: ``--steps 4``): in CORRECT19 a near-zero phi flips sign within the
+#: first steps, and FLIP's particle levelset moves by a few 1e-4
+ZFLIP_KNOWN_EARLY = {
+    "static_0": {"phiParts": 3.935e-4},
+    "static_1": {},
+    "static_2": {"flags": 3, "gpi": 1, "phi": 0.2129, "phiParts": 0.2129},
+}
+
+
+def _zflip_group(key):
+    """A snapshot key's entry in ZFLIP_KNOWN (a mesh file's under
+    ``surface_*``)."""
+    m = re.match(r"surface_\d+\.bobj\.gz\.(count|nodes)$", key)
+    return f"surface_*.{m.group(1)}" if m else key
+
+
+def _zflip_run_frame():
+    """The frame of the running scenes/zflip.py's ``run_zflip``."""
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_name != "run_zflip":
+        f = f.f_back
+    return f
+
+
+def zflip_twin_main(args):
+    """``python3 chip_smoke.py --zflip-twin DIR M FRAMES RES OBS MESH``:
+    phase 34's CPU twin of one zflip.py run in DIR (one torch thread):
+    writes the snapshot of ``run_zflip``'s locals and the meshes at the end
+    (``cpu.npz``) and after ZFLIP_EARLY steps (``cpu_early.npz``), and a
+    JSON record (the last solve's residual, the printed lines, seconds)."""
+    import os
+    import torch
+    from mantaflow_tpu_torch.scene import snapshot as snp
+    torch.set_num_threads(1)
+    out_dir, argv = args[0], args[1:]
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.chdir(out_dir)
+    path = os.path.join(here, "scenes", "zflip.py")
+    early, watch = {}, SolveWatch()
+
+    def hook(n):
+        if n == ZFLIP_EARLY:
+            early.update(snp.snapshot(dict(_zflip_run_frame().f_locals),
+                                      members=True))
+            early_res.append(watch.residual())
+    early_res = []
+    with snp.returned_locals("run_zflip", path) as loc:
+        _, r_ = run_scene_recorded(torch, path, argv, {}, "cpu",
+                                   step_hook=hook, watch=watch)
+    snap = {**snp.snapshot(loc, members=True), **snp.meshes(out_dir)}
+    snp.save(os.path.join(out_dir, "cpu.npz"), snap)
+    snp.save(os.path.join(out_dir, "cpu_early.npz"), early)
+    with open(os.path.join(out_dir, "cpu.json"), "w") as f:
+        json.dump({"argv": argv, "wall_s": r_["wall_s"],
+                   "residual": r_["residual"],
+                   "residual_early": (early_res or [None])[0],
+                   "lines": _zflip_lines(r_["stdout"])}, f)
+
+
+def zflip_child_main(args):
+    """``python3 chip_smoke.py --zflip-child [--device cpu] SCENE ARGS``:
+    one child of scenes/run.py in phase 34, which hands run.py this in
+    place of the runner's launcher. The scene runs as the launcher runs it
+    (``scene.run.main``: on the card unless ``--device cpu``, raising
+    without a GPU, and with no JAX loaded); the locals of ``run_zflip`` as
+    it returns go to ``locals_run_zflip.npz`` and the last solve's residual
+    (``SolveWatch``) to ``child.json`` in the working directory."""
+    import os
+    from mantaflow_tpu_torch.scene import run as srun
+    from mantaflow_tpu_torch.scene import snapshot as snp
+    path = args[2] if args[:1] == ["--device"] else args[0]
+    watch = SolveWatch()
+    with watch, snp.returned_locals("run_zflip", path) as loc:
+        srun.main(args)
+    snp.save("locals_run_zflip.npz", snp.snapshot(loc, members=True))
+    with open("child.json", "w") as f:
+        json.dump({"residual": watch.residual()}, f)
+
+
+def zflip_child_launcher(dev, out_dir):
+    """An executable in ``out_dir`` that runs its arguments as
+    ``zflip_child_main`` on ``dev``, with the repo on PYTHONPATH."""
+    import os
+    import shlex
+    here = os.path.dirname(os.path.abspath(__file__))
+    flag = " --device cpu" if dev.type == "cpu" else ""
+    path = os.path.join(out_dir, "python-zflip-child")
+    with open(path, "w") as f:
+        f.write("#!/bin/sh\n"
+                f"PYTHONPATH={shlex.quote(here)}${{PYTHONPATH:+:$PYTHONPATH}}"
+                "\nexport PYTHONPATH\n"
+                f"exec {shlex.quote(sys.executable)} "
+                f"{shlex.quote(os.path.abspath(__file__))} --zflip-child"
+                f"{flag} \"$@\"\n")
+    os.chmod(path, 0o755)
+    return path
+
+
+def _zflip_lines(text):
+    return [ln for ln in text.splitlines()
+            if re.match(r"^(it \d+:|zflip method=)", ln)]
+
+
+def zflip_phase(torch, dev, h):
+    """34. scenes/zflip.py, the fork's volume-preserving FLIP experiment,
+    unedited on the card through the runner: scenes/run.py <tmp> 20 32 1 1
+    (its own defaults: the three methods as children, started through
+    ``zflip_child_launcher``, which runs them as the runner's launcher
+    does and keeps their locals and last residual, each with the moving
+    obstacle and the 64^3 mesh every frame); zflip.py M 20 32 2 0 (the
+    static obstacle) for each method in this process, also held after
+    ZFLIP_EARLY steps; each run held against a CPU twin of the same file
+    and argv (``--zflip-twin`` worker processes, run alongside) by
+    ``scene/snapshot.py``'s rules on ``run_zflip``'s locals and the meshes
+    (flags, particle flags, counts and volumes exact, a levelset within
+    2e-4 of its scale, fields within ZFLIP_ACC x max(1, scale)), but for
+    ZFLIP_KNOWN's (ZFLIP_KNOWN_EARLY's) fields of that configuration, which
+    must part within their bounds, each device's last solve then meeting
+    its accuracy by its true residual; then
+    FLIP and CORRECT19 at ZFLIP_HEAD_RES^3 (moving obstacle, no mesh): the
+    scene step by CUDA events, K2 and K14 launches and K2 iterations a
+    step, the scene's host reads, 3 steps traced, a constant particle
+    count; and FIXED_VOL at ZFLIP_FIXED_RES^3, its host redistribution
+    timed a frame. Returns (numbers, launches by path)."""
+    import concurrent.futures
+    import io
+    import os
+    import shutil
+    import tempfile
+    from statistics import median
+    import mantaflow_tpu_torch as port
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    from mantaflow_tpu_torch.scene import run as srun
+    from mantaflow_tpu_torch.scene import snapshot as snp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    zflip = os.path.join(here, "scenes", "zflip.py")
+    kernels = h.every_kernel
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zflip_")
+    numbers, paths, failures = {}, {}, []
+
+    # the CPU twins, beside the card runs
+    twin_argv = {**{f"run_{m}": (str(m),) + ZFLIP_RUN_ARGV
+                    for m in ZFLIP_METHODS},
+                 **{f"static_{m}": (str(m),) + ZFLIP_STATIC_ARGV
+                    for m in ZFLIP_METHODS}}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+
+    def twin(name):
+        d = os.path.join(root, "cpu", name)
+        os.makedirs(d)
+        p_ = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zflip-twin", d,
+             *twin_argv[name]], env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(p_)
+        _, err_ = p_.communicate(timeout=900)
+        return p_.returncode, err_[-3000:], d
+    pool = concurrent.futures.ThreadPoolExecutor(ZFLIP_TWIN_WORKERS)
+    twins = {name: pool.submit(twin, name) for name in twin_argv}
+
+    def held(name, card, cpu, known, card_res, cpu_res):
+        """The card's snapshot against the twin's: the record. Beyond the
+        rules only ``known``'s fields may part, each by no more than
+        ZFLIP_MARGIN x its number, and each must still part; where any
+        parts, each device's last solve must meet its accuracy by its true
+        residual."""
+        cmp_ = snp.compare(card, cpu, ZFLIP_ACC)
+        bad = snp.failures(cmp_)
+        parted, beyond = {}, []
+        for k, (d, _) in bad.items():
+            g = _zflip_group(k)
+            if g not in known:
+                beyond.append(k)
+            elif d == float("inf"):
+                # a mesh's nodes, unmatched where its triangle count parts
+                if not (k.endswith(".nodes")
+                        and f"{k[:-len('nodes')]}count" in bad):
+                    beyond.append(k)
+                parted.setdefault(g, None)
+            elif known[g] is None or d > ZFLIP_MARGIN * known[g]:
+                beyond.append(k)
+            else:
+                parted[g] = max(parted.get(g) or 0.0, d)
+        still = sorted(set(known) - set(parted))
+        for who, r_ in (("card", card_res), ("cpu", cpu_res)):
+            if parted and not (r_ is not None
+                               and r_["true_residual"] < r_["limit"]):
+                beyond.append(f"residual_{who}")
+        if beyond or still:
+            failures.append(
+                f"{name}: {sorted(beyond)} beyond the rules and the known "
+                f"bounds ({ {k: bad[k] for k in bad if k in beyond} }); "
+                f"known but no longer parting: {still}")
+        worst = max((k for k in cmp_ if k not in bad),
+                    key=lambda k: cmp_[k][0] / max(cmp_[k][1], 1e-30),
+                    default=None)
+        return {"largest_within_rule": None if worst is None else
+                [worst, *cmp_[worst]],
+                "known_parted": parted, "beyond": beyond,
+                "known_not_parting": still, "residual_card": card_res,
+                "residual_cpu": cpu_res}
+
+    def twin_result(name):
+        rc, err_, d = twins[name].result()
+        require(rc == 0, f"zflip twin {name} failed: {err_}")
+        with open(os.path.join(d, "cpu.json")) as f:
+            rec = json.load(f)
+        return (snp.load(os.path.join(d, "cpu.npz")),
+                snp.load(os.path.join(d, "cpu_early.npz")), rec)
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    cwd = os.getcwd()
+    try:
+        # -- scenes/run.py at its own defaults ------------------------------
+        out_root = os.path.join(root, "card", "run_py")
+        os.makedirs(out_root)
+        os.chdir(root)
+        # run.py's sys.executable: the runner's launcher's run, which also
+        # writes each child's locals and last residual
+        launcher = zflip_child_launcher(dev, root)
+        orig_launcher = srun.launcher
+        srun.launcher = lambda device: launcher
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                srun.run_scene(os.path.join(here, "scenes", "run.py"),
+                               [out_root, *ZFLIP_RUN_ARGV], dev)
+        finally:
+            srun.launcher = orig_launcher
+        run_s = time.perf_counter() - t0
+        text = out.getvalue()
+        require("run.py is done" in text, f"run.py: {text[-2000:]}")
+        starts = [ln for ln in text.splitlines() if ln.startswith(launcher)]
+        require(len(starts) == 3, f"run.py started {starts}")
+        frames = int(ZFLIP_RUN_ARGV[0])
+        runs = {}
+        for m, name in ZFLIP_METHODS.items():
+            d = os.path.join(out_root, f"{m}_{name}")
+            with open(os.path.join(d, "_log.txt")) as f:
+                log = f.read()
+            lines = _zflip_lines(log)
+            require(lines and lines[-1].startswith(f"zflip method={m} "),
+                    f"run.py child {m}: log ends {log[-300:]!r}")
+            meshes = snp.meshes(d)
+            require(len(meshes) == 2 * frames,
+                    f"run.py child {m}: {len(meshes) // 2} meshes")
+            card = {**snp.load(os.path.join(d, "locals_run_zflip.npz")),
+                    **meshes}
+            require(len(card["volumes"][1]) == frames
+                    and int(card["pp.count"][1]) == int(card["n0"][1]),
+                    f"run.py child {m}: particles or volumes")
+            with open(os.path.join(d, "child.json")) as f:
+                card_res = json.load(f)["residual"]
+            cpu, _, crec = twin_result(f"run_{m}")
+            rec = {"argv": [str(m), *ZFLIP_RUN_ARGV], "lines": lines,
+                   "cpu_lines": crec["lines"],
+                   "particles": int(card["pp.count"][1]),
+                   "volumes": [int(v) for v in card["volumes"][1]],
+                   "cpu_volumes": [int(v) for v in cpu["volumes"][1]],
+                   "mesh_tris_last": int(card[
+                       f"surface_{frames - 1:04d}.bobj.gz.count"][1]),
+                   "cpu_wall_s": crec["wall_s"],
+                   "card_vs_cpu": held(f"run.py child {m}", card, cpu,
+                                       ZFLIP_KNOWN[f"run_{m}"], card_res,
+                                       crec["residual"])}
+            runs[name] = rec
+        numbers["run_py"] = {"argv": list(ZFLIP_RUN_ARGV), "wall_s": run_s,
+                             "children": runs}
+        print(json.dumps({"zflip_run_py": numbers["run_py"]}), flush=True)
+
+        # -- zflip.py with the static obstacle, in this process ------------
+        static = {}
+        for m, name in ZFLIP_METHODS.items():
+            d = os.path.join(root, "card", f"static_{m}")
+            os.makedirs(d)
+            os.chdir(d)
+            early, early_res, watch = {}, [], SolveWatch()
+
+            def hook(n):
+                if n == ZFLIP_EARLY:
+                    early.update(snp.snapshot(
+                        dict(_zflip_run_frame().f_locals), members=True))
+                    early_res.append(watch.residual())
+            reset()
+            with snp.returned_locals("run_zflip", zflip) as loc:
+                _, r_ = run_scene_recorded(
+                    torch, zflip, (str(m),) + ZFLIP_STATIC_ARGV, {}, dev,
+                    step_hook=hook, on_card=True, watch=watch)
+            got = counts()
+            paths[f"zflip_static_{name}"] = got
+            card = snp.snapshot(loc, members=True)
+            for k, (kind, a) in card.items():
+                if kind != "exact":
+                    require(bool(np.isfinite(a).all()),
+                            f"zflip static {m}: {k} not finite")
+            cpu, cpu_early, crec = twin_result(f"static_{m}")
+            ev = r_["events"]
+            spans = [ev[i - 1].elapsed_time(ev[i]) for i in range(2, len(ev))]
+            static[name] = {
+                "argv": [str(m), *ZFLIP_STATIC_ARGV],
+                "lines": _zflip_lines(r_["stdout"]),
+                "cpu_lines": crec["lines"],
+                "wall_s": r_["wall_s"], "cpu_wall_s": crec["wall_s"],
+                "ms_per_step_median": median(spans),
+                "k2_launches_per_step": got["cg_solve"] / r_["steps"],
+                "k14_launches_per_step": got["extrap_layer"] / r_["steps"],
+                "card_vs_cpu_early": held(
+                    f"static {m} after {ZFLIP_EARLY} steps", early,
+                    cpu_early, ZFLIP_KNOWN_EARLY[f"static_{m}"],
+                    early_res[0], crec["residual_early"]),
+                "card_vs_cpu": held(f"static {m}", card, cpu,
+                                    ZFLIP_KNOWN[f"static_{m}"],
+                                    r_["residual"], crec["residual"])}
+            require(int(card["pp.count"][1]) == int(card["n0"][1]),
+                    f"zflip static {m}: particles lost")
+            del loc, card
+        numbers["static"] = static
+        print(json.dumps({"zflip_static": static}), flush=True)
+
+        # -- FLIP and CORRECT19 at ZFLIP_HEAD_RES^3 -------------------------
+        host = {"asarray": 0.0, "unique": 0.0, "pos0": 0.0, "dt_limit": 0.0}
+
+        def timed_host(key, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0_ = time.perf_counter()
+                out_ = fn(*a, **kw)
+                host[key] += time.perf_counter() - t0_
+                return out_
+            return staticmethod(run) if key in ("asarray", "unique") \
+                else run
+        scene_np = srun._SceneNumpy
+        orig_asarray = scene_np.__dict__["asarray"]
+        orig_pos0 = port.set_particles_pos0
+        orig_dt = port.limit_time_step_to_one_cell_movement
+        head = {}
+        for m in ZFLIP_HEAD_METHODS:
+            name = ZFLIP_METHODS[m]
+            d = os.path.join(root, "card", f"head_{m}")
+            os.makedirs(d)
+            os.chdir(d)
+            for k in host:
+                host[k] = 0.0
+            iters = torch.zeros((), dtype=torch.int64, device=dev)
+            cg = prk.cg_solve
+
+            def cg_counted(*a, **kw):
+                out_ = cg(*a, **kw)
+                iters.add_(out_[1])
+                return out_
+            cg_counted.launches = 0
+            scene_np.asarray = timed_host("asarray", orig_asarray.__func__)
+            scene_np.unique = timed_host("unique", np.unique)
+            port.set_particles_pos0 = timed_host("pos0", orig_pos0)
+            port.limit_time_step_to_one_cell_movement = timed_host(
+                "dt_limit", orig_dt)
+            prk.cg_solve = cg_counted
+            reset()
+            try:
+                with snp.returned_locals("run_zflip", zflip) as loc:
+                    _, r_ = run_scene_recorded(
+                        torch, zflip,
+                        (str(m), str(ZFLIP_HEAD_FRAMES), str(ZFLIP_HEAD_RES),
+                         "1", "0"), {}, dev,
+                        trace_from=ZFLIP_HEAD_FRAMES - 3, on_card=True)
+            finally:
+                scene_np.asarray = orig_asarray
+                del scene_np.unique
+                port.set_particles_pos0 = orig_pos0
+                port.limit_time_step_to_one_cell_movement = orig_dt
+                prk.cg_solve = cg
+            got = counts()
+            got["cg_solve"] = cg_counted.launches
+            paths[f"zflip_{name}_{ZFLIP_HEAD_RES}"] = got
+            steps = r_["steps"]
+            snap = snp.snapshot(loc, members=True)
+            for k, (kind, a) in snap.items():
+                if kind != "exact":
+                    require(bool(np.isfinite(a).all()),
+                            f"zflip {name} {ZFLIP_HEAD_RES}: {k} not finite")
+            n0, n = int(snap["n0"][1]), int(snap["pp.count"][1])
+            lines = _zflip_lines(r_["stdout"])
+            parts_printed = [int(x) for ln in lines
+                             for x in re.findall(r"parts=(\d+)", ln)]
+            require(n == n0 and all(p == n0 for p in parts_printed)
+                    and len(parts_printed) == ZFLIP_HEAD_FRAMES // 10,
+                    f"zflip {name} {ZFLIP_HEAD_RES}: {n0} particles, "
+                    f"{n} at the end, printed {parts_printed}")
+            require(got["cg_solve"] == steps and got["extrap_layer"] > 0,
+                    f"zflip {name} {ZFLIP_HEAD_RES}: {got} in {steps} steps")
+            busy_us, dev_count = 0.0, 0
+            for e in r_["prof"].key_averages():
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                if us > 0:
+                    busy_us += us
+                    dev_count += e.count
+            nt = max(r_["traced_steps"], 1)
+            busy = busy_us / 1e3 / nt
+            require(busy > 0, f"zflip {name}: the trace holds no device time")
+            traced = r_["traced_ms"] / nt
+            ev = r_["events"]
+            spans = [ev[i - 1].elapsed_time(ev[i]) for i in range(1, len(ev))]
+            med = median(spans[-10:])
+            host_ms = {k: 1e3 * v / steps for k, v in host.items()}
+            head[name] = {
+                "argv": [str(m), str(ZFLIP_HEAD_FRAMES), str(ZFLIP_HEAD_RES),
+                         "1", "0"],
+                "particles": n0, "steps": steps, "wall_s": r_["wall_s"],
+                "ms_per_step_median_last10": med, "ms_per_step_all": spans,
+                "k2_launches_per_step": got["cg_solve"] / steps,
+                "k2_iterations_per_step": int(iters) / steps,
+                "k14_launches_per_step": got["extrap_layer"] / steps,
+                "host_ms_per_step": host_ms,
+                "occupancy_read_share": (host_ms["asarray"]
+                                         + host_ms["unique"]) / med,
+                "traced_steps": r_["traced_steps"],
+                "traced_wall_ms_per_step": traced,
+                "device_busy_ms_per_step": busy,
+                "device_launches_per_step": dev_count / nt,
+                "idle_share_traced": 1.0 - busy / traced,
+                "lines": lines, "residual": r_["residual"]}
+            print(f"zflip {name} {ZFLIP_HEAD_RES}^3: {n0} particles, "
+                  f"{med:.1f} ms/step (median of the last 10), K2 "
+                  f"{head[name]['k2_iterations_per_step']:.0f} it/step, K14 "
+                  f"{head[name]['k14_launches_per_step']:.1f} a step; host "
+                  f"reads {host_ms}; traced {traced:.1f} ms/step, busy "
+                  f"{busy:.1f}, idle {100 * (1 - busy / traced):.1f} %",
+                  flush=True)
+            del loc, snap, r_
+            torch.cuda.empty_cache()
+        numbers[f"head_{ZFLIP_HEAD_RES}"] = head
+
+        # -- FIXED_VOL at ZFLIP_FIXED_RES^3: its host redistribution -------
+        d = os.path.join(root, "card", "fixed_vol")
+        os.makedirs(d)
+        os.chdir(d)
+        fv_s = []
+        orig_fv = port.fixed_volume_advection
+
+        def fv_timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out_ = orig_fv(*a, **kw)
+            torch.cuda.synchronize()
+            fv_s.append(time.perf_counter() - t0_)
+            return out_
+        port.fixed_volume_advection = fv_timed
+        reset()
+        try:
+            _, r_ = run_scene_recorded(
+                torch, zflip, ("1", str(ZFLIP_FIXED_FRAMES),
+                               str(ZFLIP_FIXED_RES), "1", "0"), {}, dev,
+                on_card=True)
+        finally:
+            port.fixed_volume_advection = orig_fv
+        paths[f"zflip_fixed_vol_{ZFLIP_FIXED_RES}"] = counts()
+        ev = r_["events"]
+        spans = [ev[i - 1].elapsed_time(ev[i]) for i in range(1, len(ev))]
+        require(len(fv_s) == ZFLIP_FIXED_FRAMES, f"FIXED_VOL ran {fv_s}")
+        numbers[f"fixed_vol_{ZFLIP_FIXED_RES}"] = {
+            "argv": ["1", str(ZFLIP_FIXED_FRAMES), str(ZFLIP_FIXED_RES), "1",
+                     "0"],
+            "redistribution_host_s_per_frame": fv_s,
+            "ms_per_step": spans, "lines": _zflip_lines(r_["stdout"])}
+        print(f"FIXED_VOL {ZFLIP_FIXED_RES}^3: the redistribution "
+              f"{fv_s} s a frame, scene steps {spans} ms", flush=True)
+    finally:
+        os.chdir(cwd)
+        pool.shutdown(wait=False, cancel_futures=True)
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    require(not failures, "; ".join(failures))
+    return numbers, paths
+
+
 def cg_check_by_residual(rhs, stencil, fluid, acc, max_iter, dom_,
                          early=10):
     """K2 against cg_plain on a flat step's system. The max-norm
@@ -2362,6 +3191,13 @@ def main():
             advk, fadk, rbk, p2gk, lsk, blk, xk, prk)))[0]
         print(card)
         print(json.dumps({"multi_device": md}))
+        return
+    if "--only-zflip" in sys.argv[1:]:
+        # phase 34 alone, for a quick call: no kernels line, no ok line
+        zf = zflip_phase(torch, dev, _Helpers(every_kernel=_every_kernel(
+            advk, fadk, rbk, p2gk, lsk, blk, xk, prk)))
+        print(card)
+        print(json.dumps({"zflip": zf[0], "launches_by_path": zf[1]}))
         return
     if "--only-scenes" in sys.argv[1:]:
         # phase 33 alone, for a quick call: no kernels line, no ok line
@@ -6018,10 +6854,19 @@ def main():
     scene_paths.update(sc_paths)
     k2_err = max(k2_err, sc_k2_err)
 
+    # 34. the fork's experiment: scenes/run.py and scenes/zflip.py
+    zf_numbers, zf_paths = zflip_phase(
+        torch, dev, _Helpers(every_kernel=every_kernel))
+    scene_paths.update(zf_paths)
+
     # the smoke paths: the bench path (phase 2) and phases 17-19's
     smoke_paths = {"smoke_128": launches, **smoke_paths}
+    # the 2D plume's passes, on one device and on the mesh, are K1's 2D
+    # instance
+    k1_2d_by_path = {k: v["window_advect"] for k, v in smoke_paths.items()
+                     if k.startswith("plume2d")}
     k1_3d_by_path = {k: v["window_advect"] for k, v in smoke_paths.items()
-                     if k != plume_path}
+                     if k not in k1_2d_by_path}
     kernels = [
         {"name": "window_advect", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
@@ -6037,9 +6882,8 @@ def main():
         {"name": "window_advect_2d", "route": "cuda",
          "source": "mantaflow_tpu_torch/csrc/window_advect.cu",
          "replaces": "mantaflow_tpu/ops/advection_pallas.py:284",
-         "launches": smoke_paths[plume_path]["window_advect"],
-         "launches_by_path": {plume_path:
-                              smoke_paths[plume_path]["window_advect"]},
+         "launches": sum(k1_2d_by_path.values()),
+         "launches_by_path": k1_2d_by_path,
          "max_abs_err": k1_2d_err, "ms": k1_2d_ms,
          "plain_ms": k1_2d_plain_ms, "bound_ms": max(k1_2d_bound),
          "bound_by": "bytes" if k1_2d_bound[0] >= k1_2d_bound[1]
@@ -6185,6 +7029,7 @@ def main():
         "scene_functions": scene_fn_numbers, **scene_numbers,
         "breadth_ops": a13, "ml_toolbox": ml_numbers,
         "multi_device": md_numbers, "scenes": sc_numbers,
+        "zflip": zf_numbers,
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
@@ -6196,5 +7041,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--scene-twin"]:
         scene_twin_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--zflip-twin"]:
+        zflip_twin_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--zflip-child"]:
+        zflip_child_main(sys.argv[2:])
     else:
         main()

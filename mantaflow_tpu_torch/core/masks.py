@@ -13,8 +13,18 @@ import torch
 from .domain import Domain
 
 
-def interior_mask(dom: Domain, bnd: int, device):
-    """Boolean [z,y,x] mask, True on cells a bnd=`bnd` kernel visits."""
+def _device(device):
+    if device is None:
+        from .. import resolve_device
+        return resolve_device(None)
+    return device
+
+
+def interior_mask(dom: Domain, bnd: int, device=None):
+    """Boolean [z,y,x] mask, True on cells a bnd=`bnd` kernel visits.
+
+    ``device`` None: ``resolve_device``'s (the scene runner's, or CUDA)."""
+    device = _device(device)
     if bnd <= 0:
         return torch.ones(dom.shape, dtype=torch.bool, device=device)
     sz, sy, sx = dom.shape
@@ -27,8 +37,9 @@ def interior_mask(dom: Domain, bnd: int, device):
     return m.expand(dom.shape)
 
 
-def axis_index(dom: Domain, axis: str, device):
+def axis_index(dom: Domain, axis: str, device=None):
     """Broadcastable int32 index tensor along 'x' | 'y' | 'z'."""
+    device = _device(device)
     sz, sy, sx = dom.shape
     if axis == "x":
         return torch.arange(sx, dtype=torch.int32, device=device).reshape(1, 1, sx)

@@ -267,14 +267,12 @@ def _flip_step_slabs(state: FlipState, dom: Domain,
       extrapolation layers (K14 on a GPU) on slabs extended by their
       count, the solve by the slab CG (``pressure.solve_pressure_slabs``).
     """
-    if not dom.is3d:
-        raise ValueError("a sharded flat state needs a 3D domain")
     mesh = state.vel.mesh
     lead = mesh.lead
     ts = state.ts
     if params.adaptive_dt:
         vmax = shd.pmax([torch.max(v[0] ** 2 + v[1] ** 2 + v[2] ** 2)
-                         for v in state.vel.parts], lead)
+                         for v in state.vel.full()], lead)
         ts = slv.adapt_timestep(ts, torch.sqrt(vmax), params.cfl,
                                 params.dt_min, params.dt_max,
                                 params.frame_length)

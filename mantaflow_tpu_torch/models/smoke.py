@@ -204,10 +204,11 @@ def _smoke_step_slabs(state: SmokeState, dom: Domain,
     the window passes (``window > 0``) one launch of the window kernel's
     z-slab form per shard (``advection_kernels.advect_*_slabs``), the
     exact gathers (``window == 0``) on slabs extended by the step's largest
-    backtrace, the solve by the slab CG (``pressure.solve_pressure_slabs``).
-    The adaptive dt's maximum is the maximum of the shards'."""
-    if not dom.is3d:
-        raise ValueError("a sharded smoke state needs a 3D domain")
+    backtrace, the solve by the slab CG (``pressure.solve_pressure_slabs``,
+    with the multigrid's V-cycles on the slabs for PcMGStatic/PcMGDynamic).
+    The adaptive dt's maximum is the maximum of the shards'. A 2D grid
+    lies whole on shard 0: its window advection is the one-domain drivers'
+    (the window kernel's 2D instance) on that slab."""
     mesh = state.vel.mesh
     flags, vel, density = state.flags, state.vel, state.density
     ts = state.ts
@@ -215,7 +216,7 @@ def _smoke_step_slabs(state: SmokeState, dom: Domain,
     vmax = None
     if params.adaptive_dt or params.window == 0:
         vmax = shd.pmax([torch.max(v[0] ** 2 + v[1] ** 2 + v[2] ** 2)
-                         for v in vel.parts], mesh.lead)
+                         for v in vel.full()], mesh.lead)
     if params.adaptive_dt:
         ts = slv.adapt_timestep(ts, torch.sqrt(vmax), params.cfl,
                                 params.dt_min, params.dt_max,
@@ -226,7 +227,14 @@ def _smoke_step_slabs(state: SmokeState, dom: Domain,
                        state.source, density)
 
     order = params.advection_order
-    if params.window > 0:
+    if params.window > 0 and not dom.is3d:
+        density = slab_stage(lambda sd, f, v, g, dt_: advf.advect_real_fast(
+            f, v, g, dt_, sd, params.window, order=order), 0, dom, flags,
+            vel, density, dt)
+        vel = slab_stage(lambda sd, f, v, dt_: advf.advect_mac_fast(
+            f, v, v, dt_, sd, params.window, order=order,
+            strength=params.mac_strength), 0, dom, flags, vel, dt)
+    elif params.window > 0:
         density = advk.advect_real_slabs(flags, vel, density, dt, dom,
                                          params.window, order=order)
         vel = advk.advect_mac_slabs(
@@ -263,7 +271,7 @@ def _smoke_step_slabs(state: SmokeState, dom: Domain,
     vel, pressure, _, iters, _ = prs.solve_pressure_slabs(
         vel, flags, dom, cg_accuracy=params.cg_accuracy,
         cg_max_iter_fac=params.cg_max_iter_fac,
-        preconditioner=params.preconditioner)
+        preconditioner=params.preconditioner, mg_hierarchy=state.mg)
 
     if params.dissolve_speed > 0:
         density = per_slab(lambda f, d: ext.dissolve_smoke(
@@ -272,7 +280,7 @@ def _smoke_step_slabs(state: SmokeState, dom: Domain,
     ts = slv.step(ts, params.frame_length)
     return SmokeState(flags=flags, vel=vel, density=density,
                       pressure=pressure, source=state.source, ts=ts,
-                      mg=None, cg_iters=iters)
+                      mg=state.mg, cg_iters=iters)
 
 
 def smoke_run(state: SmokeState, dom: Domain, params: SmokeParams,

@@ -465,12 +465,18 @@ def _slab_pass(src, pos, dom: Domain, k: int, ok=None,
     ``Slabs``, ``pos`` the per-shard (px, py, pz) of the shard's planes in
     global coordinates. Returns the per-shard results."""
     mesh = src.mesh
-    lz = mesh.planes(dom.shape[0])
     src_h = shd.halo_z(src.parts, k + 1, 0, edge=True)
     ok_h = ([None] * mesh.n if ok is None
             else shd.halo_z(ok.parts, k + 1, 0))
-    return [window_pass_slab(src_h[i], *pos[i], dom, k, i * lz, ok_h[i],
-                             want_minmax) for i in range(mesh.n)]
+
+    def one(i, z0, lz):
+        if lz == 0:  # an empty slab: empty results of the pass's kinds
+            e = src.parts[i]
+            return (e, e, e, e.bool()) if want_minmax else e
+        return window_pass_slab(src_h[i], *pos[i], dom, k, z0, ok_h[i],
+                                want_minmax)
+    return [one(i, z0, lz)
+            for i, (z0, lz) in enumerate(mesh.spans(dom.shape[0]))]
 
 
 def _positions(pos_slabs, first: int):

@@ -9,6 +9,20 @@ fluid mask. The JAX package runs it in XLA, not Pallas, so it has no kernel
 of its own: here it is PyTorch ops, and the JAX package's ``fori_loop`` and
 recursive ``vcycle`` are Python loops. At 128^3 the hierarchy has five
 levels (128 -> 8).
+
+On a sharded state (``parallel/sharding.py``) the finest levels are the
+mesh's z-slabs (``make_mg_preconditioner_slabs``): the Jacobi sweeps and
+residuals read one plane of each neighbour a sweep (``pressure.
+laplace_slabs``), the transfers two fine planes (``_p0_slabs``,
+``_p0t_slabs``). The hierarchy is built whole on the lead and cut
+(``shard_mg_hierarchy``): PcMGStatic's once, when the state is sharded,
+PcMGDynamic's at each solve. A level stays cut
+while every shard's fine planes halve evenly down to it
+(``_sharded_levels``): its slabs are then ``ZMesh.spans`` of its own
+extent, each coarse plane's children on one shard. The coarsest level,
+whose 40 sweeps would each need a halo deeper than its slabs, and every
+level from the first that does not halve evenly, are gathered whole on the
+lead and cycled as on one device.
 """
 
 from __future__ import annotations
@@ -167,6 +181,22 @@ def mg_to_numpy(h: MgHierarchy) -> dict:
             "denoms": tuple(n(a) for a in h.denoms)}
 
 
+def _vcycle(h: MgHierarchy, doms, lv, r, n_pre, n_post, n_coarse, rscale):
+    """The V-cycle from level ``lv`` down, every level whole."""
+    masks, denoms = h.masks, h.denoms
+    fg, st, dm = h.level_flags[lv], h.level_stencils[lv], doms[lv]
+    if lv == len(doms) - 1:
+        return _jacobi(fg, torch.zeros_like(r), r, st, dm, n_coarse)
+    x = _jacobi(fg, torch.zeros_like(r), r, st, dm, n_pre)
+    res = r - apply_laplace(fg, x, st, dm)
+    res = torch.where(masks[lv] > 0, res, 0.0)
+    rc = rscale * masks[lv + 1] * _p0t(masks[lv] * res / denoms[lv],
+                                       doms[lv])
+    xc = _vcycle(h, doms, lv + 1, rc, n_pre, n_post, n_coarse, rscale)
+    x = x + masks[lv] * _p0(masks[lv + 1] * xc, doms[lv]) / denoms[lv]
+    return _jacobi(fg, x, r, st, dm, n_post)
+
+
 def make_mg_preconditioner(flags, dom: Domain, fine_stencil,
                            n_pre: int = 2, n_post: int = 2,
                            n_coarse: int = 40, min_size: int = 8,
@@ -178,32 +208,192 @@ def make_mg_preconditioner(flags, dom: Domain, fine_stencil,
     doms = _levels(dom, min_size)
     if hierarchy is None:
         hierarchy = build_mg_hierarchy(flags, dom, fine_stencil, min_size)
-    level_flags = hierarchy.level_flags
-    level_stencils = hierarchy.level_stencils
-    masks = hierarchy.masks
-    denoms = hierarchy.denoms
     fluid = fl.is_fluid(flags)
     rscale = scale / (8.0 if dom.is3d else 4.0)
 
-    def prolong(lv, xc):
-        return masks[lv] * _p0(masks[lv + 1] * xc, doms[lv]) / denoms[lv]
-
-    def restrict(lv, r):
-        return rscale * masks[lv + 1] * _p0t(masks[lv] * r / denoms[lv],
-                                             doms[lv])
-
-    def vcycle(lv, r):
-        fg, st, dm = level_flags[lv], level_stencils[lv], doms[lv]
-        if lv == len(doms) - 1:
-            return _jacobi(fg, torch.zeros_like(r), r, st, dm, n_coarse)
-        x = _jacobi(fg, torch.zeros_like(r), r, st, dm, n_pre)
-        res = r - apply_laplace(fg, x, st, dm)
-        res = torch.where(masks[lv] > 0, res, 0.0)
-        x = x + prolong(lv, vcycle(lv + 1, restrict(lv, res)))
-        return _jacobi(fg, x, r, st, dm, n_post)
-
     def apply(r):
         # identity off the fluid region, ApplyMatrix's dst=src convention
-        return torch.where(fluid, vcycle(0, r), r)
+        return torch.where(fluid, _vcycle(hierarchy, doms, 0, r, n_pre,
+                                          n_post, n_coarse, rscale), r)
+
+    return apply
+
+
+# ---------------------------------------------------------------------------
+# the hierarchy on a sharded state's z-slabs (parallel/sharding.Slabs)
+
+def _sharded_levels(doms, mesh) -> int:
+    """How many of the finest levels stay cut into the mesh's slabs: level
+    l while ``ceil(sz / n)`` halves evenly l times (a 2D grid lies whole on
+    shard 0: every level), never the coarsest."""
+    c = -(-doms[0].shape[0] // mesh.n)
+    k = 1
+    while k < len(doms) - 1 and (not doms[0].is3d or c % (2 ** k) == 0):
+        k += 1
+    return min(k, len(doms) - 1)
+
+
+def _whole(x):
+    from ..parallel.sharding import Slabs
+    return x.whole() if isinstance(x, Slabs) else x
+
+
+def _map_parts(fn, x):
+    """``fn`` on each shard's part that holds a plane, its result of any
+    depth (a level transfer): empty parts map to the first result cut to
+    no plane."""
+    from ..parallel.slabs import assemble
+    outs = [fn(p) if p.shape[x.dim] else None for p in x.parts]
+    return assemble(outs, x.mesh, lambda i, t, dim: t)
+
+
+def _p0_slabs(xc, dom_f: Domain):
+    """``_p0`` of a level's slabs onto the next finer level's: each coarse
+    slab with one plane of its neighbours (zeros past the ends, where the
+    masked coarse grid is zero), repeated and blended, the two fine halo
+    planes each side cropped (they keep the blend's parity)."""
+    from ..parallel import sharding as shd
+    from ..parallel.slabs import assemble
+    if not dom_f.is3d:
+        return _map_parts(lambda p: _p0(p, dom_f), xc)
+    ext = shd.halo_z(xc.parts, 1, 0)
+    outs = [_p0(e, dom_f)[2:-2] if p.shape[0] else None
+            for p, e in zip(xc.parts, ext)]
+    return assemble(outs, xc.mesh, lambda i, t, dim: t)
+
+
+def _p0t_slabs(r, dom_f: Domain):
+    """``_p0t`` of a level's slabs onto the next coarser level's: the
+    blend's adjoint on each slab with two planes of its neighbours, then
+    the child sums of its own planes."""
+    from ..parallel import sharding as shd
+    from ..parallel.slabs import assemble
+    if not dom_f.is3d:
+        return _map_parts(lambda p: _p0t(p, dom_f), r)
+    ext = shd.halo_z(r.parts, 2, 0)
+    outs = []
+    for p, e in zip(r.parts, ext):
+        if not p.shape[0]:
+            outs.append(None)
+            continue
+        x = _axis_blend(e, adjoint=True)[2:-2]
+        lz, sy, sx = x.shape
+        outs.append(x.reshape(lz // 2, 2, sy // 2, 2, sx // 2, 2)
+                    .sum(dim=(1, 3, 5)))
+    return assemble(outs, r.mesh, lambda i, t, dim: t)
+
+
+def _prolong_any(h, doms, k, lv, xc):
+    """``masks[lv] * _p0(masks[lv+1] * xc) / denoms[lv]`` with level
+    ``lv`` cut (``lv < k``) and level ``lv + 1`` cut or whole."""
+    from ..parallel.sharding import Slabs
+    from ..parallel.slabs import per_slab
+    m, mc, d = h.masks[lv], h.masks[lv + 1], h.denoms[lv]
+    if lv + 1 < k:
+        fine = _p0_slabs(per_slab(torch.mul, mc, xc), doms[lv])
+    else:
+        fine = Slabs.of(_p0(mc * xc, doms[lv]), m.mesh)
+    return per_slab(lambda m_, p_, d_: m_ * p_ / d_, m, fine, d)
+
+
+def _restrict_any(h, doms, k, lv, r, rscale):
+    """``rscale * masks[lv+1] * _p0t(masks[lv] * r / denoms[lv])`` with
+    level ``lv`` cut and level ``lv + 1`` cut or whole."""
+    from ..parallel.slabs import per_slab
+    m, mc, d = h.masks[lv], h.masks[lv + 1], h.denoms[lv]
+    inner = per_slab(lambda m_, r_, d_: m_ * r_ / d_, m, r, d)
+    if lv + 1 < k:
+        return per_slab(lambda m_, t_: rscale * m_ * t_, mc,
+                        _p0t_slabs(inner, doms[lv]))
+    return rscale * mc * _p0t(inner.whole(), doms[lv])
+
+
+def _jacobi_slabs(lap, x, b, fluid_i, diag, n: int, omega: float = 0.86):
+    """``_jacobi`` on slabs: ``lap`` the level's ``laplace_slabs``,
+    ``fluid_i`` its fluid-interior cells, ``diag`` its Jacobi diagonal."""
+    from ..parallel.slabs import per_slab
+    for _ in range(n):
+        r = per_slab(torch.sub, b, lap(x))
+        x = per_slab(lambda x_, r_, f, dg: x_ + omega * torch.where(
+            f, r_ / dg, 0.0), x, r, fluid_i, diag)
+    return x
+
+
+def shard_mg_hierarchy(h: MgHierarchy, dom: Domain, mesh,
+                       min_size: int = 8) -> MgHierarchy:
+    """A whole hierarchy with its first ``_sharded_levels`` levels cut into
+    the mesh's slabs and the rest on the lead."""
+    from ..parallel.sharding import Slabs
+    doms = _levels(dom, min_size)
+    k = _sharded_levels(doms, mesh)
+
+    def cut(lv, t):
+        return Slabs.of(t, mesh) if lv < k else t.to(mesh.lead)
+    return MgHierarchy(
+        level_flags=tuple(cut(lv, t) for lv, t in enumerate(h.level_flags)),
+        level_stencils=tuple(tuple(cut(lv, a) for a in st)
+                             for lv, st in enumerate(h.level_stencils)),
+        masks=tuple(cut(lv, t) for lv, t in enumerate(h.masks)),
+        denoms=tuple(cut(lv, t) for lv, t in enumerate(h.denoms)))
+
+
+def unshard_mg_hierarchy(h: MgHierarchy) -> MgHierarchy:
+    """The inverse of ``shard_mg_hierarchy``: every level whole."""
+    return MgHierarchy(
+        level_flags=tuple(_whole(t) for t in h.level_flags),
+        level_stencils=tuple(tuple(_whole(a) for a in st)
+                             for st in h.level_stencils),
+        masks=tuple(_whole(t) for t in h.masks),
+        denoms=tuple(_whole(t) for t in h.denoms))
+
+
+def make_mg_preconditioner_slabs(flags, dom: Domain, fine_stencil,
+                                 n_pre: int = 2, n_post: int = 2,
+                                 n_coarse: int = 40, min_size: int = 8,
+                                 scale: float = 4.0, hierarchy=None):
+    """``make_mg_preconditioner`` on ``Slabs``: the cut levels' smoothing,
+    residuals and transfers on the slabs, the rest of the V-cycle whole on
+    the lead (``_vcycle``). ``hierarchy``: one from
+    ``shard_mg_hierarchy`` (PcMGStatic's, cut when the state was sharded);
+    None builds it whole on the lead and cuts it (PcMGDynamic)."""
+    from ..parallel.sharding import Slabs
+    from ..parallel.slabs import per_slab
+    mesh = flags.mesh
+    doms = _levels(dom, min_size)
+    k = _sharded_levels(doms, mesh)
+    if hierarchy is None:
+        hierarchy = shard_mg_hierarchy(build_mg_hierarchy(
+            flags.whole(), dom, tuple(a.whole() for a in fine_stencil),
+            min_size), dom, mesh, min_size)
+    from .pressure import laplace_slabs
+    h = hierarchy
+    fluid = per_slab(fl.is_fluid, flags)
+    rscale = scale / (8.0 if dom.is3d else 4.0)
+    # per cut level: its matrix-vector product, fluid-interior cells and
+    # Jacobi diagonal, made once for the solve
+    laps, fluid_i, diag = [], [], []
+    for lv in range(k):
+        laps.append(laplace_slabs(per_slab(fl.is_fluid, h.level_flags[lv]),
+                                  h.level_stencils[lv], doms[lv]))
+        fluid_i.append(per_slab(lambda m: m > 0, h.masks[lv]))
+        diag.append(per_slab(lambda f, a0: torch.where(f & (a0 > 0), a0,
+                                                       1.0),
+                             fluid_i[lv], h.level_stencils[lv][0]))
+
+    def vcycle(lv, r):
+        if lv >= k:
+            return _vcycle(h, doms, lv, r, n_pre, n_post, n_coarse, rscale)
+        x = _jacobi_slabs(laps[lv], per_slab(torch.zeros_like, r), r,
+                          fluid_i[lv], diag[lv], n_pre)
+        res = per_slab(lambda r_, a, m_: torch.where(m_ > 0, r_ - a, 0.0),
+                       r, laps[lv](x), h.masks[lv])
+        xc = vcycle(lv + 1, _restrict_any(h, doms, k, lv, res, rscale))
+        x = per_slab(torch.add, x, _prolong_any(h, doms, k, lv, xc))
+        return _jacobi_slabs(laps[lv], x, r, fluid_i[lv], diag[lv], n_post)
+
+    def apply(r):
+        z = vcycle(0, r) if k else Slabs.of(vcycle(0, r.whole()), mesh)
+        return per_slab(lambda f, z_, r_: torch.where(f, z_, r_), fluid, z,
+                        r)
 
     return apply

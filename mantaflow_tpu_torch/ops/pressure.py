@@ -547,8 +547,9 @@ def solve_pressure(vel, flags, dom: Domain, cg_accuracy: float = 1e-3,
 # the sharded solve: each shard holds its z-slab (parallel/sharding.Slabs)
 
 def cg_slabs(rhs, fluid, stencil, dom: Domain, accuracy: float,
-             max_iter: int):
-    """``cg_loop`` with no preconditioner, from zero, with the max-norm exit
+             max_iter: int, x_init=None):
+    """``cg_loop`` with no preconditioner, from zero or from ``x_init``
+    (``Slabs``: the multigrid's result, the CG tail), with the max-norm exit
     (PcNone, and PcMIC's plain CG), on ``Slabs``: each shard keeps its
     slab of p, r and s; the matrix-vector product reads one plane of each
     neighbour (``halo_z``, zeros past the domain's ends, where the whole
@@ -560,25 +561,25 @@ def cg_slabs(rhs, fluid, stencil, dom: Domain, accuracy: float,
     from ..parallel import sharding as shd
     mesh = rhs.mesh
     lead = mesh.lead
-
-    def ext(parts):
-        return shd.halo_z(parts, 1, 0)
-    st_ext = [ext(a.parts) for a in stencil]
-    fl_ext = ext(fluid.parts)
+    lap = laplace_slabs(fluid, stencil, dom)
 
     def matvec(s):
-        return [_apply_stencil(se, tuple(a[i] for a in st_ext), dom,
-                               fl_ext[i])[1:-1]
-                for i, se in enumerate(ext(s))]
+        return lap(rhs.like(s)).parts
 
     def dot(a, b):
         return shd.psum([torch.sum(x * y, dtype=torch.float64)
                          for x, y in zip(a, b)], lead).to(torch.float32)
 
     def norm(r):
-        return shd.pmax([torch.max(torch.abs(x)) for x in r], lead)
-    p = [torch.zeros_like(x) for x in rhs.parts]
-    r = list(rhs.parts)
+        return shd.pmax([torch.max(torch.abs(x)) for x in r if x.numel()],
+                        lead)
+    if x_init is None:
+        p = [torch.zeros_like(x) for x in rhs.parts]
+        r = list(rhs.parts)
+    else:
+        p = list(x_init.parts)
+        r = [torch.where(f, b - a, b)
+             for f, b, a in zip(fluid.parts, rhs.parts, matvec(p))]
     s = r
     sigma = dot(r, r)
     rn = norm(r)
@@ -603,35 +604,153 @@ def cg_slabs(rhs, fluid, stencil, dom: Domain, accuracy: float,
             rn)
 
 
+def _fix_pressure_slabs(flags, rhs, stencil, dom: Domain):
+    """``_fix_pressure`` on ``Slabs``: "no empty cell" and the pinned cell
+    are found over all shards (the preferred top-centre cells on the shard
+    that holds their plane, then the first fluid cell in scan order, the
+    least of the shards' firsts); each shard changes the entries of the
+    pinned row and column that lie in its planes, on the device, with no
+    host read."""
+    from ..parallel import sharding as shd
+    mesh, lead = flags.mesh, flags.mesh.lead
+    sz, sy, sx = dom.shape
+    plane, total = sy * sx, sz * sy * sx
+    spans = mesh.spans(sz)
+    fluid = [fl.is_fluid(f).reshape(-1) for f in flags.parts]
+    num_empty = shd.psum([fl.is_empty(f).sum() for f in flags.parts], lead)
+    any_fluid = shd.por([f.any() for f in fluid if f.numel()], lead)
+    first_fluid = shd.pmin(
+        [torch.where(f.any(), torch.argmax(f.to(torch.int32)) + z0 * plane,
+                     total) for f, (z0, _) in zip(fluid, spans)
+         if f.numel()], lead)
+    tc_i, tc_k = sx // 2, (sz // 2 if dom.is3d else 0)
+    owner = next(i for i, (z0, lz) in enumerate(spans)
+                 if z0 <= tc_k < z0 + lz)
+    pref_idx = [(tc_k * sy + j) * sx + tc_i for j in (sy - 1, sy - 2, sy - 3)]
+    pref_ok = [fluid[owner][g - spans[owner][0] * plane].to(lead)
+               for g in pref_idx]
+    fix = torch.where(pref_ok[0], pref_idx[0],
+                      torch.where(pref_ok[1], pref_idx[1],
+                                  torch.where(pref_ok[2], pref_idx[2],
+                                              first_fluid)))
+    do_fix = (num_empty == 0) & any_fluid
+
+    def upd(grid, idx, val):
+        idx = idx % total  # a negative index wraps, as on the whole grid
+        out = []
+        for a, (z0, lz) in zip(grid.parts, spans):
+            if lz == 0:
+                out.append(a)
+                continue
+            loc = idx.to(a.device) - z0 * plane
+            inside = (loc >= 0) & (loc < lz * plane)
+            li = torch.clamp(loc, 0, lz * plane - 1)
+            flat = a.reshape(-1).clone()
+            flat[li] = torch.where(do_fix.to(a.device) & inside, val,
+                                   flat[li])
+            out.append(flat.reshape(a.shape))
+        return grid.like(out)
+
+    a0, ai, aj, ak = stencil
+    rhs = upd(rhs, fix, 0.0)
+    a0 = upd(a0, fix, 1.0)
+    ai = upd(upd(ai, fix, 0.0), fix - 1, 0.0)
+    aj = upd(upd(aj, fix, 0.0), fix - sx, 0.0)
+    ak = upd(ak, fix, 0.0)
+    if dom.is3d:
+        ak = upd(ak, fix - sx * sy, 0.0)
+    return rhs, (a0, ai, aj, ak)
+
+
+def laplace_slabs(fluid, stencil, dom: Domain):
+    """``_apply_stencil(., stencil, dom, fluid)`` (``apply_laplace`` with
+    ``fluid`` its flags' fluid cells) on ``Slabs``, as a function of the
+    source: each shard's slab with one plane of its neighbours
+    (``halo_z``'s zero planes past the domain's ends, where the whole
+    grid's stencil is zero); the fluid mask's and the stencil's planes are
+    exchanged once, here."""
+    from ..parallel import sharding as shd
+    from ..parallel.slabs import assemble
+
+    def ext(parts):
+        return shd.halo_z(parts, 1, 0)
+    fe = ext(fluid.parts)
+    se = [ext(a.parts) for a in stencil]
+
+    def apply(src):
+        xe = ext(src.parts)
+        outs = [_apply_stencil(xe[i], tuple(a[i] for a in se), dom,
+                               fe[i])[1:-1] if x.shape[0] else None
+                for i, x in enumerate(src.parts)]
+        return assemble(outs, src.mesh, lambda i, t, dim: t)
+    return apply
+
+
+def mg_richardson_slabs(rhs, flags, dom: Domain, stencil, precond_apply,
+                        accuracy: float, max_cycles: int = 20):
+    """``mg_richardson`` on ``Slabs``: its exit reads the maximum of the
+    shards' residual norms."""
+    from ..parallel import sharding as shd
+    from ..parallel.slabs import per_slab
+    lead = rhs.mesh.lead
+    fluid = per_slab(fl.is_fluid, flags)
+    lap = laplace_slabs(fluid, stencil, dom)
+    r = per_slab(lambda f, b: torch.where(f, b, 0.0), fluid, rhs)
+    x = per_slab(torch.zeros_like, rhs)
+
+    def norm(r):
+        return shd.pmax([torch.max(torch.abs(p)) for p in r.full()], lead)
+    rn = norm(r)
+    it, done = 0, False
+    while it < max_cycles and not done:
+        x = per_slab(torch.add, x, precond_apply(r))
+        r = per_slab(lambda f, b, a: torch.where(f, b - a, 0.0), fluid, rhs,
+                     lap(x))
+        rn = norm(r)
+        it += 1
+        done = bool(rn < accuracy)
+    return x, torch.tensor(it, dtype=torch.int32, device=lead), rn
+
+
 def solve_pressure_slabs(vel, flags, dom: Domain, cg_accuracy: float = 1e-3,
                          phi=None, gf_clamp: float = 1e-4,
                          cg_max_iter_fac: float = 1.5,
-                         preconditioner: int = PcNone):
+                         preconditioner: int = PcNone,
+                         zero_pressure_fixing: bool = False,
+                         mg_hierarchy=None):
     """``solve_pressure`` on a sharded state's ``Slabs``: the right-hand
     side, the stencil (ghost fluid with ``phi``) and the velocity
-    correction through the slab step (``parallel/slabs.py``), the solve by
-    ``cg_slabs`` (the system the CG kernel takes on one device, solved the
-    way its plain version solves it). Returns (vel', pressure, rhs,
-    iterations, resnorm), each grid as ``Slabs``. Multigrid is not
-    sharded: PcMGStatic/PcMGDynamic raise."""
+    correction through the slab step (``parallel/slabs.py``), zero-pressure
+    fixing (``zero_pressure_fixing`` or ``cg_accuracy`` < 1e-7) over all
+    shards (``_fix_pressure_slabs``), the solve by ``cg_slabs`` (the system
+    the CG kernel takes on one device, solved the way its plain version
+    solves it). PcMGStatic/PcMGDynamic run ``solve_pressure_system``'s
+    V-cycles from zero on the slabs (``multigrid.make_mg_preconditioner_
+    slabs``, on ``mg_hierarchy``, a hierarchy cut by ``shard_mg_hierarchy``,
+    or one built on the slabs), then ``cg_slabs`` from their result.
+    Returns (vel', pressure, rhs, iterations, resnorm), each grid as
+    ``Slabs``."""
     from ..parallel.slabs import per_slab, slab_stage
-    if preconditioner in (PcMGDynamic, PcMGStatic):
-        raise ValueError("a sharded state solves by plain CG (PcNone, "
-                         "PcMIC): multigrid V-cycles are not sharded")
-    if cg_accuracy < 1e-7:
-        raise ValueError("zero-pressure fixing (cg_accuracy < 1e-7) is not "
-                         "sharded")
     rhs = slab_stage(lambda sd, f, v, ph: make_rhs(f, v, sd, phi=ph,
                                                    gf_clamp=gf_clamp),
                      1, dom, flags, vel, phi)
     stencil = slab_stage(lambda sd, f, ph: make_laplace_stencil(
         f, sd, phi=ph, gf_clamp=gf_clamp), 1, dom, flags, phi)
+    if zero_pressure_fixing or cg_accuracy < 1e-7:
+        rhs, stencil = _fix_pressure_slabs(flags, rhs, stencil, dom)
+    x_init, mg_iters = None, 0
+    if preconditioner in (PcMGDynamic, PcMGStatic):
+        from .multigrid import make_mg_preconditioner_slabs
+        mg_apply = make_mg_preconditioner_slabs(flags, dom, stencil,
+                                                hierarchy=mg_hierarchy)
+        x_init, mg_iters, _ = mg_richardson_slabs(rhs, flags, dom, stencil,
+                                                  mg_apply, cg_accuracy)
     max_iter = int(cg_max_iter_fac * max(dom.size)) * (1 if dom.is3d else 4)
     if preconditioner == PcMIC:
         max_iter *= 12
     fluid = per_slab(fl.is_fluid, flags)
     pressure, iters, rn = cg_slabs(rhs, fluid, stencil, dom, cg_accuracy,
-                                   max_iter)
+                                   max_iter, x_init)
     vel = slab_stage(lambda sd, f, v, p, ph: correct_velocity(
         f, v, p, sd, ph, gf_clamp), 2, dom, flags, vel, pressure, phi)
-    return vel, pressure, rhs, iters, rn
+    return vel, pressure, rhs, iters + mg_iters, rn

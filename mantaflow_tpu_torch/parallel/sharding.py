@@ -38,8 +38,13 @@ layout's particle arrays as contiguous chunks over every shard
 (``Chunks``); ``models/smoke.py`` and ``models/flip.py`` step such a state
 per slab (``parallel/slabs.py``). Only z is decomposed, over all ``n``
 shards, where the JAX package's GSPMD cuts z and y: a layout difference
-that leaves results as they are. Where the JAX package pads a z extent
-that the mesh does not divide, ``ZMesh.planes`` raises.
+that leaves results as they are. A grid state takes any z extent in the
+layout GSPMD's padding gives (``ZMesh.spans``): shard i holds planes
+``[i*c, min((i+1)*c, sz))`` with ``c = ceil(sz / n)``, which may be one
+plane or none, so a 2D state (one plane) lies on shard 0 and the other
+slabs are empty. A state's multigrid hierarchy is cut level by level
+(``ops/multigrid.py:shard_mg_hierarchy``). The bucketed path keeps the JAX
+package's equal slabs of at least two planes (``ZMesh.planes``).
 """
 
 from __future__ import annotations
@@ -66,8 +71,10 @@ class ZMesh:
         return self.devices[0]
 
     def planes(self, sz: int) -> int:
-        """The z planes of one shard's slab of a grid ``sz`` planes deep;
-        raises where the JAX package does (flip_bucket_pallas.py:1265-1269)."""
+        """The z planes of one shard's slab of a bucket state ``sz`` planes
+        deep; raises where the JAX package's bucketed path does
+        (flip_bucket_pallas.py:1264-1268). Grid states take any extent
+        (``spans``)."""
         if sz % self.n != 0:
             raise ValueError(f"z extent {sz} not divisible by mesh axis "
                              f"{self.n}")
@@ -75,6 +82,14 @@ class ZMesh:
         if lz < 2:
             raise ValueError("z slab of 1 plane unsupported")
         return lz
+
+    def spans(self, sz: int) -> list[tuple[int, int]]:
+        """Per shard, (its first plane, its planes) of a grid ``sz`` planes
+        deep, in GSPMD's padded layout: ``c = ceil(sz / n)`` planes a
+        shard, the last ones fewer or none."""
+        c = -(-sz // self.n)
+        return [(min(i * c, sz), max(0, min((i + 1) * c, sz) - i * c))
+                for i in range(self.n)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +183,7 @@ def halo_z(slabs, h: int, dim: int, edge: bool = False):
     ``edge`` the end plane repeated (advection_pallas.py:551-556). A halo
     deeper than a neighbour's slab continues into the next shard's."""
     n = len(slabs)
+    full = [j for j in range(n) if slabs[j].shape[dim] > 0]
 
     def planes(i, lo: bool, want: int):
         """``want`` planes next to shard i, from its neighbours outward."""
@@ -178,7 +194,7 @@ def halo_z(slabs, h: int, dim: int, edge: bool = False):
                 shape = list(slabs[i].shape)
                 shape[dim] = want
                 if edge:
-                    end = slabs[0 if lo else n - 1]
+                    end = slabs[full[0] if lo else full[-1]]
                     pad = end.narrow(dim, 0 if lo else end.shape[dim] - 1,
                                      1).to(dev).expand(shape)
                 else:
@@ -212,10 +228,9 @@ def psum(values, device):
 
 def scatter_z(grid, mesh: ZMesh, dim: int):
     """The lead's whole grid cut into each shard's contiguous slab along
-    ``dim``, on the shard's device."""
-    lz = mesh.planes(grid.shape[dim])
-    return [grid.narrow(dim, i * lz, lz).to(mesh.device(i)).contiguous()
-            for i in range(mesh.n)]
+    ``dim`` (``ZMesh.spans``), on the shard's device."""
+    return [grid.narrow(dim, z0, lz).to(mesh.device(i)).contiguous()
+            for i, (z0, lz) in enumerate(mesh.spans(grid.shape[dim]))]
 
 
 def gather_z(slabs, mesh: ZMesh, dim: int):
@@ -335,6 +350,11 @@ class Slabs:
         """Other per-shard tensors of this layout."""
         return Slabs(list(parts), self.mesh, self.dim)
 
+    def full(self) -> list:
+        """The parts that hold a plane (a reduction over them needs no
+        empty tensor)."""
+        return [p for p in self.parts if p.shape[self.dim] > 0]
+
 
 @dataclasses.dataclass
 class Chunks:
@@ -407,24 +427,32 @@ def _lead_ts(ts, mesh):
 def shard_smoke_state(state, mesh: ZMesh):
     """A ``SmokeState`` whose grids are the mesh's z-slabs (sharding.py:
     shard_smoke_state); its time state and counters stay on the lead.
-    ``models.smoke.smoke_step`` takes it unchanged. No multigrid
-    hierarchy: a sharded solve is plain CG."""
+    ``models.smoke.smoke_step`` takes it unchanged. A multigrid
+    hierarchy (PcMGStatic) is cut level by level
+    (``multigrid.shard_mg_hierarchy``)."""
+    from ..core.domain import domain_from_shape
+    from ..ops import multigrid
     if is_sharded(state):
         raise ValueError("the state is sharded already")
-    if state.mg is not None:
-        raise ValueError("a sharded smoke state solves by plain CG: "
-                         "PcMGStatic/PcMGDynamic are not sharded")
-    mesh.planes(state.flags.shape[0])
+    mg = state.mg
+    if mg is not None:
+        mg = multigrid.shard_mg_hierarchy(
+            mg, domain_from_shape(state.flags.shape), mesh)
     return dataclasses.replace(
         state, **{g: Slabs.of(getattr(state, g), mesh)
-                  for g in _SMOKE_GRIDS}, ts=_lead_ts(state.ts, mesh))
+                  for g in _SMOKE_GRIDS}, ts=_lead_ts(state.ts, mesh),
+        mg=mg)
 
 
 def unshard_smoke_state(state):
     """The inverse of ``shard_smoke_state``: every grid whole on the
     lead."""
+    from ..ops import multigrid
+    mg = state.mg
+    if mg is not None:
+        mg = multigrid.unshard_mg_hierarchy(mg)
     return dataclasses.replace(state, **{
-        g: getattr(state, g).whole() for g in _SMOKE_GRIDS})
+        g: getattr(state, g).whole() for g in _SMOKE_GRIDS}, mg=mg)
 
 
 _FLAT_PARTICLE = ("pvel", "cpx", "cpy", "cpz")
@@ -438,7 +466,6 @@ def shard_flip_state(state, mesh: ZMesh):
     ``models.flip.flip_step`` takes it unchanged."""
     if is_sharded(state):
         raise ValueError("the state is sharded already")
-    mesh.planes(state.flags.shape[0])
     parts = dataclasses.replace(
         state.parts, pos=Chunks.of(state.parts.pos, mesh),
         flags=Chunks.of(state.parts.flags, mesh),

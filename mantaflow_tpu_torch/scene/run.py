@@ -7,10 +7,11 @@ Usage::
 The port's counterpart of ``python scenes/X.py``, whose import line ties
 the scene to the JAX package: ``mantaflow_tpu`` and every
 ``mantaflow_tpu.<sub>`` are mapped onto the port's module of the same name
-(a meta-path finder plus ``sys.modules`` entries), and the file runs with
-``runpy.run_path(..., run_name="__main__")`` and its own ``sys.argv``. The
-device is CUDA unless ``--device cpu`` is given; without a GPU and without
-``--device`` the run raises (the port never falls back to the CPU).
+(a meta-path finder plus ``sys.modules`` entries), and the file runs as
+``runpy.run_path(..., run_name="__main__")`` runs it, with its own
+``sys.argv``. The device is CUDA unless ``--device cpu`` is given;
+without a GPU and without ``--device`` the run raises (the port never
+falls back to the CPU).
 
 Run as its own process, the runner raises if ``jax`` or the JAX package
 ends up in ``sys.modules``. In-process (``run_scene``), it checks that
@@ -18,9 +19,27 @@ every ``mantaflow_tpu*`` module the scene imported is the port's, and puts
 back whatever ``mantaflow_tpu*`` entries were there before, so a process
 that also holds the JAX package keeps it.
 
-One scene of ``scenes/`` cannot run unedited on the port: ``zflip.py``
-calls ``jax.numpy`` itself; ``zflip_api`` is held at the API level instead
-(``tests/test_torch_scene_api.py``).
+Every scene of ``scenes/`` runs unedited. Two imports of a scene's own
+module are the runner's, through the scene's ``__builtins__``:
+
+- ``import jax.numpy`` (``zflip.py``) gives ``_SceneJnp``, three names
+  backed by torch on the runner's device (``asarray``, ``where``,
+  ``int32``; any other raises an ``AttributeError`` that names it). The
+  stand-in is returned before any real import is tried, so a process that
+  holds JAX does not hand it to the scene, and nothing named ``jax``
+  enters ``sys.modules``.
+- ``import sys`` gives ``_SceneSys``: Python's ``sys`` but for
+  ``executable``, a launcher of the port's (``launcher(device)``, a shell
+  script under ``build/scene_launch/``, written when the scene first reads
+  ``sys.executable``) that runs its arguments as
+  ``python -m mantaflow_tpu_torch.scene.run [--device cpu] SCENE ARGS``
+  with the repo on ``PYTHONPATH``. ``scenes/run.py`` starts each method as
+  ``[sys.executable, zflip.py, ...]`` with ``cwd`` its output directory:
+  each child runs ``zflip.py`` through the runner on the runner's device,
+  with no JAX loaded; a CUDA child started without a GPU raises.
+
+A scene that ends with ``sys.exit(0)`` (``run.py``) ends normally; any
+other exit code is raised on.
 
 A scene reads its results as a JAX scene does, ``np.asarray(state.density)``
 of a state field on any device. The scene's own module gets its ``numpy``
@@ -35,10 +54,13 @@ from __future__ import annotations
 
 import builtins
 import contextlib
+import hashlib
 import importlib
 import importlib.abc
 import importlib.util
-import runpy
+import io
+import os
+import shlex
 import sys
 import types
 
@@ -147,14 +169,133 @@ class _SceneNumpy(types.ModuleType):
         return numpy.array(_host(a), *args, **kwargs)
 
 
-def _scene_builtins():
+class _SceneJnp(types.ModuleType):
+    """``jax.numpy`` as a scene's own module sees it: the names the files
+    of ``scenes/`` call, on torch tensors on the runner's device."""
+
+    NAMES = ("asarray", "where", "int32")
+
+    def __init__(self, device):
+        super().__init__("jax.numpy")
+        self._device = device
+
+    def __getattr__(self, name):
+        raise AttributeError(
+            f"the scene runner's jax.numpy has no {name!r} (it has "
+            f"{', '.join(self.NAMES)})")
+
+    def asarray(self, a, dtype=None):
+        import torch
+        return torch.as_tensor(a, dtype=dtype, device=self._device)
+
+    @staticmethod
+    def where(cond, x, y):
+        """``torch.where``; a 0-dim host tensor (``int32(...)``) meets a
+        tensor on the card as the scalar it holds, read on the host."""
+        import torch
+
+        def scalar(v):
+            if isinstance(v, torch.Tensor) and v.dim() == 0 \
+                    and v.device.type == "cpu" \
+                    and cond.device.type != "cpu":
+                return v.item()
+            return v
+        return torch.where(cond, scalar(x), scalar(y))
+
+    @staticmethod
+    def int32(v):
+        import torch
+        return torch.tensor(v, dtype=torch.int32)
+
+
+class _SceneJax(types.ModuleType):
+    """``jax`` as a scene's own module sees it: ``numpy`` alone."""
+
+    def __init__(self, device):
+        super().__init__("jax")
+        self.numpy = _SceneJnp(device)
+
+    def __getattr__(self, name):
+        raise AttributeError(
+            f"the scene runner's jax has no {name!r} (it has numpy)")
+
+
+class _SceneSys(types.ModuleType):
+    """``sys`` as a scene's own module sees it: Python's, but for
+    ``executable``, the port's launcher on the runner's device, made on
+    the first read (a scene that starts no child writes none)."""
+
+    def __init__(self, device):
+        super().__init__("sys")
+        self._device = device
+
+    def __getattr__(self, name):
+        if name == "executable":
+            self.executable = launcher(self._device)
+            return self.executable
+        return getattr(sys, name)
+
+    def __setattr__(self, name, value):
+        if name == "executable" or name.startswith("_"):
+            super().__setattr__(name, value)
+        else:
+            setattr(sys, name, value)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def launcher(device) -> str:
+    """The path of an executable that runs ``SCENE ARGS`` through this
+    runner on ``device`` in a fresh interpreter (``sys.executable``), with
+    the repo on ``PYTHONPATH``: a shell script under the repo's
+    ``build/scene_launch/``, named by a hash of its text. A CUDA launcher
+    names no device, so its run raises without a GPU."""
+    flag = ""
+    if device.type == "cpu":
+        flag = " --device cpu"
+    elif device.index is not None:
+        flag = f" --device {device}"
+    text = ("#!/bin/sh\n"
+            "# Runs a scene file through mantaflow_tpu_torch.scene.run: "
+            "the sys.executable\n# that the runner hands a scene module.\n"
+            f"PYTHONPATH={shlex.quote(REPO)}${{PYTHONPATH:+:$PYTHONPATH}}\n"
+            "export PYTHONPATH\n"
+            f"exec {shlex.quote(sys.executable)} -m "
+            f"mantaflow_tpu_torch.scene.run{flag} \"$@\"\n")
+    name = "python-" + hashlib.sha256(text.encode()).hexdigest()[:16]
+    path = os.path.join(REPO, "build", "scene_launch", name)
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.chmod(tmp, 0o755)
+        os.replace(tmp, path)
+    return path
+
+
+def _scene_builtins(device):
     """The builtins of a scene's module: ``import numpy`` (and
     ``numpy.<sub>``, ``from numpy import ...``) there gives the scene's
-    numpy; every other import is Python's own."""
+    numpy, ``import jax.numpy`` the runner's stand-in (never the real
+    one), ``import sys`` the scene's ``sys``; every other import is
+    Python's own."""
     scene_np = _SceneNumpy()
+    scene_jax = _SceneJax(device)
+    scene_sys = _SceneSys(device)
     real_import = builtins.__import__
 
     def scene_import(name, globals=None, locals=None, fromlist=(), level=0):
+        if level == 0 and (name == "jax" or name.startswith("jax.")):
+            if name not in ("jax", "jax.numpy"):
+                raise ImportError(f"the scene runner has no {name}")
+            if name == "jax.numpy" and fromlist:
+                return scene_jax.numpy
+            return scene_jax
+        if level == 0 and name == "sys":
+            return scene_sys
         mod = real_import(name, globals, locals, fromlist, level)
         if level == 0 and name == "numpy":
             return scene_np
@@ -162,6 +303,27 @@ def _scene_builtins():
             return scene_np
         return mod
     return {**vars(builtins), "__import__": scene_import}
+
+
+def _run_main(path: str, scene_builtins: dict) -> dict:
+    """``runpy.run_path(path, run_name="__main__")`` with the scene's
+    builtins, where ``sys.exit(0)`` ends the file normally: its globals."""
+    mod = types.ModuleType("__main__")
+    mod.__dict__.update(__file__=path, __builtins__=scene_builtins,
+                        __loader__=None, __spec__=None, __package__=None,
+                        __cached__=None)
+    with io.open_code(path) as f:
+        code = compile(f.read(), path, "exec")
+    old_main = sys.modules.get("__main__")
+    sys.modules["__main__"] = mod
+    try:
+        exec(code, mod.__dict__)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise
+    finally:
+        sys.modules["__main__"] = old_main
+    return dict(mod.__dict__)
 
 
 def run_scene(path: str, argv=(), device=None) -> dict:
@@ -173,9 +335,7 @@ def run_scene(path: str, argv=(), device=None) -> dict:
     sys.argv = [str(path)] + [str(a) for a in argv]
     try:
         with _aliased(device):
-            out = runpy.run_path(
-                str(path), {"__builtins__": _scene_builtins()},
-                run_name="__main__")
+            out = _run_main(str(path), _scene_builtins(device))
             _check_port_only(out)
     finally:
         sys.argv = old_argv

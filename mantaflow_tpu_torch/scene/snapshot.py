@@ -15,6 +15,12 @@ this module imports neither package. The kinds:
 - ``field``: every other grid, particle array (its first ``pySize()``
   rows), mesh nodes, float numpy array and the solver's time step.
 
+``snapshot(scope, members=True)`` also reads a function's locals, as
+``returned_locals`` catches them where the scene keeps its state there
+(``zflip.py``'s ``run_zflip``): a list of numbers (``exact`` if integer),
+a Python int (``exact``) or float (``field``), and the attributes of each
+object whose class the scene itself defines (under ``name.attr``).
+
 ``compare(a, b, field_tol, ...)`` holds snapshot ``a`` against ``b``: the
 exact kinds equal; a levelset within ``levelset_tol`` of its scale (the
 largest magnitude below the far-field sentinel 1e9); a field within
@@ -23,6 +29,9 @@ limit. A key in only one snapshot is a difference too.
 """
 
 from __future__ import annotations
+
+import contextlib
+import sys
 
 import numpy as np
 
@@ -45,17 +54,48 @@ def _float_or_exact(a: np.ndarray) -> str:
     return "field" if a.dtype.kind in "fc" else "exact"
 
 
-def snapshot(scene_globals: dict) -> dict:
-    """``{key: (kind, array)}`` of every grid, particle system, particle
-    datum, mesh, tracer system, solver and numpy array in the globals."""
-    out = {}
+def _scene_object(v) -> bool:
+    """An instance of a class that the scene file itself defines."""
+    return type(v).__module__ == "__main__" and hasattr(v, "__dict__")
 
+
+def snapshot(scene_globals: dict, members: bool = False) -> dict:
+    """``{key: (kind, array)}`` of every grid, particle system, particle
+    datum, mesh, tracer system, solver and numpy array in the globals;
+    with ``members``, also the numbers and the scene's own objects (the
+    module's docstring)."""
+    out = {}
+    if members:
+        for name, v in sorted(scene_globals.items()):
+            if _scene_object(v):
+                inner = {k: w for k, w in vars(v).items()
+                         if not _scene_object(w)}
+                for k, kv in snapshot(inner, members=True).items():
+                    out[f"{name}.{k}"] = kv
+    _put_all(out, scene_globals, members)
+    return out
+
+
+def _put_all(out: dict, scene_globals: dict, members: bool):
     def put(key, kind, arr):
         out[key] = (kind, np.array(arr))  # a copy: the scene runs on
 
     for name, v in sorted(scene_globals.items()):
         if name.startswith("__"):
             continue
+        if members and not isinstance(v, bool):
+            if isinstance(v, int):
+                put(name, "exact", np.asarray(v))
+                continue
+            if isinstance(v, float):
+                put(name, "field", np.asarray(v))
+                continue
+            if isinstance(v, list) and v and all(
+                    isinstance(x, (int, float)) and not isinstance(x, bool)
+                    for x in v):
+                a = np.asarray(v)
+                put(name, _float_or_exact(a), a)
+                continue
         names = _names(v)
         if "GridBase" in names or "Grid4Base" in names:
             a = _host(v.data)
@@ -85,6 +125,72 @@ def snapshot(scene_globals: dict) -> dict:
             put(f"{name}.timestep", "field", np.asarray(float(v.timestep)))
         elif isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
             put(name, _float_or_exact(v), v)
+
+
+@contextlib.contextmanager
+def returned_locals(func_name: str, filename: str | None = None):
+    """Yields a dict that receives the locals of the frame of the function
+    ``func_name`` (defined in ``filename``, if given) as it returns, for a
+    scene that keeps its state in a function (``zflip.py:run_zflip``). A
+    ``sys.monitoring`` tool watches each function's first start once and
+    only that function's returns after."""
+    mon = sys.monitoring
+    tool = next((i for i in range(6) if mon.get_tool(i) is None), None)
+    if tool is None:
+        raise RuntimeError("no free sys.monitoring tool id")
+    got = {}
+    watched = []
+
+    def ours(code):
+        return code.co_name == func_name and (
+            filename is None or code.co_filename == filename)
+
+    def start(code, offset):
+        if ours(code):
+            mon.set_local_events(tool, code, mon.events.PY_RETURN)
+            watched.append(code)
+        return mon.DISABLE
+
+    def returned(code, offset, value):
+        if ours(code):
+            got.clear()
+            got.update(sys._getframe(1).f_locals)
+
+    mon.use_tool_id(tool, "scene snapshot")
+    try:
+        mon.register_callback(tool, mon.events.PY_START, start)
+        mon.register_callback(tool, mon.events.PY_RETURN, returned)
+        mon.set_events(tool, mon.events.PY_START)
+        yield got
+    finally:
+        mon.set_events(tool, 0)
+        for code in watched:
+            mon.set_local_events(tool, code, 0)
+        mon.register_callback(tool, mon.events.PY_START, None)
+        mon.register_callback(tool, mon.events.PY_RETURN, None)
+        mon.free_tool_id(tool)
+        mon.restart_events()
+
+
+def meshes(out_dir: str, pattern: str = "surface_*.bobj.gz") -> dict:
+    """The ``.bobj.gz`` meshes a run wrote into ``out_dir`` as snapshot
+    entries: each file's triangle count (``exact``) and nodes (``field``,
+    in the file's world space)."""
+    import glob
+    import gzip
+    import os
+    import struct
+    out = {}
+    for path in sorted(glob.glob(os.path.join(out_dir, pattern))):
+        with gzip.open(path, "rb") as f:
+            (nv,) = struct.unpack("i", f.read(4))
+            nodes = np.frombuffer(f.read(nv * 12), np.float32)
+            (nn,) = struct.unpack("i", f.read(4))
+            f.read(nn * 12)
+            (nt,) = struct.unpack("i", f.read(4))
+        key = os.path.basename(path)
+        out[f"{key}.count"] = ("exact", np.asarray(nt))
+        out[f"{key}.nodes"] = ("field", nodes.reshape(nv, 3).copy())
     return out
 
 

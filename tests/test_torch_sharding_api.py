@@ -18,9 +18,11 @@ the JAX package's ``parallel/sharding.py`` and its one-device steps.
   port's grids to: the ghost-fluid solve to 1e-4 moves by up to 2.8e-5
   when its dots sum in another order); 8 shards within 2e-5 of 4, and a
   run repeated bit for bit;
-- the slab CG against the port's one-device plain CG, the known
-  differences (z only, uneven z raises, multigrid raises) and the dry run
-  (``parallel/dryrun.py``) at 4 shards with its five OK lines.
+- the slab CG against the port's one-device plain CG, the layout (z
+  only, any z extent in GSPMD's padded layout for grid states, the
+  bucket state's guards), multigrid and uneven slabs against one device
+  (``tests/test_torch_sharding_rest.py`` covers them in full) and the dry
+  run (``parallel/dryrun.py``) at 4 shards with its five OK lines.
 
 Compared against the JAX package's one-device step, never its 8-device
 SPMD compile, which takes minutes (tests/conftest.py marks those slow).
@@ -89,12 +91,22 @@ def test_pad_to_multiple_matches_reference():
 
 
 def test_mesh_takes_the_zshard_paths_and_its_guards():
+    """A bucket state's slabs (``planes``) keep the JAX package's guards; a
+    grid state takes any extent in GSPMD's padded layout (``spans``)."""
     m = _mesh(8)
     assert isinstance(m, shd.ZMesh) and m.device(9) == torch.device("cpu")
     with pytest.raises(ValueError, match="not divisible"):
         m.planes(12)
     with pytest.raises(ValueError, match="1 plane"):
         m.planes(8)
+    assert m.spans(12) == [(0, 2), (2, 2), (4, 2), (6, 2), (8, 2), (10, 2),
+                           (12, 0), (12, 0)]
+    assert m.spans(8) == [(i, 1) for i in range(8)]
+    assert _mesh(3).spans(128) == [(0, 43), (43, 43), (86, 42)]
+    whole = torch.arange(12 * 2 * 3, dtype=torch.float32).reshape(12, 2, 3)
+    parts = shd.scatter_z(whole, m, 0)
+    assert [p.shape[0] for p in parts] == [2] * 6 + [0, 0]
+    assert torch.equal(shd.gather_z(parts, m, 0), whole)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             shd.make_mesh(4)
@@ -192,11 +204,19 @@ def test_smoke_step_jit_and_the_sharded_guards(smoke_runs):
         smoke.smoke_step(sst, r["dom"], r["tp"], zshard=_mesh(2))
     with pytest.raises(ValueError, match="sharded already"):
         shd.shard_smoke_state(sst, _mesh(4))
+    # multigrid on the slabs (its hierarchy built there) and a z extent
+    # the mesh does not divide: the one-device step's results
     mg = smoke.SmokeParams(preconditioner=prs.PcMGStatic)
-    with pytest.raises(ValueError, match="multigrid"):
-        smoke.smoke_step(sst, r["dom"], mg)
-    with pytest.raises(ValueError, match="not divisible"):
-        shd.shard_smoke_state(r["st"], _mesh(3))
+    got = shd.unshard_smoke_state(smoke.smoke_run(sst, r["dom"], mg, 2))
+    ref = smoke.smoke_run(r["st"], r["dom"], mg, 2)
+    for k in ("vel", "pressure"):
+        _close(getattr(got, k), getattr(ref, k), 1e-6, f"multigrid {k}")
+    three = shd.shard_smoke_state(r["st"], _mesh(3))
+    assert [p.shape[0] for p in three.density.parts] == [6, 6, 4]
+    got = shd.unshard_smoke_state(smoke.smoke_run(three, r["dom"], r["tp"],
+                                                  2))
+    for k in ("vel", "density", "pressure"):
+        _close(getattr(got, k), getattr(r["one"], k), 1e-6, f"3 shards {k}")
 
 
 def test_slab_cg_matches_the_plain_cg():

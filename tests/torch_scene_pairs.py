@@ -1,10 +1,11 @@
 """The scenes of ``scenes/`` on the port's CPU path against the JAX
 package's run of the same file (``tests/test_torch_scenes_*.py``).
 
-``SMOKE`` and ``LIQUID`` list every scene the port runs unedited (``zflip.py`` calls
-``jax.numpy`` and ``run.py`` drives it; ``flip06_obstacle.py``,
-``smoke_fused_128.py`` and ``mlflip.py`` are held in
-``tests/test_torch_scene_run.py`` and ``tests/test_torch_ml_examples.py``),
+``SMOKE`` and ``LIQUID`` list the scenes of ``scenes/`` but five, which
+are held elsewhere: ``flip06_obstacle.py``, ``smoke_fused_128.py`` and
+``mlflip.py`` in ``tests/test_torch_scene_run.py`` and
+``tests/test_torch_ml_examples.py``, ``zflip.py`` and ``run.py`` (which
+drives it) in ``tests/test_torch_zflip_*.py`` (``tests/torch_zflip_pairs.py``);
 each with the argv of the JAX package's ``tests/test_scenes_run.py``
 (``FAST_SCENES``; ``FRAMES=2`` or the whole file where it has none), the
 accuracy of its solves, the end of its last printed line, and the

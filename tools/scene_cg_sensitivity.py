@@ -3,7 +3,8 @@
 iterate within their accuracy.
 
     python3 tools/scene_cg_sensitivity.py [--factor 0.7] [--steps N]
-                                          [--env NAME=VALUE ...] SCENE [ARGS]
+                                          [--env NAME=VALUE ...]
+                                          [--locals FUNCTION] SCENE [ARGS]
 
 Runs ``scenes/SCENE`` twice, unedited, on the port's CPU path through the
 scene runner (``scene/run.py:run_scene``, one torch thread), the second
@@ -11,7 +12,11 @@ time with the accuracy of every linear solve times ``--factor``
 (``ops/pressure.py:solve_pressure_system``, which takes solvePressure,
 solvePressureSystem, cgSolveDiffusion and the PD guiding's projections,
 and ``ops/waves.py:cg_solve_wave_eq``). ``--steps`` compares after that
-many ``Solver.step`` calls. Prints as one JSON object each field's max abs
+many ``Solver.step`` calls. ``--locals run_zflip`` compares the locals of
+that function of the scene as it returns (with ``--steps``, as it calls
+that step), with the meshes the run wrote
+(``zflip.py`` keeps its state there; ``snapshot(..., members=True)``).
+Prints as one JSON object each field's max abs
 difference between the two runs (the keys of ``scene/snapshot.py``), the
 fields that do not move left out. A field that moves by about as much as
 it parts between the card and the CPU, or between the port and the JAX
@@ -36,12 +41,14 @@ REPO = os.path.dirname(HERE)
 
 
 class Stopped(Exception):
-    """Raised by ``stop_after``'s Solver.step; carries the scene's
-    globals."""
+    """Raised by ``stop_after``'s Solver.step; carries the scene's globals
+    and the locals of the function that called the step (``run_zflip``'s,
+    where the scene keeps its state in a function)."""
 
-    def __init__(self, scene_globals):
+    def __init__(self, scene_globals, caller_locals=None):
         super().__init__("stopped")
         self.scene_globals = scene_globals
+        self.caller_locals = caller_locals or {}
 
 
 @contextlib.contextmanager
@@ -55,7 +62,8 @@ def stop_after(api, steps):
         orig(self, frame)
         count[0] += 1
         if count[0] == steps:
-            raise Stopped(sys._getframe(1).f_globals)
+            caller = sys._getframe(1)
+            raise Stopped(caller.f_globals, dict(caller.f_locals))
     if steps is not None:
         api.Solver.step = step
     try:
@@ -106,9 +114,11 @@ def _scaled_accuracy(factor):
 
 
 def run_snapshot(scene, argv, factor=1.0, steps=None, env=None,
-                 out_dir="."):
+                 out_dir=".", locals_of=None):
     """The scene's snapshot after a run on the CPU in ``out_dir`` (which is
-    also its MANTA_OUT), every solve's accuracy times ``factor``."""
+    also its MANTA_OUT), every solve's accuracy times ``factor``; of the
+    locals of the scene's function ``locals_of`` and the meshes, if
+    given."""
     import torch
     from mantaflow_tpu_torch.scene import api as sapi
     from mantaflow_tpu_torch.scene import run as srun
@@ -121,11 +131,20 @@ def run_snapshot(scene, argv, factor=1.0, steps=None, env=None,
     os.makedirs(out_dir, exist_ok=True)
     os.chdir(out_dir)
     reset_statics()
+    path = os.path.join(REPO, "scenes", scene)
     try:
         with _scaled_accuracy(factor), open(os.devnull, "w") as null, \
-                contextlib.redirect_stdout(null):
-            g = run_stopped(sapi, steps, lambda: srun.run_scene(
-                os.path.join(REPO, "scenes", scene), list(argv), "cpu"))
+                contextlib.redirect_stdout(null), \
+                snp.returned_locals(locals_of or "", path) as loc, \
+                stop_after(sapi, steps):
+            try:
+                g = srun.run_scene(path, list(argv), "cpu")
+            except Stopped as s:
+                # stopped inside the function: its locals at that step
+                g, loc = s.scene_globals, s.caller_locals
+        if locals_of:
+            return {**snp.snapshot(loc, members=True),
+                    **snp.meshes(os.getcwd())}
         return snp.snapshot(g)
     finally:
         os.chdir(cwd)
@@ -137,14 +156,15 @@ def run_snapshot(scene, argv, factor=1.0, steps=None, env=None,
                 os.environ[k] = v
 
 
-def sensitivity(scene, argv, factor=0.7, steps=None, env=None, out_dir="."):
+def sensitivity(scene, argv, factor=0.7, steps=None, env=None, out_dir=".",
+                locals_of=None):
     """``{field: max abs difference}`` between the run as it is and the run
     with every solve's accuracy times ``factor``, the fields that move."""
     from mantaflow_tpu_torch.scene import snapshot as snp
     a = run_snapshot(scene, argv, 1.0, steps, env,
-                     os.path.join(out_dir, "as_is"))
+                     os.path.join(out_dir, "as_is"), locals_of)
     b = run_snapshot(scene, argv, factor, steps, env,
-                     os.path.join(out_dir, "scaled"))
+                     os.path.join(out_dir, "scaled"), locals_of)
     return {k: d for k, (d, _) in snp.compare(a, b, 0.0).items() if d > 0}
 
 
@@ -154,6 +174,7 @@ def main():
     ap.add_argument("--factor", type=float, default=0.7)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--env", action="append", default=[])
+    ap.add_argument("--locals", default=None)
     ap.add_argument("--out", default=os.path.join(REPO, "build",
                                                   "cg_sensitivity"))
     ap.add_argument("scene")
@@ -163,7 +184,8 @@ def main():
     print(json.dumps({"scene": a.scene, "argv": a.args, "env": env,
                       "factor": a.factor, "steps": a.steps,
                       "max_abs_diff": sensitivity(a.scene, a.args, a.factor,
-                                                  a.steps, env, a.out)}))
+                                                  a.steps, env, a.out,
+                                                  a.locals)}))
 
 
 if __name__ == "__main__":
