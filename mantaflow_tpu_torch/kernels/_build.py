@@ -7,6 +7,11 @@ headers and the flags, so an edited source is rebuilt) and loaded with
 ``ctypes``. Nothing here runs at import:
 the first call of a kernel wrapper builds its library, and ``build()``
 compiles several sources in parallel, one ``nvcc`` process each.
+
+Counters (``utils/trace.py``): ``kernels.compiles`` (``nvcc`` processes),
+``kernels.nvcc_s`` (seconds waiting for them) and ``kernels.build_s`` (the
+rest of ``build()`` and ``load()``: hashing the sources, loading the
+libraries; the same work whether or not ``nvcc`` had to run).
 """
 
 from __future__ import annotations
@@ -18,9 +23,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -69,14 +77,20 @@ def build(names=SOURCES) -> dict[str, str]:
 
     Returns each compiled source's compiler log (``ptxas`` register and
     shared-memory use). Raises if any compile fails."""
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
+    t_nvcc = time.perf_counter()
+    trace.count("kernels.build_s", t_nvcc - t0)
+    if not todo:
+        return {}
     procs = {}
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
+        trace.count("kernels.compiles")
     logs, failed = {}, []
     for n, (tmp, proc) in procs.items():
         logs[n] = proc.communicate()[0]
@@ -84,6 +98,7 @@ def build(names=SOURCES) -> dict[str, str]:
             failed.append(n)
         else:
             os.replace(tmp, library_path(n))
+    trace.count("kernels.nvcc_s", time.perf_counter() - t_nvcc)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
@@ -94,7 +109,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _loaded:
         build([name])
+        t0 = time.perf_counter()
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        trace.count("kernels.build_s", time.perf_counter() - t0)
     return _loaded[name]
 
 

@@ -77,6 +77,7 @@ from ..ops import pressure as prs
 from ..ops import rebin_kernels as rbk
 from ..parallel import sharding as shd
 from ..parallel.slabs import per_slab, slab_stage
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,70 +178,86 @@ def make_dam_state(dom: Domain, params: FlipParams,
 def flip_step(state: FlipState, dom: Domain, params: FlipParams) -> FlipState:
     """One FLIP or APIC step on the flat layout, following
     mantaflow_tpu/models/flip.py:flip_step. A state from
-    ``sharding.shard_flip_state`` runs ``_flip_step_slabs``."""
-    if shd.is_sharded(state):
-        return _flip_step_slabs(state, dom, params)
-    flags, vel = state.flags, state.vel
-    parts, pvel = state.parts, state.pvel
-    ts = state.ts
+    ``sharding.shard_flip_state`` runs ``_flip_step_slabs``.
 
-    if params.adaptive_dt:
-        max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2
-                                       + vel[2] ** 2))
-        ts = slv.adapt_timestep(ts, max_vel, params.cfl, params.dt_min,
-                                params.dt_max, params.frame_length)
-    dt = ts.dt
+    Traced (``utils/trace.py``), the step is the span ``flip.step``; on one
+    device its stages ``flip.dt``, ``.advect``, ``.p2g``, ``.extrap``,
+    ``.mark``, ``.forces``, ``.levelset``, ``.pressure``, ``.extrap`` again
+    and ``.g2p`` cover it back to back."""
+    with trace.span("flip.step", device=True):
+        if shd.is_sharded(state):
+            return _flip_step_slabs(state, dom, params)
 
-    # particle advection (keep particles, bisect out of obstacles)
-    parts = cp.advect_in_grid(parts, flags, vel, dt, dom,
-                              params.integration_mode,
-                              delete_in_obstacle=False,
-                              stop_in_obstacle=True)
+        with trace.span("flip.dt", device=True):
+            flags, vel = state.flags, state.vel
+            parts, pvel = state.parts, state.pvel
+            ts = state.ts
+            if params.adaptive_dt:
+                max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2
+                                               + vel[2] ** 2))
+                ts = slv.adapt_timestep(ts, max_vel, params.cfl,
+                                        params.dt_min, params.dt_max,
+                                        params.frame_length)
+            dt = ts.dt
 
-    # p2g
-    if params.apic:
-        vel, weight = ao.apic_map_parts_to_mac(parts, pvel, state.cpx,
-                                               state.cpy, state.cpz, flags,
-                                               dom)
-    else:
-        vel, weight = fo.map_parts_to_mac(parts, pvel, flags, dom)
-    vel_old = vel
-    vel, _ = xtr.extrapolate_mac_from_weight(vel, weight, dom,
-                                             params.extrap_weight_dist)
-    flags = fo.mark_fluid_cells(parts, flags, dom)
+        with trace.span("flip.advect", device=True):
+            # particle advection (keep particles, bisect out of obstacles)
+            parts = cp.advect_in_grid(parts, flags, vel, dt, dom,
+                                      params.integration_mode,
+                                      delete_in_obstacle=False,
+                                      stop_in_obstacle=True)
 
-    vel = ext.add_gravity(flags, vel, params.gravity, dt, dom,
-                          scale=params.gravity_scale)
+        with trace.span("flip.p2g", device=True):
+            if params.apic:
+                vel, weight = ao.apic_map_parts_to_mac(
+                    parts, pvel, state.cpx, state.cpy, state.cpz, flags, dom)
+            else:
+                vel, weight = fo.map_parts_to_mac(parts, pvel, flags, dom)
+            vel_old = vel
+        with trace.span("flip.extrap", device=True):
+            vel, _ = xtr.extrapolate_mac_from_weight(
+                vel, weight, dom, params.extrap_weight_dist)
+        with trace.span("flip.mark", device=True):
+            flags = fo.mark_fluid_cells(parts, flags, dom)
 
-    phi = state.phi
-    if params.ghost_fluid:
-        phi = fo.union_particle_levelset(parts, flags, dom,
-                                         params.radius_factor)
-        phi = xtr.extrapolate_ls_simple(phi, dom, distance=4, inside=True)
+        with trace.span("flip.forces", device=True):
+            vel = ext.add_gravity(flags, vel, params.gravity, dt, dom,
+                                  scale=params.gravity_scale)
+            vel = ext.set_wall_bcs(flags, vel, dom)
 
-    vel = ext.set_wall_bcs(flags, vel, dom)
-    vel, pressure, _, iters, _ = prs.solve_pressure(
-        vel, flags, dom, cg_accuracy=params.cg_accuracy,
-        phi=phi if params.ghost_fluid else None,
-        cg_max_iter_fac=params.cg_max_iter_fac,
-        preconditioner=params.preconditioner)
-    vel = ext.set_wall_bcs(flags, vel, dom)
-    vel = xtr.extrapolate_mac_simple(flags, vel, dom, params.extrap_vel_dist)
+        with trace.span("flip.levelset", device=True):
+            phi = state.phi
+            if params.ghost_fluid:
+                phi = fo.union_particle_levelset(parts, flags, dom,
+                                                 params.radius_factor)
+                phi = xtr.extrapolate_ls_simple(phi, dom, distance=4,
+                                                inside=True)
 
-    # g2p velocity update
-    if params.apic:
-        pvel, cpx, cpy, cpz = ao.apic_map_mac_to_parts(
-            parts, vel, flags, dom,
-            old=(pvel, state.cpx, state.cpy, state.cpz))
-    else:
-        pvel = fo.flip_velocity_update(parts, pvel, flags, vel, vel_old,
-                                       params.flip_ratio)
-        cpx, cpy, cpz = state.cpx, state.cpy, state.cpz
+        with trace.span("flip.pressure", device=True):
+            vel, pressure, _, iters, _ = prs.solve_pressure(
+                vel, flags, dom, cg_accuracy=params.cg_accuracy,
+                phi=phi if params.ghost_fluid else None,
+                cg_max_iter_fac=params.cg_max_iter_fac,
+                preconditioner=params.preconditioner)
+        with trace.span("flip.extrap", device=True):
+            vel = ext.set_wall_bcs(flags, vel, dom)
+            vel = xtr.extrapolate_mac_simple(flags, vel, dom,
+                                             params.extrap_vel_dist)
 
-    ts = slv.step(ts, params.frame_length)
-    return FlipState(flags=flags, vel=vel, vel_old=vel_old,
-                     pressure=pressure, phi=phi, parts=parts, pvel=pvel,
-                     cpx=cpx, cpy=cpy, cpz=cpz, ts=ts, cg_iters=iters)
+        with trace.span("flip.g2p", device=True):
+            if params.apic:
+                pvel, cpx, cpy, cpz = ao.apic_map_mac_to_parts(
+                    parts, vel, flags, dom,
+                    old=(pvel, state.cpx, state.cpy, state.cpz))
+            else:
+                pvel = fo.flip_velocity_update(parts, pvel, flags, vel,
+                                               vel_old, params.flip_ratio)
+                cpx, cpy, cpz = state.cpx, state.cpy, state.cpz
+            ts = slv.step(ts, params.frame_length)
+            return FlipState(flags=flags, vel=vel, vel_old=vel_old,
+                             pressure=pressure, phi=phi, parts=parts,
+                             pvel=pvel, cpx=cpx, cpy=cpy, cpz=cpz, ts=ts,
+                             cg_iters=iters)
 
 
 def _chunk_parts(state: FlipState, i: int, offset: int):
@@ -376,9 +393,11 @@ def _flip_step_slabs(state: FlipState, dom: Domain,
 
 def flip_run(state: FlipState, dom: Domain, params: FlipParams,
              n_steps: int) -> FlipState:
-    """``n_steps`` flat steps; no host read between them."""
-    for _ in range(n_steps):
-        state = flip_step(state, dom, params)
+    """``n_steps`` flat steps; no host read between them. Traced, the span
+    ``flip.run`` (host only) around their ``flip.step`` spans."""
+    with trace.span("flip.run"):
+        for _ in range(n_steps):
+            state = flip_step(state, dom, params)
     return state
 
 

@@ -36,6 +36,7 @@ from ..ops import multigrid
 from ..ops import pressure as prs
 from ..parallel import sharding as shd
 from ..parallel.slabs import per_slab, slab_stage
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,70 +132,86 @@ def smoke_step(state: SmokeState, dom: Domain, params: SmokeParams,
 
     A state from ``sharding.shard_smoke_state`` (grids as the mesh's
     z-slabs) runs every stage per slab (``_smoke_step_slabs``), as the JAX
-    package's step runs under GSPMD on a sharded state."""
-    if shd.is_sharded(state):
-        if zshard is not None and zshard != state.vel.mesh:
-            raise ValueError("the state is sharded over another mesh")
-        return _smoke_step_slabs(state, dom, params)
-    if zshard is not None and not (params.window > 0 and params.use_pallas
-                                   and dom.is3d):
-        raise ValueError("zshard needs window > 0, use_pallas and a 3D "
-                         "domain")
-    flags, vel, density = state.flags, state.vel, state.density
-    ts = state.ts
+    package's step runs under GSPMD on a sharded state.
 
-    if params.adaptive_dt:
-        max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2))
-        ts = slv.adapt_timestep(ts, max_vel, params.cfl, params.dt_min,
-                                params.dt_max, params.frame_length)
-    dt = ts.dt
+    Traced (``utils/trace.py``), the step is the span ``smoke.step``; on
+    one device its stages ``smoke.dt``, ``.emit``, ``.advect``,
+    ``.forces``, ``.pressure`` and ``.finish`` cover it back to back."""
+    with trace.span("smoke.step", device=True):
+        if shd.is_sharded(state):
+            if zshard is not None and zshard != state.vel.mesh:
+                raise ValueError("the state is sharded over another mesh")
+            return _smoke_step_slabs(state, dom, params)
+        if zshard is not None and not (params.window > 0
+                                       and params.use_pallas and dom.is3d):
+            raise ValueError("zshard needs window > 0, use_pallas and a 3D "
+                             "domain")
 
-    # emission: applyToGrid(value=1) inside the source region
-    density = torch.where(state.source > 0.0, state.source, density)
+        with trace.span("smoke.dt", device=True):
+            flags, vel, density = state.flags, state.vel, state.density
+            ts = state.ts
+            if params.adaptive_dt:
+                max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2
+                                               + vel[2] ** 2))
+                ts = slv.adapt_timestep(ts, max_vel, params.cfl,
+                                        params.dt_min, params.dt_max,
+                                        params.frame_length)
+            dt = ts.dt
 
-    order = params.advection_order
-    if params.window > 0 and params.use_pallas and dom.is3d:
-        density = advk.advect_real_pl(flags, vel, density, dt, dom,
-                                      params.window, order=order,
-                                      zshard=zshard)
-        vel = advk.advect_mac_pl(flags, vel, vel, dt, dom, params.window,
-                                 order=order, strength=params.mac_strength,
-                                 has_outflow=bool(params.open_bound),
-                                 zshard=zshard)
-    elif params.window > 0:
-        density = advf.advect_real_fast(flags, vel, density, dt, dom,
-                                        params.window, order=order)
-        vel = advf.advect_mac_fast(flags, vel, vel, dt, dom, params.window,
-                                   order=order, strength=params.mac_strength)
-    else:
-        density = adv.advect_real(flags, vel, density, dt, order=order,
-                                  clamp_mode=params.clamp_mode)
-        vel = adv.advect_mac(flags, vel, vel, dt, order=order,
-                             strength=params.mac_strength,
-                             clamp_mode=params.clamp_mode)
+        with trace.span("smoke.emit", device=True):
+            # emission: applyToGrid(value=1) inside the source region
+            density = torch.where(state.source > 0.0, state.source, density)
 
-    if params.open_bound:
-        flags, _, density = ext.reset_outflow_grids(flags, dom, None, density)
+        with trace.span("smoke.advect", device=True):
+            order = params.advection_order
+            if params.window > 0 and params.use_pallas and dom.is3d:
+                density = advk.advect_real_pl(flags, vel, density, dt, dom,
+                                              params.window, order=order,
+                                              zshard=zshard)
+                vel = advk.advect_mac_pl(flags, vel, vel, dt, dom,
+                                         params.window, order=order,
+                                         strength=params.mac_strength,
+                                         has_outflow=bool(params.open_bound),
+                                         zshard=zshard)
+            elif params.window > 0:
+                density = advf.advect_real_fast(flags, vel, density, dt, dom,
+                                                params.window, order=order)
+                vel = advf.advect_mac_fast(flags, vel, vel, dt, dom,
+                                           params.window, order=order,
+                                           strength=params.mac_strength)
+            else:
+                density = adv.advect_real(flags, vel, density, dt,
+                                          order=order,
+                                          clamp_mode=params.clamp_mode)
+                vel = adv.advect_mac(flags, vel, vel, dt, order=order,
+                                     strength=params.mac_strength,
+                                     clamp_mode=params.clamp_mode)
 
-    vel = ext.set_wall_bcs(flags, vel, dom)
-    vel = ext.add_buoyancy(flags, density, vel, params.buoyancy, dt, dom)
-    if params.vorticity_confinement > 0.0:
-        vel = ext.vorticity_confinement(vel, flags, dom,
-                                        params.vorticity_confinement)
+        with trace.span("smoke.forces", device=True):
+            if params.open_bound:
+                flags, _, density = ext.reset_outflow_grids(flags, dom, None,
+                                                            density)
+            vel = ext.set_wall_bcs(flags, vel, dom)
+            vel = ext.add_buoyancy(flags, density, vel, params.buoyancy, dt,
+                                   dom)
+            if params.vorticity_confinement > 0.0:
+                vel = ext.vorticity_confinement(vel, flags, dom,
+                                                params.vorticity_confinement)
 
-    vel, pressure, _, iters, _ = prs.solve_pressure(
-        vel, flags, dom, cg_accuracy=params.cg_accuracy,
-        cg_max_iter_fac=params.cg_max_iter_fac,
-        preconditioner=params.preconditioner, mg_hierarchy=state.mg)
+        with trace.span("smoke.pressure", device=True):
+            vel, pressure, _, iters, _ = prs.solve_pressure(
+                vel, flags, dom, cg_accuracy=params.cg_accuracy,
+                cg_max_iter_fac=params.cg_max_iter_fac,
+                preconditioner=params.preconditioner, mg_hierarchy=state.mg)
 
-    if params.dissolve_speed > 0:
-        density, _ = ext.dissolve_smoke(flags, density, dom, None,
-                                        params.dissolve_speed, True)
-
-    ts = slv.step(ts, params.frame_length)
-    return SmokeState(flags=flags, vel=vel, density=density,
-                      pressure=pressure, source=state.source, ts=ts,
-                      mg=state.mg, cg_iters=iters)
+        with trace.span("smoke.finish", device=True):
+            if params.dissolve_speed > 0:
+                density, _ = ext.dissolve_smoke(flags, density, dom, None,
+                                                params.dissolve_speed, True)
+            ts = slv.step(ts, params.frame_length)
+            return SmokeState(flags=flags, vel=vel, density=density,
+                              pressure=pressure, source=state.source, ts=ts,
+                              mg=state.mg, cg_iters=iters)
 
 
 def _smoke_step_slabs(state: SmokeState, dom: Domain,

@@ -7,7 +7,9 @@ so a host timer must synchronise the stream before each clock read, which
 serialises host and device: timing is opt-in. ``enableTimings()`` wraps
 the public op functions with a synced timer; ``Timings().display()/
 saveMean()`` report accumulated means. Kernel-level numbers come from
-``torch.profiler`` traces instead.
+``torch.profiler`` traces instead; ``display()`` also shows the steps' own
+stage spans (``utils/trace.py``) when any were recorded, which costs no
+synchronisation.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from ..utils import trace
 
 _ACC: dict[str, list] = {}  # name -> [total_seconds, calls]
 _ENABLED = [False]
@@ -76,6 +80,14 @@ class Timings:
         for name, (total, calls) in sorted(_ACC.items()):
             print(f"  {name:40s} {1000.0 * total / max(calls, 1):9.3f} ms "
                   f"({calls} calls)")
+        spans = trace.summary()
+        if spans:
+            print("-- Spans (mean ms per call, host and device) " + "-" * 15)
+            for name, s in spans.items():
+                dev = ("" if s["device_ms"] is None
+                       else f" {s['device_ms']:9.3f} ms device")
+                print(f"  {name:40s} {s['host_ms']:9.3f} ms host{dev} "
+                      f"({s['calls']} calls)")
 
     def saveMean(self, filename: str):
         with open(filename, "w") as f:

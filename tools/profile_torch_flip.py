@@ -20,9 +20,10 @@ of one step recorded and timed on their own (CUDA events over 10
 replays). On the flat layout (``make_dam_state``, ``flip_step``: particles
 as (N, 3) tensors, bench.py:37-40): ``flat``, the bench dam, and ``apic``,
 the same dam with APIC transfers (tests/test_flip_model.py:24); each
-stage of their step is also timed on its own over ``--steps`` steps (CUDA
-events around the stage's call, the card synchronised before it, so the
-host's launch gaps are in it).
+stage of their step is also read from the step's own spans over
+``--steps`` more steps (``utils/trace.py``: CUDA events at the stages'
+boundaries, nothing synchronised; the host's launch gaps inside a stage
+are in its time).
 
 It runs 1 warm step and ``--develop`` more through the dam's runner in
 chunks of ``--steps`` (``flip_run_bucketed_auto``, where the PPC escalates,
@@ -261,25 +262,6 @@ def main():
     }))
 
 
-# the flat step's stages: (module, function) -> stage name
-FLAT_STAGES = (("core.particles", "advect_in_grid", "advect"),
-               ("ops.flip", "map_parts_to_mac", "p2g"),
-               ("ops.apic", "apic_map_parts_to_mac", "p2g"),
-               ("ops.extrapolation", "extrapolate_mac_from_weight",
-                "extrapolate_weight"),
-               ("ops.flip", "mark_fluid_cells", "mark_fluid"),
-               ("ops.extforces", "add_gravity", "forces"),
-               ("ops.flip", "union_particle_levelset", "levelset"),
-               ("ops.extrapolation", "extrapolate_ls_simple",
-                "extrapolate_ls"),
-               ("ops.extforces", "set_wall_bcs", "forces"),
-               ("ops.pressure", "solve_pressure", "pressure"),
-               ("ops.extrapolation", "extrapolate_mac_simple",
-                "extrapolate_vel"),
-               ("ops.flip", "flip_velocity_update", "g2p"),
-               ("ops.apic", "apic_map_mac_to_parts", "g2p"))
-
-
 def trace_groups(prof, steps):
     """(groups, kernels): device ms per step of each hand-written kernel
     and of the rest, from a profiler trace of ``steps`` steps."""
@@ -297,39 +279,19 @@ def trace_groups(prof, steps):
 
 
 def stage_times(step, state, steps):
-    """Each flat stage on its own over ``steps`` steps: the module
-    attributes the step calls (models/flip.py reaches every stage through
-    its module), wrapped in CUDA events with the card synchronised before
-    and after. Returns (state, ms per step of each stage)."""
-    import importlib
-
-    import torch
-    stage_ms = {}
-    originals = []
-    for mod_name, fn_name, stage in FLAT_STAGES:
-        mod = importlib.import_module("mantaflow_tpu_torch." + mod_name)
-        orig = getattr(mod, fn_name)
-        originals.append((mod, fn_name, orig))
-
-        def timed_stage(*a, _o=orig, _s=stage, **k):
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            out = _o(*a, **k)
-            t1.record()
-            torch.cuda.synchronize()
-            stage_ms[_s] = stage_ms.get(_s, 0.0) + t0.elapsed_time(t1)
-            return out
-        setattr(mod, fn_name, timed_stage)
-    try:
-        for _ in range(steps):
-            state = step(state)
-        torch.cuda.synchronize()
-    finally:
-        for mod, fn_name, orig in originals:
-            setattr(mod, fn_name, orig)
-    return state, {k: v / steps for k, v in stage_ms.items()}
+    """The step's stages over ``steps`` steps, from its own spans. Returns
+    (state, device ms per step of each stage)."""
+    from mantaflow_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    for _ in range(steps):
+        state = step(state)
+    trace.disable()
+    stage_ms = {name: s["calls"] * s["device_ms"] / steps
+                for name, s in trace.summary().items()
+                if name != "flip.step"}
+    trace.reset()
+    return state, stage_ms
 
 
 if __name__ == "__main__":
