@@ -266,10 +266,19 @@ Phases (any failed check raises, and the script exits non-zero):
    CORRECT19 at 128^3 (~4.0 M particles): the scene step, K2 and K14 a
    step, the scene's host reads, 3 steps traced, no particle lost;
    FIXED_VOL's host redistribution at 64^3, timed.
+35. the exact-gather advection's passes (``csrc/advect_exact.cu``) on the
+   benchmark's plume at 112x168x112 (walls, the cylinder source, MacCormack
+   at CFL 3): 1 warm step and 40 timed, 5 launches a step and every driver
+   call on the kernels; one developed step's advect_real and advect_mac
+   against their plain versions bit for bit, with the walls and with open
+   "yY" bounds; each kernel's us a launch against its own least bytes
+   (EXACT_BYTES_PER_CELL), the step's against the advection's (36 bytes a
+   cell), the plain versions' ms; the exact smoke at 32^3 over 4 z-slabs
+   against one device, every shard's calls on the kernels.
 
 ``python3 chip_smoke.py --only-multi`` builds the kernels and runs phase 32
-alone, ``--only-scenes`` phase 33 alone, ``--only-zflip`` phase 34 alone
-(no kernels line, no ok line).
+alone, ``--only-scenes`` phase 33 alone, ``--only-zflip`` phase 34 alone,
+``--only-exact`` phase 35 alone (no kernels line, no ok line).
 
 Prints the card, a timing line and a ``{"kernels": [...]}`` line, and as its
 last line ``{"ok": true, "device": {...}}``. K1's entries carry
@@ -1230,6 +1239,7 @@ class _Helpers:
 
 def _every_kernel(advk, fadk, rbk, p2gk, lsk, blk, xk, prk):
     """Every kernel wrapper by name, each with its ``launches`` count."""
+    from mantaflow_tpu_torch.ops import advection_exact_kernels as advx
     return {"advect_bucket": fadk.advect_blend_live,
             "advect_bucket_public": fadk.advect_blend,
             "advect_bucket_no_blend": fadk.advect,
@@ -1243,7 +1253,10 @@ def _every_kernel(advk, fadk, rbk, p2gk, lsk, blk, xk, prk):
             "window_advect_zshard": advk.window_pass_slab,
             "advect_bucket_zshard": fadk.advect_blend_slab_live,
             "advect_bucket_zshard_public": fadk.advect_blend_slab,
-            "p2g_levelset_zshard": p2gk.p2g_union_slab}
+            "p2g_levelset_zshard": p2gk.p2g_union_slab,
+            "advect_exact_fwd": advx.forward,
+            "advect_exact_bwd": advx.backward,
+            "advect_exact_outflow": advx.outflow}
 
 
 def traced_busy(torch, step, st, n):
@@ -3118,6 +3131,244 @@ def tracked_iterations(rhs, stencil, fluid, dom_, most=10):
     return tracked, rel
 
 
+#: phase 35: the exact-gather plume at the benchmark cell's grid
+#: (benchmark/configs/plume112.json: the scene's values, walls on every
+#: side, the cylinder source without the noise), EXACT_STEPS steps to
+#: develop it
+EXACT_RES = (112, 168, 112)
+EXACT_STEPS = 40
+EXACT_CELLS = EXACT_RES[0] * EXACT_RES[1] * EXACT_RES[2]
+#: the least time of one plume step's advection at EXACT_RES: 36 bytes a
+#: cell (benchmark/roofline/advection.py) at HBM_BYTES_PER_S
+EXACT_BOUND_US = 36 * EXACT_CELLS / HBM_BYTES_PER_S * 1e6
+#: the exact kernels' launches in a smoke step of order 2 (a scalar grid:
+#: forward and backward; the MAC grid: both and the outflow pass)
+EXACT_PER_STEP = {"advect_exact_fwd": 2, "advect_exact_bwd": 2,
+                  "advect_exact_outflow": 1}
+#: each launch's least bytes a cell on the plume step's inputs: every grid
+#: it reads once (flags 4, a scalar 4, a MAC or velocity grid 12; the MAC
+#: grid advected is the velocity itself, read once) and its output written
+#: once; the outflow pass reads the grid before the advection only at
+#: outflow cells, none with the walls
+EXACT_BYTES_PER_CELL = {
+    "advect_exact_fwd<false>": 12 + 4 + 4,
+    "advect_exact_fwd<true>": 12 + 12,
+    "advect_exact_bwd<false>": 4 + 12 + 4 + 4 + 4,
+    "advect_exact_bwd<true>": 4 + 12 + 12 + 12,
+    "advect_exact_outflow": 4 + 12 + 12}
+
+
+def exact_advect_phase(torch, dev, h):
+    """Phase 35: the exact-gather advection's passes (csrc/advect_exact.cu)
+    on a developed plume at EXACT_RES. 1 warm step, EXACT_STEPS timed
+    (CUDA events): 2 forward, 2 backward and 1 outflow launch a step, every
+    driver call counted ``advection.exact_kernel``; one developed step's
+    two driver calls against their plain versions (advect_real_plain,
+    advect_mac_plain) bit for bit, every cell, with the cell's walls and
+    with open "yY" bounds (outflow cells); each kernel's time on those
+    inputs against its own least bytes (EXACT_BYTES_PER_CELL), with the
+    largest error of the driver calls that launch it; the five launches'
+    against the advection's (EXACT_BOUND_US) and the plain versions' ms;
+    the exact smoke at 32^3 over 4 z-slabs against one device (1e-5, CG
+    iterations within 2), every shard's two calls a step on the kernels
+    (the slabs are views) with their launches. ``h``: ``every_kernel``.
+    Returns (numbers, the kernels' timings by name)."""
+    import dataclasses as dc
+    from mantaflow_tpu_torch.core import flags as fl_
+    from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.core.shapes import Cylinder
+    from mantaflow_tpu_torch.models import smoke
+    from mantaflow_tpu_torch.ops import advection as adv
+    from mantaflow_tpu_torch.ops import advection_exact_kernels as advx
+    from mantaflow_tpu_torch.parallel import sharding as shd
+    from mantaflow_tpu_torch.utils import trace
+
+    kernels = {k: h.every_kernel[k] for k in EXACT_PER_STEP}
+    numbers = {}
+
+    def counted():
+        torch.cuda.synchronize()
+        c = trace.counters()
+        return ({k: fn.launches for k, fn in kernels.items()},
+                c.get("advection.exact_kernel", 0),
+                c.get("advection.exact_plain", 0))
+
+    def since(before):
+        after = counted()
+        return ({k: after[0][k] - before[0][k] for k in kernels},
+                after[1] - before[1], after[2] - before[2])
+
+    def plume(res, params_):
+        sx, sy, sz = res
+        dom_ = Domain(size=res, dim=3)
+        return dom_, smoke.make_smoke_state(dom_, params_, source_shape=Cylinder(
+            center=(0.5 * sx, 0.1 * sy, 0.5 * sz), radius=0.14 * sx,
+            z=(0.0, 0.02 * sy, 0.0)), boundary_width=0, dt=1.1, device=dev)
+
+    params = smoke.SmokeParams(
+        buoyancy=(0.0, -6e-3, 0.0), cg_accuracy=1e-3, cg_max_iter_fac=1.5,
+        adaptive_dt=True, cfl=3.0, dt_min=0.2, dt_max=2.0,
+        frame_length=1.2, window=0, clamp_mode=2)
+    dom, st = plume(EXACT_RES, params)
+    st = smoke.smoke_step(st, dom, params)  # warm: builds the kernels
+    before = counted()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    st = smoke.smoke_run(st, dom, params, EXACT_STEPS)
+    t1.record()
+    got, n_kernel, n_plain = since(before)
+    per_step = EXACT_PER_STEP
+    for k, n in got.items():
+        require(n == per_step[k] * EXACT_STEPS,
+                f"exact plume: {k} launched {n} times in {EXACT_STEPS} "
+                f"steps (expected {per_step[k]} a step)")
+    require(n_kernel == 2 * EXACT_STEPS and n_plain == 0,
+            f"exact plume: {n_kernel} driver calls on the kernels, "
+            f"{n_plain} plain, in {EXACT_STEPS} steps")
+    for f in ("vel", "density", "pressure"):
+        require(bool(torch.isfinite(getattr(st, f)).all()),
+                f"exact plume: {f} not finite")
+    numbers["plume"] = {
+        "res": list(EXACT_RES), "steps": EXACT_STEPS,
+        "ms_per_step_developed": t0.elapsed_time(t1) / EXACT_STEPS,
+        "launches_per_step": per_step, "density_max": float(st.density.max()),
+        "dt": float(st.ts.dt)}
+
+    # one developed step's two driver calls
+    real_calls, mac_calls = [], []
+    with recording(adv, "advect_real", real_calls) as drv_real, \
+            recording(adv, "advect_mac", mac_calls) as drv_mac:
+        smoke.smoke_step(st, dom, params)
+    torch.cuda.synchronize()
+    require(len(real_calls) == 1 and len(mac_calls) == 1,
+            f"exact plume: {len(real_calls)} advect_real and "
+            f"{len(mac_calls)} advect_mac calls in a step")
+    (r_args, r_kw), = real_calls
+    (m_args, m_kw), = mac_calls
+    flags = r_args[0]
+    open_flags = fl_.set_open_bound(flags, dom, 0, "yY")
+    n_out = int(fl_.is_outflow(open_flags).sum())
+    require(n_out > 0 and int(fl_.is_outflow(flags).sum()) == 0,
+            f"exact plume: {n_out} outflow cells with open bounds")
+    held = {}
+    for variant, fl_v in (("walls", flags), ("open_yY", open_flags)):
+        for name, drv, plain, (args, kw) in (
+                ("advect_real", drv_real, adv.advect_real_plain,
+                 (r_args, r_kw)),
+                ("advect_mac", drv_mac, adv.advect_mac_plain,
+                 (m_args, m_kw))):
+            args = (fl_v,) + tuple(args[1:])
+            before = counted()
+            out = drv(*args, **kw)
+            require(since(before)[1] == 1, f"exact plume {variant}: "
+                    f"{name} did not take the kernels")
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            diff = out != ref
+            n_diff = int(diff.sum())
+            err = float((out - ref).abs().max())
+            require(n_diff == 0, f"exact plume {variant}: {name} differs "
+                    f"from its plain version in {n_diff} cells (max {err})")
+            held[f"{name}_{variant}"] = {"cells_differing": n_diff,
+                                          "max_abs_err": err}
+    numbers["held_bit_for_bit"] = held
+    print(f"exact advection kernels vs plain on the developed "
+          f"{EXACT_RES} plume: {held}", flush=True)
+
+    # each kernel's time on the step's inputs, the five launches' and the
+    # plain versions'
+    vel, density, dt = r_args[1], r_args[2], r_args[3]
+    strength = m_kw.get("strength", 1.0)
+    fwd_d = advx.forward(vel, density, dt)
+    fwd_v = advx.forward(vel, vel, dt)
+    new_v = advx.backward(flags, vel, vel, fwd_v, dt, strength)
+    launches = {
+        "advect_exact_fwd<false>": lambda: advx.forward(vel, density, dt),
+        "advect_exact_bwd<false>": lambda: advx.backward(
+            flags, vel, density, fwd_d, dt, 1.0),
+        "advect_exact_fwd<true>": lambda: advx.forward(vel, vel, dt),
+        "advect_exact_bwd<true>": lambda: advx.backward(
+            flags, vel, vel, fwd_v, dt, strength),
+        "advect_exact_outflow": lambda: advx.outflow(flags, new_v, vel, dt)}
+    timings = {}
+    for name, fn in launches.items():
+        ms, call_ms, timed_by = timed_launches(torch, fn, 20, name, 1,
+                                               graph=True)
+        bound_ms = (EXACT_BYTES_PER_CELL[name] * EXACT_CELLS
+                    / HBM_BYTES_PER_S * 1e3)
+        # the scalar instances run in advect_real, the rest in advect_mac
+        driver = "advect_real" if name.endswith("<false>") else "advect_mac"
+        timings[name] = {
+            "ms": ms, "call_ms": call_ms, "timed_by": timed_by,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "roofline_pct": 100.0 * bound_ms / ms,
+            "max_abs_err": max(v["max_abs_err"] for k, v in held.items()
+                               if k.startswith(driver))}
+        print(f"{name}: {ms * 1e3:.2f} us/launch (bound "
+              f"{bound_ms * 1e3:.2f} us, {EXACT_BYTES_PER_CELL[name]} B a "
+              f"cell: {timings[name]['roofline_pct']:.1f} %), {timed_by}",
+              flush=True)
+    both = (lambda: (drv_real(*r_args, **r_kw), drv_mac(*m_args, **m_kw)))
+    plain = (lambda: (adv.advect_real_plain(*r_args, **r_kw),
+                      adv.advect_mac_plain(*m_args, **m_kw)))
+    kern_ms = sum(t["ms"] for t in timings.values())
+    numbers["advection"] = {
+        "kernels_ms": kern_ms, "drivers_ms": cuda_ms(torch, both, 20),
+        "plain_ms": cuda_ms(torch, plain, 3), "bound_us": EXACT_BOUND_US,
+        "roofline_pct": 100.0 * EXACT_BOUND_US / (kern_ms * 1e3),
+        "us_per_launch": {k: t["ms"] * 1e3 for k, t in timings.items()}}
+    print(f"exact advection a step: kernels {kern_ms:.4f} ms, drivers "
+          f"{numbers['advection']['drivers_ms']:.4f} ms (events), plain "
+          f"{numbers['advection']['plain_ms']:.3f} ms; "
+          f"{numbers['advection']['roofline_pct']:.2f} % of the bound",
+          flush=True)
+    del st, real_calls, mac_calls, fwd_d, fwd_v, new_v
+
+    # the exact smoke on a sharded state's slabs against one device
+    sp = dc.replace(params, adaptive_dt=False)
+    sdom, s0 = plume((32, 32, 32), sp)
+    one, sh = s0, shd.shard_smoke_state(s0, shd.make_mesh(ZSHARDS))
+    got = dict.fromkeys(kernels, 0)
+    n_kernel = n_plain = 0
+    steps = []
+    for k in range(3):
+        one = smoke.smoke_step(one, sdom, sp)
+        before = counted()
+        sh = smoke.smoke_step(sh, sdom, sp)
+        got_k, n_k, n_p = since(before)
+        got = {k_: got[k_] + n for k_, n in got_k.items()}
+        n_kernel, n_plain = n_kernel + n_k, n_plain + n_p
+        w = shd.unshard_smoke_state(sh)
+        err = max(float((getattr(w, f) - getattr(one, f)).abs().max())
+                  for f in ("vel", "density", "pressure"))
+        di = int(sh.cg_iters) - int(one.cg_iters)
+        steps.append({"max_abs_err": err, "cg_iters_diff": di})
+        require(err <= 1e-5 and torch.equal(w.flags, one.flags)
+                and abs(di) <= 2,
+                f"exact smoke slabs step {k + 1}: {steps[-1]}")
+    # every shard holds planes: its two driver calls a step, each on the
+    # kernels
+    shards = sum(p.shape[0] > 0 for p in sh.density.parts)
+    require(shards == ZSHARDS and n_kernel == 2 * 3 * ZSHARDS
+            and n_plain == 0,
+            f"exact smoke slabs: {n_kernel} driver calls on the kernels, "
+            f"{n_plain} plain, in 3 steps over {shards} shards")
+    for k, n in got.items():
+        require(n == EXACT_PER_STEP[k] * 3 * ZSHARDS,
+                f"exact smoke slabs: {k} launched {n} times in 3 steps over "
+                f"{ZSHARDS} shards (expected {EXACT_PER_STEP[k]} a shard "
+                f"and step)")
+    numbers["slabs_32"] = {"shards": ZSHARDS, "steps": steps,
+                           "driver_calls_kernel": n_kernel,
+                           "driver_calls_plain": n_plain,
+                           "launches": got}
+    print(f"exact smoke 32^3 over {ZSHARDS} slabs vs one device: {steps}; "
+          f"driver calls {n_kernel} on the kernels, {n_plain} plain",
+          flush=True)
+    return numbers, timings
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3198,6 +3449,14 @@ def main():
             advk, fadk, rbk, p2gk, lsk, blk, xk, prk)))
         print(card)
         print(json.dumps({"zflip": zf[0], "launches_by_path": zf[1]}))
+        return
+    if "--only-exact" in sys.argv[1:]:
+        # phase 35 alone, for a quick call: no kernels line, no ok line
+        ex = exact_advect_phase(torch, dev, _Helpers(
+            every_kernel=_every_kernel(advk, fadk, rbk, p2gk, lsk, blk, xk,
+                                       prk)))
+        print(card)
+        print(json.dumps({"exact_advect": ex[0], "kernels": ex[1]}))
         return
     if "--only-scenes" in sys.argv[1:]:
         # phase 33 alone, for a quick call: no kernels line, no ok line
@@ -4690,6 +4949,8 @@ def main():
     smoke_paths = {}  # launches by path
     new_numbers = {}
 
+    exact_kernels = {k: every_kernel[k] for k in EXACT_PER_STEP}
+
     def drive_smoke(name, params_, dom_, state_, windows, per_step,
                     zshard=None, window_states=None):
         """Drive the smoke model from ``state_`` (``zshard``: over that
@@ -4723,6 +4984,8 @@ def main():
             advk.window_pass.launches = 0
             advk.window_pass_slab.launches = 0
             prk.cg_solve.launches = 0
+            for fn in exact_kernels.values():
+                fn.launches = 0
             st = run(state_, 1)  # warm
             n_steps, timed_ = 1, []
             for pre, n in windows:
@@ -4746,7 +5009,8 @@ def main():
                 n_steps += pre + n
             got = {"window_advect": advk.window_pass.launches,
                    "window_advect_zshard": advk.window_pass_slab.launches,
-                   "cg_solve": prk.cg_solve.launches}
+                   "cg_solve": prk.cg_solve.launches,
+                   **{k: fn.launches for k, fn in exact_kernels.items()}}
         finally:
             prs.mg_richardson = mg_rich
         for k in got:
@@ -4796,7 +5060,8 @@ def main():
     dom, state = bench_state(smoke, Domain, Sphere, RES, dev)
     _, est = drive_smoke("smoke_exact_128", exact_params, dom, state,
                          [(0, 10), (30, 10)],
-                         {"window_advect": 0, "cg_solve": 1})
+                         {"window_advect": 0, "cg_solve": 1,
+                          **EXACT_PER_STEP})
     (cg_args, cg_kw), = record_step(est, dom, exact_params)["cg_solve"]
     k2_err = max(k2_err, cg_check(cg_args[0], cg_args[1], cg_kw["fluid"],
                                   cg_args[3], cg_args[4], dom))
@@ -6859,6 +7124,10 @@ def main():
         torch, dev, _Helpers(every_kernel=every_kernel))
     scene_paths.update(zf_paths)
 
+    # 35. the exact-gather advection's passes on the developed plume
+    ex_numbers, ex_timings = exact_advect_phase(
+        torch, dev, _Helpers(every_kernel=every_kernel))
+
     # the smoke paths: the bench path (phase 2) and phases 17-19's
     smoke_paths = {"smoke_128": launches, **smoke_paths}
     # the 2D plume's passes, on one device and on the mesh, are K1's 2D
@@ -7015,6 +7284,27 @@ def main():
             "launches_by_path": {k: v.get(name, 0)
                                  for k, v in flip_paths.items()},
             "max_abs_err": errs[name], "library_ms": None, **zk[name]})
+    # the exact-gather advection's passes: replace no TPU kernel (the JAX
+    # package runs its exact gathers in XLA)
+    ex_paths = {**smoke_paths, **scene_paths}
+    for name in EXACT_PER_STEP:
+        # each instance's time, own bound and error; the entry's ms and
+        # bound over one launch of each
+        inst = {k: v for k, v in ex_timings.items() if k.startswith(name)}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mantaflow_tpu_torch/csrc/advect_exact.cu",
+            "replaces": None,
+            "launches": sum(v.get(name, 0) for v in ex_paths.values()),
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in ex_paths.items()
+                                 if v.get(name, 0)},
+            "max_abs_err": max(v["max_abs_err"] for v in inst.values()),
+            "library_ms": None,
+            "ms": sum(v["ms"] for v in inst.values()),
+            "bound_ms": sum(v["bound_ms"] for v in inst.values()),
+            "bound_by": "bytes", "step_bound_ms": EXACT_BOUND_US / 1e3,
+            "instances": inst})
     print(card)
     print(json.dumps({
         "smoke_128": {"steps_per_s_cold": cold_sps,
@@ -7029,7 +7319,7 @@ def main():
         "scene_functions": scene_fn_numbers, **scene_numbers,
         "breadth_ops": a13, "ml_toolbox": ml_numbers,
         "multi_device": md_numbers, "scenes": sc_numbers,
-        "zflip": zf_numbers,
+        "zflip": zf_numbers, "exact_advect": ex_numbers,
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

@@ -34,16 +34,17 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("window_advect", "cg_solve", "extrap_layer", "rebin",
            "advect_bucket", "p2g_levelset", "p2g_mac", "union_levelset",
-           "flip_blend", "rebin_zshard", "rebin_fused")
+           "flip_blend", "rebin_zshard", "rebin_fused", "advect_exact")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# the FLIP kernels and the window advection keep their plain versions'
+# the FLIP kernels and both advections keep their plain versions'
 # rounding: no a*b+c contracted into one fused multiply-add (the window
 # advection's z-slab instance equals its one-domain instance bit for bit
 # whatever the compiler makes of either)
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
                ("window_advect", "extrap_layer", "advect_bucket",
-                "p2g_levelset", "p2g_mac", "union_levelset", "flip_blend")}
+                "p2g_levelset", "p2g_mac", "union_levelset", "flip_blend",
+                "advect_exact")}
 
 # the shared memory one block may opt in to on an H100 (227 KB); the launch
 # plans of the kernels that stage in shared memory fit within it

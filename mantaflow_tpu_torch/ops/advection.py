@@ -5,7 +5,9 @@ SemiLagrangeMAC :45, MacCormackCorrect :82/:96, doClampComponent :144/:192,
 MacCormackClamp :242/:272, applyOutflowBC :388, driver fnAdvectSemiLagrange
 :294/:407) as whole-grid PyTorch ops over ``core/interp.py``'s lookups, the
 ``window == 0`` path of the smoke model. The JAX package runs these in XLA,
-not Pallas, so they have no kernel of their own.
+not Pallas, so they have no kernel of their own; on the card the drivers
+run the port's own passes (``ops/advection_exact_kernels.py``,
+``csrc/advect_exact.cu``) where those compute the same call.
 
 All functions take and return tensors ([z,y,x] scalars, (3,z,y,x) MAC).
 """
@@ -21,6 +23,8 @@ from ..core.interp import (build_corner_table, interpol, interpol_hi,
                            interpol_mac)
 from ..core.masks import axis_index, interior_mask, shift
 from ..core.shapes import _cell_centers
+from ..utils import trace
+from . import advection_exact_kernels as advx
 
 _BIG = float(3.4e38)
 
@@ -294,7 +298,24 @@ def apply_outflow_bc(flags, vel, vel_prev, dt, dom: Domain):
 def advect_real(flags, vel, grid, dt, order: int = 1, strength: float = 1.0,
                 order_space: int = 1, clamp_mode: int = 2,
                 order_trace: int = 1):
-    """advectSemiLagrange for Real/levelset grids (advection.cpp:294-322)."""
+    """advectSemiLagrange for Real/levelset grids (advection.cpp:294-322):
+    the exact-gather kernels where ``advection_exact_kernels.routes`` takes
+    the call, else ``advect_real_plain``. Counts ``advection.exact_kernel``
+    or ``advection.exact_plain``."""
+    if advx.routes(flags, vel, grid, dt, order, strength, order_space,
+                   clamp_mode, order_trace, mac=False):
+        trace.count("advection.exact_kernel")
+        return advx.advect_real(flags, vel, grid, dt, order, strength)
+    trace.count("advection.exact_plain")
+    return advect_real_plain(flags, vel, grid, dt, order, strength,
+                             order_space, clamp_mode, order_trace)
+
+
+def advect_real_plain(flags, vel, grid, dt, order: int = 1,
+                      strength: float = 1.0, order_space: int = 1,
+                      clamp_mode: int = 2, order_trace: int = 1):
+    """``advect_real`` as whole-grid PyTorch ops (the kernels' plain
+    version)."""
     dom = domain_from_shape(grid.shape)
     fwd = semi_lagrange(flags, vel, grid, dt, dom, order_space, order_trace)
     if order == 1:
@@ -324,7 +345,21 @@ def advect_mac(flags, vel, grid, dt, order: int = 1, strength: float = 1.0,
                order_space: int = 1, clamp_mode: int = 2,
                order_trace: int = 1):
     """advectSemiLagrange specialization for MAC grids
-    (advection.cpp:407-441)."""
+    (advection.cpp:407-441), routed and counted as ``advect_real``."""
+    if advx.routes(flags, vel, grid, dt, order, strength, order_space,
+                   clamp_mode, order_trace, mac=True):
+        trace.count("advection.exact_kernel")
+        return advx.advect_mac(flags, vel, grid, dt, order, strength)
+    trace.count("advection.exact_plain")
+    return advect_mac_plain(flags, vel, grid, dt, order, strength,
+                            order_space, clamp_mode, order_trace)
+
+
+def advect_mac_plain(flags, vel, grid, dt, order: int = 1,
+                     strength: float = 1.0, order_space: int = 1,
+                     clamp_mode: int = 2, order_trace: int = 1):
+    """``advect_mac`` as whole-grid PyTorch ops (the kernels' plain
+    version)."""
     dom = domain_from_shape(grid.shape[-3:])
     fwd = semi_lagrange_mac(flags, vel, grid, dt, dom, order_space,
                             order_trace)
