@@ -8,6 +8,8 @@ combined with ``torch.where``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .domain import Domain
@@ -20,34 +22,57 @@ def _device(device):
     return device
 
 
+def _key(device) -> torch.device:
+    """The device a mask is kept for: CUDA with its index."""
+    device = torch.device(_device(device))
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def interior_mask(dom: Domain, bnd: int, device=None):
     """Boolean [z,y,x] mask, True on cells a bnd=`bnd` kernel visits.
 
-    ``device`` None: ``resolve_device``'s (the scene runner's, or CUDA)."""
-    device = _device(device)
-    if bnd <= 0:
-        return torch.ones(dom.shape, dtype=torch.bool, device=device)
-    sz, sy, sx = dom.shape
-    ix = axis_index(dom, "x", device)
-    iy = axis_index(dom, "y", device)
-    m = (ix >= bnd) & (ix < sx - bnd) & (iy >= bnd) & (iy < sy - bnd)
-    if dom.is3d:
-        iz = axis_index(dom, "z", device)
-        m = m & (iz >= bnd) & (iz < sz - bnd)
-    return m.expand(dom.shape)
+    ``device`` None: ``resolve_device``'s (the scene runner's, or CUDA).
+    Built once for each shape, ``bnd`` and device and shared between calls
+    (a step asks for it a few times; each build is a dozen launches):
+    callers never write into it."""
+    return _interior_mask(dom.shape, dom.is3d, bnd, _key(device))
 
 
 def axis_index(dom: Domain, axis: str, device=None):
-    """Broadcastable int32 index tensor along 'x' | 'y' | 'z'."""
-    device = _device(device)
-    sz, sy, sx = dom.shape
-    if axis == "x":
-        return torch.arange(sx, dtype=torch.int32, device=device).reshape(1, 1, sx)
-    if axis == "y":
-        return torch.arange(sy, dtype=torch.int32, device=device).reshape(1, sy, 1)
-    if axis == "z":
-        return torch.arange(sz, dtype=torch.int32, device=device).reshape(sz, 1, 1)
-    raise ValueError(axis)
+    """Broadcastable int32 index tensor along 'x' | 'y' | 'z'; shared
+    between calls, as ``interior_mask`` is."""
+    if axis not in _AXIS_OF:
+        raise ValueError(axis)
+    return _axis_index(dom.shape, axis, _key(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _interior_mask(shape, is3d: bool, bnd: int, device: torch.device):
+    # an ordinary tensor even inside an inference-mode block: autograd may
+    # save it later
+    with torch.inference_mode(False):
+        if bnd <= 0:
+            return torch.ones(shape, dtype=torch.bool, device=device)
+        sz, sy, sx = shape
+        ix = _axis_index(shape, "x", device)
+        iy = _axis_index(shape, "y", device)
+        m = (ix >= bnd) & (ix < sx - bnd) & (iy >= bnd) & (iy < sy - bnd)
+        if is3d:
+            iz = _axis_index(shape, "z", device)
+            m = m & (iz >= bnd) & (iz < sz - bnd)
+        return m.expand(shape)
+
+
+@functools.lru_cache(maxsize=256)
+def _axis_index(shape, axis: str, device: torch.device):
+    n = shape[_AXIS_OF[axis]]
+    view = [1, 1, 1]
+    view[_AXIS_OF[axis]] = n
+    with torch.inference_mode(False):
+        return torch.arange(n, dtype=torch.int32,
+                            device=device).reshape(view)
 
 
 # Axis numbering for [z, y, x] arrays.

@@ -53,6 +53,7 @@ N-sharding and the preconditioned pressure solves.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -521,34 +522,42 @@ def _check_sharding(bk, zshard):
         raise ValueError("the state is sharded over another mesh")
 
 
+def _stage(name: str, on: bool):
+    """The span of a stage of the one-device bucketed step; a sharded step
+    records its ``flip.step`` span only, as the flat slab step does."""
+    return trace.span(name, device=True) if on else contextlib.nullcontext()
+
+
 def _particle_stages(state: FlipBucketState, bk, dt, dom: Domain,
                      params: FlipParams, zshard):
     """Advection with the pending blend, rebin and transfer: (buckets,
     vel, weight, phi), ``phi`` the state's unless ghost fluid builds it."""
     phi = state.phi
+    one = zshard is None
     args = (state.flags, state.vel, state.vel_old, dt, state.blend_pending,
             params.flip_ratio, dom)
     kw = dict(integration_mode=params.integration_mode,
               ring_only=params.ring_only_obstacles)
-    if zshard is None:
-        bk = rbk.rebin(advk.advect_blend_live(bk, *args, **kw), dom)
-        whole = bk
-    else:
-        bk = advk.advect_blend_zshard(bk, *args, zshard, **kw)
-        bk = rbk.rebin_zshard(bk, dom, zshard)
-        if _fused_levelset(dom, params):
+    with _stage("flip.advect", one):
+        bk = (advk.advect_blend_live(bk, *args, **kw) if one else
+              advk.advect_blend_zshard(bk, *args, zshard, **kw))
+    with _stage("flip.rebin", one):
+        bk = rbk.rebin(bk, dom) if one else rbk.rebin_zshard(bk, dom, zshard)
+    with _stage("flip.p2g", one):
+        if not one and _fused_levelset(dom, params):
             vel, weight, phi = (shd.gather_z(o, zshard, o[0].dim() - 3)
                                 for o in p2gk.p2g_union_zshard(
                                     bk, dom, params.radius_factor, zshard))
             return bk, vel, weight, phi
         # the routes the JAX package leaves to GSPMD run on the lead
-        whole = bk.whole()
-    if _fused_levelset(dom, params):
-        vel, weight, phi = p2gk.p2g_union(whole, dom, params.radius_factor)
-    else:
-        vel, weight = p2gk.p2g_mac(whole, dom)
-        if params.ghost_fluid:
-            phi = lsk.union_levelset(whole, dom, params.radius_factor)
+        whole = bk if one else bk.whole()
+        if _fused_levelset(dom, params):
+            vel, weight, phi = p2gk.p2g_union(whole, dom,
+                                              params.radius_factor)
+        else:
+            vel, weight = p2gk.p2g_mac(whole, dom)
+            if params.ghost_fluid:
+                phi = lsk.union_levelset(whole, dom, params.radius_factor)
     return bk, vel, weight, phi
 
 
@@ -561,48 +570,72 @@ def flip_step_bucketed(state: FlipBucketState, dom: Domain,
 
     The layout relies on the CFL <= 1 contract: particles move at most one
     cell per step. A violation adds 10^6 to ``buckets.dropped``; a
-    configuration that cannot honour it statically is refused."""
+    configuration that cannot honour it statically is refused.
+
+    Traced (``utils/trace.py``), the step is the span ``flip.step``; on one
+    device its stages ``flip.dt``, ``.advect`` (with the pending blend),
+    ``.rebin``, ``.p2g``, ``.extrap``, ``.mark``, ``.forces``, with ghost
+    fluid ``.levelset``, ``.pressure`` and ``.extrap`` again cover it back
+    to back."""
     _check_supported(params)
     _check_sharding(state.buckets, zshard)
-    flags, vel, bk, ts = state.flags, state.vel, state.buckets, state.ts
+    one = zshard is None
+    with trace.span("flip.step", device=True):
+        with _stage("flip.dt", one):
+            flags, vel, bk, ts = (state.flags, state.vel, state.buckets,
+                                  state.ts)
+            max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2
+                                           + vel[2] ** 2))
+            if params.adaptive_dt:
+                ts = slv.adapt_timestep(ts, max_vel, params.cfl,
+                                        params.dt_min, params.dt_max,
+                                        params.frame_length)
+            dt = ts.dt
+            viol = (max_vel * dt > 1.0).to(torch.int32)
+            bk = dataclasses.replace(bk,
+                                     dropped=bk.dropped + 1_000_000 * viol)
 
-    max_vel = torch.sqrt(torch.max(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2))
-    if params.adaptive_dt:
-        ts = slv.adapt_timestep(ts, max_vel, params.cfl, params.dt_min,
-                                params.dt_max, params.frame_length)
-    dt = ts.dt
-    viol = (max_vel * dt > 1.0).to(torch.int32)
-    bk = dataclasses.replace(bk, dropped=bk.dropped + 1_000_000 * viol)
+        # the previous step's deferred FLIP blend, fused into advection
+        # stage 1
+        bk, vel, weight, phi = _particle_stages(state, bk, dt, dom, params,
+                                                zshard)
+        vel_old = vel
+        with _stage("flip.extrap", one):
+            vel, _ = xtr.extrapolate_mac_from_weight(
+                vel, weight, dom, params.extrap_weight_dist)
+        with _stage("flip.mark", one):
+            flags = fb.mark_fluid_cells_bucketed(bk, flags, dom)
 
-    # the previous step's deferred FLIP blend, fused into advection stage 1
-    bk, vel, weight, phi = _particle_stages(state, bk, dt, dom, params,
-                                            zshard)
-    vel_old = vel
-    vel, _ = xtr.extrapolate_mac_from_weight(vel, weight, dom,
-                                             params.extrap_weight_dist)
-    flags = fb.mark_fluid_cells_bucketed(bk, flags, dom)
+        with _stage("flip.forces", one):
+            vel = ext.add_gravity(flags, vel, params.gravity, dt, dom,
+                                  scale=params.gravity_scale)
+            # the flags hold until the step's end: one set of wall masks
+            walls = ext.wall_bcs_masks(flags, dom)
+            vel = ext.set_wall_bcs(flags, vel, dom, masks=walls)
+        if params.ghost_fluid:
+            with _stage("flip.levelset", one):
+                phi = xtr.extrapolate_ls_simple(phi, dom, distance=4,
+                                                inside=True)
 
-    vel = ext.add_gravity(flags, vel, params.gravity, dt, dom,
-                          scale=params.gravity_scale)
-    if params.ghost_fluid:
-        phi = xtr.extrapolate_ls_simple(phi, dom, distance=4, inside=True)
+        with _stage("flip.pressure", one):
+            vel, pressure, _, iters, _ = prs.solve_pressure(
+                vel, flags, dom, cg_accuracy=params.cg_accuracy,
+                phi=phi if params.ghost_fluid else None,
+                cg_max_iter_fac=params.cg_max_iter_fac,
+                preconditioner=params.preconditioner)
+        with _stage("flip.extrap", one):
+            vel = ext.set_wall_bcs(flags, vel, dom, masks=walls)
+            vel = xtr.extrapolate_mac_simple(flags, vel, dom,
+                                             params.extrap_vel_dist)
 
-    vel = ext.set_wall_bcs(flags, vel, dom)
-    vel, pressure, _, iters, _ = prs.solve_pressure(
-        vel, flags, dom, cg_accuracy=params.cg_accuracy,
-        phi=phi if params.ghost_fluid else None,
-        cg_max_iter_fac=params.cg_max_iter_fac,
-        preconditioner=params.preconditioner)
-    vel = ext.set_wall_bcs(flags, vel, dom)
-    vel = xtr.extrapolate_mac_simple(flags, vel, dom, params.extrap_vel_dist)
-
-    # this step's blend is deferred to the head of the next step (or to
-    # finalize_buckets)
-    ts = slv.step(ts, params.frame_length)
-    return FlipBucketState(flags=flags, vel=vel, vel_old=vel_old,
-                           pressure=pressure, phi=phi, buckets=bk, ts=ts,
-                           blend_pending=torch.ones_like(state.blend_pending),
-                           cg_iters=iters)
+            # this step's blend is deferred to the head of the next step
+            # (or to finalize_buckets)
+            ts = slv.step(ts, params.frame_length)
+            return FlipBucketState(
+                flags=flags, vel=vel, vel_old=vel_old, pressure=pressure,
+                phi=phi, buckets=bk, ts=ts,
+                blend_pending=torch.ones_like(state.blend_pending),
+                cg_iters=iters)
 
 
 def finalize_buckets(state: FlipBucketState, dom: Domain,
@@ -632,15 +665,25 @@ def _next_ppc(want: int, occ: int) -> int:
 
 def _escalate(state: FlipBucketState, dom: Domain, ppc_step: int,
               max_ppc: int, dropped: int, who: str) -> FlipBucketState:
-    """``state`` rebinned at the next PPC that holds every particle."""
-    ppc = _next_ppc(state.buckets.ppc + ppc_step,
-                    fb.max_cell_occupancy(state.buckets, dom))
-    if ppc > max_ppc:
-        raise RuntimeError(
-            f"{who}: still dropping {dropped} particles at "
-            f"ppc={state.buckets.ppc} (needs {ppc}); raise max_ppc")
-    return dataclasses.replace(
-        state, buckets=fb.rebin_to_ppc(state.buckets, dom, ppc))
+    """``state`` rebinned at the next PPC that holds every particle; traced,
+    the host span ``flip.escalate``, and counted in ``flip.escalations``."""
+    with trace.span("flip.escalate"):
+        ppc = _next_ppc(state.buckets.ppc + ppc_step,
+                        fb.max_cell_occupancy(state.buckets, dom))
+        if ppc > max_ppc:
+            raise RuntimeError(
+                f"{who}: still dropping {dropped} particles at "
+                f"ppc={state.buckets.ppc} (needs {ppc}); raise max_ppc")
+        trace.count("flip.escalations")
+        return dataclasses.replace(
+            state, buckets=fb.rebin_to_ppc(state.buckets, dom, ppc))
+
+
+def _dropped_since(new: FlipBucketState, old: FlipBucketState) -> int:
+    """The particles dropped between two states: one host read, counted in
+    ``flip.dropped_reads``."""
+    trace.count("flip.dropped_reads")
+    return int(new.buckets.dropped - old.buckets.dropped)
 
 
 def flip_step_bucketed_auto(state: FlipBucketState, dom: Domain,
@@ -648,13 +691,15 @@ def flip_step_bucketed_auto(state: FlipBucketState, dom: Domain,
                             max_ppc: int = 48) -> FlipBucketState:
     """Overflow-safe wrapper around flip_step_bucketed: after each step it
     reads ``buckets.dropped``; on overflow it rebins the pre-step state at
-    a higher PPC and redoes the step, so no particle is lost."""
+    a higher PPC and redoes the step (counted in ``flip.redone_steps``), so
+    no particle is lost."""
     prev = state
     while True:
         new = flip_step_bucketed(prev, dom, params)
-        d = int(new.buckets.dropped - prev.buckets.dropped)
+        d = _dropped_since(new, prev)
         if d == 0:
             return new
+        trace.count("flip.redone_steps")
         prev = _escalate(prev, dom, ppc_step, max_ppc, d,
                          "flip_step_bucketed_auto")
 
@@ -665,20 +710,24 @@ def flip_run_bucketed_auto(state: FlipBucketState, dom: Domain,
                            max_ppc: int = 48) -> FlipBucketState:
     """Chunked overflow-safe runner: ``check_every`` steps per chunk, one
     host read of ``buckets.dropped`` per chunk, and on overflow the
-    pre-chunk state is rebinned at a higher PPC and the chunk redone."""
-    done = 0
-    while done < n_steps:
-        k = min(check_every, n_steps - done)
-        new = state
-        for _ in range(k):
-            new = flip_step_bucketed(new, dom, params)
-        d = int(new.buckets.dropped - state.buckets.dropped)
-        if d == 0:
-            state = new
-            done += k
-            continue
-        state = _escalate(state, dom, ppc_step, max_ppc, d,
-                          "flip_run_bucketed_auto")
+    pre-chunk state is rebinned at a higher PPC and the chunk redone.
+    Traced, the span ``flip.run`` (host only) around the call; the chunk's
+    steps thrown away count in ``flip.redone_steps``."""
+    with trace.span("flip.run"):
+        done = 0
+        while done < n_steps:
+            k = min(check_every, n_steps - done)
+            new = state
+            for _ in range(k):
+                new = flip_step_bucketed(new, dom, params)
+            d = _dropped_since(new, state)
+            if d == 0:
+                state = new
+                done += k
+                continue
+            trace.count("flip.redone_steps", k)
+            state = _escalate(state, dom, ppc_step, max_ppc, d,
+                              "flip_run_bucketed_auto")
     return state
 
 
