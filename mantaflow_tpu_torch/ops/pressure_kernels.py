@@ -12,6 +12,14 @@ Two stencil modes, as in the TPU kernel: full mode reads A0/Ai/Aj/Ak; unit
 mode reads only A0 and derives the off-diagonals from the fluid mask (valid
 for fractions-free systems without zero-pressure fixing). Both require
 rhs == 0 outside fluid, which ``pressure.make_rhs`` guarantees.
+
+Full mode packs each on-chip cell's stencil row into a 16-bit code in
+shared memory once a solve when every coefficient is a value the code holds
+(``pack_stencil``, the code the kernel writes: integer diagonals, links of
+-1 or 0, as ``make_laplace_stencil`` gives without fractions or ghost
+fluid), and reads the coefficients from device memory every iteration
+otherwise; the kernel decides from the values, on the device, and counts
+each solve's way in a device-side tally (``cg_tally``).
 """
 
 from __future__ import annotations
@@ -51,10 +59,23 @@ def unit_offdiagonals(fluid, dom: Domain):
 
 # csrc/cg_solve.cu: threads per block and cells per thread whose p stays in
 # registers; a block keeps at most CG_THREADS * CG_REG_CELLS cells on chip
-# (r, s and tmp in shared memory, 12 bytes a cell)
+# (r, s and tmp in shared memory and the stencil's row code, 14 bytes a
+# cell, beside 528 bytes of static reduction space)
 CG_THREADS = 1024
 CG_REG_CELLS = 16
 CG_ONCHIP_CELLS = CG_THREADS * CG_REG_CELLS
+CG_CELL_BYTES = 3 * 4 + 2
+CG_STATIC_SMEM_BYTES = (2 * (CG_THREADS // 32) + 2) * 8
+
+# the row code's fields (csrc/cg_solve.cu kA0 ... kZm): A0 as an integer
+# 0-7; one bit each where the cell's own +x/+y/+z link (Ai, Aj, Ak) is -1
+# and its +x/+y/+z neighbour lies inside the grid (a link to outside
+# multiplies the zero the kernel reads there), and where its -x/-y/-z
+# neighbour's link to it is -1
+CODE_A0 = 7
+CODE_LINKS = (1 << 3, 1 << 4, 1 << 5)          # own Ai, Aj, Ak
+CODE_LOWER_LINKS = (1 << 6, 1 << 7, 1 << 8)    # Ai, Aj, Ak of the -1 cell
+_MINUS_ONE_BITS = -1082130432                  # -1.0f as int32 (0xBF800000)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +85,11 @@ class CgPlan:
     max_rows: int       # (z, y) rows of the largest block
     onchip: int         # local cells per block kept on chip
     overflow: int       # cells of the largest block kept in device memory
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block asks for."""
+        return CG_CELL_BYTES * self.onchip
 
 
 def row_range(block: int, nrows: int, blocks: int) -> tuple[int, int]:
@@ -81,11 +107,67 @@ def cg_plan(shape, blocks: int) -> CgPlan:
     return CgPlan(blocks, max_rows, onchip, cells - onchip)
 
 
+def pack_stencil(stencil, dom: Domain):
+    """The row code of every cell (int32, ``dom.shape``) and whether the
+    stencil packs (0-dim bool): every A0 exactly an integer 0-7 (+0.0 for
+    0) and every Ai, Aj, Ak exactly +0.0 or -1.0. The plain version of what
+    the CG kernel writes into shared memory for a grid it keeps on chip."""
+    a0, ai, aj, ak = stencil
+    k = torch.where(a0.abs() <= CODE_A0, a0, -1.0).to(torch.int32)
+    ok = ((k >= 0) & (a0.view(torch.int32)
+                      == k.to(torch.float32).view(torch.int32))).all()
+    code = k.clamp(min=0)
+    for a, own, lower, ax in zip((ai, aj, ak), CODE_LINKS, CODE_LOWER_LINKS,
+                                 (2, 1, 0)):
+        bits = a.view(torch.int32)
+        minus = bits == _MINUS_ONE_BITS
+        ok = ok & (minus | (bits == 0)).all()
+        n = dom.shape[ax]
+        inward = torch.zeros_like(minus)   # the link's far cell inside
+        inward.narrow(ax, 0, n - 1).copy_(minus.narrow(ax, 0, n - 1))
+        code = code | torch.where(inward, own, 0)
+        from_below = torch.zeros_like(minus)
+        from_below.narrow(ax, 1, n - 1).copy_(minus.narrow(ax, 0, n - 1))
+        code = code | torch.where(from_below, lower, 0)
+    return code.to(torch.int32), ok
+
+
+def unpack_stencil(code):
+    """(A0, Ai, Aj, Ak) as float32 from the row codes of ``pack_stencil``:
+    the values the kernel's packed stencil multiplies by."""
+    a0 = (code & CODE_A0).to(torch.float32)
+    return (a0,) + tuple(torch.where((code & bit) != 0, -1.0, 0.0)
+                         for bit in CODE_LINKS)
+
+
+# the kernel's tally on each card it ran on (by device index): solves that
+# ran the packed stencil, and the rest
+_TALLY: dict[int, torch.Tensor] = {}
+
+
+def _tally(device: int):
+    if device not in _TALLY:
+        _TALLY[device] = torch.zeros(2, dtype=torch.int64,
+                                     device=torch.device("cuda", device))
+    return _TALLY[device]
+
+
+def cg_tally() -> tuple[int, int]:
+    """(packed solves, the rest) of the CG kernel over every card it ran on
+    in this process: one host read a card, taken only here."""
+    packed = rest = 0
+    for t in _TALLY.values():
+        a, b = t.tolist()
+        packed += a
+        rest += b
+    return packed, rest
+
+
 @functools.cache
 def _lib():
     lib = _build.load("cg_solve")
     lib.cg_solve_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.cg_solve_launch.restype = ctypes.c_int
@@ -120,7 +202,7 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
     dev = rhs.device.index
     plan = cg_plan(dom.shape, _sm_count(dev))
     p, r, s, tmp = (torch.empty_like(rhs) for _ in range(4))
-    part = torch.empty(3 * plan.blocks, dtype=torch.float64,
+    part = torch.empty(4 * plan.blocks, dtype=torch.float64,
                        device=rhs.device)
     iters = torch.empty((), dtype=torch.int32, device=rhs.device)
     rn = torch.empty((), dtype=torch.float32, device=rhs.device)
@@ -133,7 +215,7 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
             fluid.data_ptr() if unit_stencil else None,
             p.data_ptr(), r.data_ptr(), s.data_ptr(), tmp.data_ptr(),
             part.data_ptr(), plan.blocks, plan.onchip, iters.data_ptr(),
-            rn.data_ptr(),
+            rn.data_ptr(), _tally(dev).data_ptr(),
             sx, sy, sz, float(accuracy), int(max_iter), int(unit_stencil),
             dev, torch.cuda.current_stream(rhs.device).cuda_stream)
     if err != 0:

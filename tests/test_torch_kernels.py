@@ -12,7 +12,11 @@ the plain CG, so iterations within +-10 and max|dp|/max|p| < 5e-3
 (tests/test_pressure_pallas.py's tolerances), on a 37x29x23 system, a 2D
 one, a grid larger than the kernel keeps on chip, at max_iter, and two
 solves bitwise equal; a fraction-weighted and a diffusion system; PcMIC's
-12-fold budget. The pressure branches that run without the CG kernel
+12-fold budget; the way its tally counts a solve (the packed stencil for
+integer stencils, floats for fractions and ghost fluid), and the two ways
+bit for bit equal on one system. On the CPU, the stencil's row codes
+(``pack_stencil``) give every coefficient back exactly, and refuse values
+they do not hold. The pressure branches that run without the CG kernel
 (``pressure.cg_loop``: the l2 exit, compatibility, multigrid) and the smoke
 model in its configurations (the exact gathers, multigrid, PcMIC, the 2D
 plume) on the card against the CPU, within the CPU tests' tolerances. The
@@ -28,7 +32,7 @@ import torch
 from mantaflow_tpu_torch.core import flags as fl
 from mantaflow_tpu_torch.core.domain import Domain
 from mantaflow_tpu_torch.core.shapes import Sphere
-from mantaflow_tpu_torch.models import smoke
+from mantaflow_tpu_torch.models import flip, smoke
 from mantaflow_tpu_torch.ops import advection_kernels as advk
 from mantaflow_tpu_torch.ops import pressure as prs
 from mantaflow_tpu_torch.ops import pressure_kernels as prk
@@ -212,7 +216,60 @@ def test_cg_kernel_over_capacity_matches_plain(cuda):
     plan = prk.cg_plan((96, 96, 256), prk._sm_count(cuda.index or 0))
     assert plan.overflow > 0
     dom, rhs, stencil, fluid = _obstacle_slab_system(0, cuda, size)
-    _check_cg(dom, rhs, stencil, fluid, 1e-4, 2000)
+    _, counts = _tallied(
+        lambda: _check_cg(dom, rhs, stencil, fluid, 1e-4, 2000))
+    # the on-chip cells packed, the rest read as floats
+    assert counts == (1, 0)
+
+
+def _tallied(fn):
+    """fn()'s result and what it added to the kernel's tally (packed
+    solves, the rest)."""
+    before = prk.cg_tally()
+    out = fn()
+    torch.cuda.synchronize()
+    after = prk.cg_tally()
+    return out, (after[0] - before[0], after[1] - before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,packed", [
+    ("obstacle_slab", True), ("2d", True), ("dam", True), ("fixed", True),
+    ("fractions", False), ("ghost_fluid", False)])
+def test_cg_kernel_picks_its_stencil_from_the_values(cuda, name, packed):
+    """Integer stencils run packed, face fractions and the ghost-fluid
+    diagonal as floats (the tally counts the one solve on its way); both
+    match the plain CG and repeat bit for bit."""
+    dom, rhs, stencil = _stencil_case(name, cuda)
+    (p, it), counts = _tallied(
+        lambda: _check_cg(dom, rhs, stencil, None, 1e-4, 500))
+    assert counts == ((1, 0) if packed else (0, 1))
+    again = prk.cg_solve(rhs, stencil, dom, 1e-4, 500)
+    assert torch.equal(again[0], p) and int(again[1]) == it
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(37, 29, 23), (256, 96, 96)])
+def test_cg_kernel_packed_and_float_stencils_agree_bit_for_bit(cuda, size):
+    """The same system packed, and read as floats for one link stored as
+    -0.0 (a wall cell's, multiplied by zeros): p, the iterations and the
+    residual equal bit for bit, on chip and, over capacity, with the
+    blocks' further cells in device memory."""
+    dom, flags = _obstacle_slab_flags(0, cuda, size)
+    nx, ny, nz = dom.size
+    vel = torch.tensor(np.random.RandomState(7).randn(3, nz, ny, nx)
+                       .astype(np.float32) * 0.1, device=cuda)
+    rhs = prs.make_rhs(flags, vel, dom)
+    stencil = prs.make_laplace_stencil(flags, dom)
+    ai = stencil[1].clone()
+    ai[0, 0, 0] = -0.0
+    negzero = (stencil[0], ai) + stencil[2:]
+    a, na = _tallied(lambda: prk.cg_solve(rhs, stencil, dom, 1e-4, 2000))
+    b, nb = _tallied(lambda: prk.cg_solve(rhs, negzero, dom, 1e-4, 2000))
+    assert na == (1, 0) and nb == (0, 1)
+    assert int(a[1]) > 0
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.gpu
@@ -244,8 +301,127 @@ def test_cg_row_partition_covers_every_row_once(nrows, blocks):
 def test_cg_plan_keeps_what_fits_on_chip(shape, onchip, overflow):
     plan = prk.cg_plan(shape, 132)
     assert (plan.onchip, plan.overflow) == (onchip, overflow)
-    # r, s and tmp: 12 bytes a cell of an H100 block's 227 KB
-    assert plan.onchip <= prk.CG_ONCHIP_CELLS and 12 * plan.onchip <= 232448
+    # r, s, tmp and the row code: 14 bytes a cell of an H100 block's 227 KB
+    assert plan.onchip <= prk.CG_ONCHIP_CELLS
+    assert plan.smem_bytes + prk.CG_STATIC_SMEM_BYTES <= 232448
+
+
+@pytest.mark.parametrize("shape,onchip", [
+    ((128, 128, 128), 16000),           # the dams
+    ((112, 168, 112), 16016),           # the plumes
+    ((192, 192, 192), 16384)])          # the most a block keeps on chip
+def test_cg_plan_shared_memory_holds_the_row_codes(shape, onchip):
+    plan = prk.cg_plan(shape, 132)
+    assert plan.onchip == onchip
+    assert plan.smem_bytes == 14 * onchip
+    assert plan.smem_bytes + prk.CG_STATIC_SMEM_BYTES <= 232448
+
+
+def _stencil_case(name, device):
+    """(dom, rhs, stencil) of a system the packing tests take, its rhs from
+    a random velocity."""
+    dom, flags, stencil, rhs_kw = _stencil_parts(name, device)
+    nx, ny, nz = dom.size
+    vel = torch.tensor(np.random.RandomState(5).randn(3, nz, ny, nx)
+                       .astype(np.float32) * 0.1, device=device)
+    if not dom.is3d:
+        vel[2] = 0.0
+    rhs = prs.make_rhs(flags, vel, dom, **rhs_kw)
+    if name == "fixed":
+        rhs, _ = prs._fix_pressure(flags, rhs, stencil, dom)
+    return dom, rhs, stencil
+
+
+def _stencil_parts(name, device):
+    if name == "plume112":
+        # the plume cells' grid: walls of width 0, fluid inside
+        dom = Domain(size=(112, 168, 112))
+        flags = fl.fill_grid(fl.init_domain(dom, 0, device=device),
+                             fl.TypeFluid)
+        return dom, flags, prs.make_laplace_stencil(flags, dom), {}
+    if name == "dam":
+        dom = Domain(size=(24, 24, 24))
+        flags = flip._dam_flags(dom, (0.4, 0.6, 1.0), 0, None, device)
+        assert bool(fl.is_empty(flags).any())
+        return dom, flags, prs.make_laplace_stencil(flags, dom), {}
+    if name == "obstacle_slab":
+        dom, flags = _obstacle_slab_flags(0, device, (37, 29, 23))
+        return dom, flags, prs.make_laplace_stencil(flags, dom), {}
+    if name == "fixed":
+        # no empty cell: one fluid cell's pressure pinned to zero
+        dom = Domain(size=(16, 20, 12))
+        flags = fl.fill_grid(fl.init_domain(dom, 1, device=device),
+                             fl.TypeFluid)
+        rhs = torch.zeros(dom.shape, device=device)
+        stencil = prs.make_laplace_stencil(flags, dom)
+        _, fixed = prs._fix_pressure(flags, rhs, stencil, dom)
+        assert not torch.equal(fixed[0], stencil[0])
+        return dom, flags, fixed, {}
+    if name == "2d":
+        dom = Domain(size=(40, 28, 1), dim=2)
+        flags = fl.fill_grid(fl.init_domain(dom, 1, device=device),
+                             fl.TypeFluid)
+        yc = torch.arange(28, device=device).reshape(1, 28, 1) + 0.5
+        flags = torch.where((yc > 20) & fl.is_fluid(flags), fl.TypeEmpty,
+                            flags)
+        return dom, flags, prs.make_laplace_stencil(flags, dom), {}
+    if name == "fractions":
+        dom, flags, _, fractions, obvel = _fraction_system(24, device)
+        return (dom, flags,
+                prs.make_laplace_stencil(flags, dom, fractions=fractions),
+                {"fractions": fractions, "obvel": obvel})
+    if name == "ghost_fluid":
+        dom = Domain(size=(24, 24, 24))
+        flags = flip._dam_flags(dom, (0.4, 0.6, 1.0), 0, None, device)
+        yc = torch.arange(24, device=device).reshape(1, 24, 1) + 0.5
+        phi = (yc - 0.6 * 24 + 0.3).expand(dom.shape).contiguous()
+        return (dom, flags, prs.make_laplace_stencil(flags, dom, phi=phi),
+                {"phi": phi})
+    if name == "negative_zero":
+        # the plain stencil with one +0.0 link written as -0.0: the same
+        # system, not bit for bit a value of the row code
+        dom, flags = _obstacle_slab_flags(0, device, (37, 29, 23))
+        a0, ai, aj, ak = prs.make_laplace_stencil(flags, dom)
+        assert float(ai[0, 0, 0]) == 0.0
+        ai = ai.clone()
+        ai[0, 0, 0] = -0.0
+        return dom, flags, (a0, ai, aj, ak), {}
+    raise KeyError(name)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("name", ["plume112", "dam", "obstacle_slab",
+                                  "fixed", "2d"])
+def test_pack_stencil_round_trip_is_exact(name):
+    """The row codes the CG kernel keeps in shared memory give back every
+    coefficient bit for bit (their links to outside the grid are 0); each
+    cell's lower-link bits are its -x/-y/-z neighbour's own links."""
+    dom, _, stencil = _stencil_case(name, "cpu")
+    code, ok = prk.pack_stencil(stencil, dom)
+    assert bool(ok) and code.dtype == torch.int32 and code.shape == dom.shape
+    assert int(code.max()) < 1 << 9
+    for a, b in zip(stencil, prk.unpack_stencil(code)):
+        assert torch.equal(_bits(a), _bits(b))
+    for ax, own, lower in zip((2, 1, 0), prk.CODE_LINKS,
+                              prk.CODE_LOWER_LINKS):
+        n = dom.shape[ax]
+        got = (code & lower) != 0
+        assert not bool(got.narrow(ax, 0, 1).any())
+        assert torch.equal(got.narrow(ax, 1, n - 1),
+                           ((code & own) != 0).narrow(ax, 0, n - 1))
+
+
+@pytest.mark.parametrize("name", ["fractions", "ghost_fluid",
+                                  "negative_zero"])
+def test_pack_stencil_refuses_other_values(name):
+    """Face fractions, the ghost-fluid diagonal and a -0.0 link are not
+    values of the row code: the kernel reads such a stencil as floats."""
+    dom, _, stencil = _stencil_case(name, "cpu")
+    _, ok = prk.pack_stencil(stencil, dom)
+    assert not bool(ok)
 
 
 @pytest.mark.gpu

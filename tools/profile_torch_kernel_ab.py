@@ -55,6 +55,20 @@ summary line: per checkout, the mean over its runs of each time.
 ``--extra NAME=PATH`` adds a checkout under that name for ``--order``
 (a design variant, tools/make_advect_variant.py); ``--only k3`` times the
 advection alone.
+
+``--only k2`` times the CG kernel alone, on the benchmark's systems
+(``benchmark/``: its cells run from ``--seed`` through one episode, the
+episode's last solve kept): the developed plume112 solve
+(``plume112.exact``), the flat and the bucketed dams' (``flip01_128.flat``,
+``flip01_128.bucketed24``), and the plume's system again with one wall
+link stored as -0.0 (the same system, which a kernel that packs its
+stencil must read as floats); each checkout also solves the plume's system
+in unit mode, and Laplace systems at 8^3, 64^2 and 48^3 (and 48^3 with
+one diagonal no packed stencil holds) for 2000 iterations each. Each
+solve's result carries the wall clock it ended at, to set beside a log of
+the card's clocks. The pairs print the max |difference| of p, the
+iterations and the residual norm (0 where they are equal), and each
+checkout's run its kernel's tally where it has one.
 """
 
 import argparse
@@ -63,6 +77,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUCKET_FIELDS = ("px", "py", "pz", "vx", "vy", "vz", "valid", "dropped")
@@ -255,19 +270,96 @@ def make_inputs(path, only):
             "fluid_cells_smoke": int(fl.is_fluid(st.flags).sum()), **info}
 
 
+K2_CELLS = (("plume", "plume112.exact"), ("flat", "flip01_128.flat"),
+            ("bucketed", "flip01_128.bucketed24"))
+CG_FIELDS = ("p", "iterations", "resnorm")
+
+
+def make_k2_inputs(path, seed):
+    """The last pressure solve of one episode of each of K2_CELLS, as
+    cg_solve was called, and the plume's with a -0.0 wall link."""
+    sys.path[:0] = [os.path.join(HERE, "benchmark"), HERE]
+    import torch
+    from harness import spec
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+
+    dev = torch.device("cuda")
+    out, info = {}, {}
+    orig = prk.cg_solve
+    for name, cell_name in K2_CELLS:
+        cell = spec.load_cell(cell_name)
+        fam = spec.family(cell.config["family"]).Family(
+            cell.config, cell.traffic, seed, dev)
+        fam.setup()
+        last = {}
+
+        def rec(rhs, stencil, dom, acc, max_iter, fluid=None, **kw):
+            with torch.inference_mode(False):
+                last.update(rhs=rhs.clone(),
+                            stencil=[a.clone() for a in stencil],
+                            fluid=fluid.clone(), size=tuple(dom.size),
+                            acc=float(acc), max_iter=int(max_iter))
+            return orig(rhs, stencil, dom, acc, max_iter, fluid=fluid, **kw)
+        rec.launches = 0  # the wrapper counts its launches on the module's name
+        prk.cg_solve = rec
+        try:
+            state = fam.initial()
+            for n in fam.calls():
+                state = fam.call(state, n)
+            torch.cuda.synchronize()
+        finally:
+            prk.cg_solve = orig
+        del state, fam
+        out[name] = last
+        info[name] = {"size": last["size"], "max_iter": last["max_iter"],
+                      "fluid": int(last["fluid"].sum())}
+    neg = dict(out["plume"])
+    ai = neg["stencil"][1].clone()
+    if float(ai[0, 0, 0]) != 0.0:
+        raise RuntimeError("the plume's corner link is not zero")
+    ai[0, 0, 0] = -0.0
+    neg["stencil"] = [neg["stencil"][0], ai] + neg["stencil"][2:]
+    out["plume_negzero"] = neg
+    torch.save({"k2": out}, path)
+    return info
+
+
+def time_k2(inp, reps, res, outs):
+    """Each system's solve, timed; p, the iterations and the residual norm
+    into outs."""
+    import torch
+    from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+
+    def timed(name, c, **kw):
+        dom_ = Domain(size=c["size"])
+        got = {}
+
+        def solve():
+            got["out"] = prk.cg_solve(c["rhs"], tuple(c["stencil"]), dom_,
+                                      c["acc"], c["max_iter"],
+                                      fluid=c["fluid"], **kw)
+        ms = cuda_ms(torch, solve, reps)
+        it = int(got["out"][1])
+        res[f"cg_{name}"] = {"ms": ms, "iterations": it,
+                             "us_per_iteration": ms * 1e3 / max(it, 1),
+                             "resnorm": float(got["out"][2]),
+                             "at": time.time()}
+        outs[f"cg_{name}"] = list(got["out"])
+    for name, c in inp["k2"].items():
+        timed(name, c)
+    timed("plume_unit", inp["k2"]["plume"], unit_stencil=True)
+    tally = getattr(prk, "cg_tally", None)
+    res["cg_tally"] = list(tally()) if tally else None
+
+
 def time_checkout(repo, path, reps, out_path, only):
     sys.path.insert(0, os.path.abspath(repo))
     import torch
     import mantaflow_tpu_torch
     from mantaflow_tpu_torch.core.domain import Domain
     from mantaflow_tpu_torch.kernels import _build
-    from mantaflow_tpu_torch.ops import advect_bucket_kernels as advk
-    from mantaflow_tpu_torch.ops import flip_bucket as fb
-    from mantaflow_tpu_torch.ops import levelset_kernels as lsk
-    from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
     from mantaflow_tpu_torch.ops import pressure_kernels as prk
-    from mantaflow_tpu_torch.ops import rebin_kernels as rbk
-    from mantaflow_tpu_torch.parallel import sharding as shd
 
     where = os.path.dirname(os.path.abspath(mantaflow_tpu_torch.__file__))
     assert where == os.path.join(os.path.abspath(repo), "mantaflow_tpu_torch")
@@ -276,6 +368,46 @@ def time_checkout(repo, path, reps, out_path, only):
     dom = Domain(size=(128,) * 3)
     res = {"repo": repo}
     timed, outs = {}, {}
+    if only == "k2":
+        time_k2(inp, reps, res, outs)
+    if only != "k2":
+        time_non_k2(inp, reps, res, outs, timed, dom, only)
+    if only != "k3":
+        # Laplace systems that never converge, 2000 iterations: at 8^3 what
+        # the grid barriers and reductions cost per iteration with next to
+        # no cells; 64^2 (2D) and 48^3 the sizes of the scenes' small
+        # solves; 48^3 again with one diagonal of 6.5, which no packed
+        # stencil holds
+        for name, size, dim in (("8cubed", (8, 8, 8), 3),
+                                ("64x64", (64, 64, 1), 2),
+                                ("48cubed", (48, 48, 48), 3),
+                                ("48cubed_float", (48, 48, 48), 3)):
+            tiny = Domain(size=size, dim=dim)
+            trhs = torch.ones(tiny.shape, device="cuda")
+            tst = (torch.full(tiny.shape, 2.0 * dim, device="cuda"),) + tuple(
+                torch.full(tiny.shape, -1.0 if ax < dim else 0.0,
+                           device="cuda") for ax in range(3))
+            if name.endswith("_float"):
+                tst[0][0, 0, 0] = 6.5
+            tiny_ms = cuda_ms(
+                torch, lambda: prk.cg_solve(trhs, tst, tiny, 0.0, 2000), 3)
+            res[f"cg_{name}_us_per_iteration"] = tiny_ms * 1e3 / 2000
+    torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, out_path)
+    print(json.dumps(res), flush=True)
+
+
+def time_non_k2(inp, reps, res, outs, timed, dom, only):
+    """The transfer's, the rebin's, the advection's, the levelset's and
+    the CG's timings of --only all and k3."""
+    import torch
+    from mantaflow_tpu_torch.core.domain import Domain
+    from mantaflow_tpu_torch.ops import advect_bucket_kernels as advk
+    from mantaflow_tpu_torch.ops import flip_bucket as fb
+    from mantaflow_tpu_torch.ops import levelset_kernels as lsk
+    from mantaflow_tpu_torch.ops import p2g_kernels as p2gk
+    from mantaflow_tpu_torch.ops import pressure_kernels as prk
+    from mantaflow_tpu_torch.ops import rebin_kernels as rbk
+    from mantaflow_tpu_torch.parallel import sharding as shd
     if only != "k3":
         bk = fb.Buckets(**inp["obstacle"]["buckets"])
         # the transfer: K10 on the bench dam, its z-slab form on the bench
@@ -363,9 +495,6 @@ def time_checkout(repo, path, reps, out_path, only):
         torch.equal(getattr(pub, f)[~b_.valid], getattr(b_, f)[~b_.valid])
         for f in FIELDS6)
     if only == "k3":
-        torch.save({k: [t.cpu() for t in v] for k, v in outs.items()},
-                   out_path)
-        print(json.dumps(res), flush=True)
         return
     for name in ("smoke", "obstacle"):
         c = inp[name]
@@ -378,15 +507,6 @@ def time_checkout(repo, path, reps, out_path, only):
         it = int(got["it"])
         res[f"cg_{name}"] = {"ms": ms, "iterations": it,
                              "us_per_iteration": ms * 1e3 / max(it, 1)}
-    # an 8^3 system that never converges, 2000 iterations: what the grid
-    # barriers and reductions cost per iteration with next to no cells
-    tiny = Domain(size=(8, 8, 8))
-    trhs = torch.ones(tiny.shape, device="cuda")
-    tst = (torch.full(tiny.shape, 6.0, device="cuda"),) + tuple(
-        torch.full(tiny.shape, -1.0, device="cuda") for _ in range(3))
-    tiny_ms = cuda_ms(
-        torch, lambda: prk.cg_solve(trhs, tst, tiny, 0.0, 2000), 3)
-    res["cg_8cubed_us_per_iteration"] = tiny_ms * 1e3 / 2000
     for rf in (1.0, 1.5, 2.5):
         rw = fb.levelset_radius(dom, rf)[1]
         res[f"levelset_rw{rw}_ms"] = cuda_ms(
@@ -401,8 +521,6 @@ def time_checkout(repo, path, reps, out_path, only):
                           zip(*outs["k10_zshard"])]
     for k in ("rebin", "rebin_zshard"):
         outs[k] = [getattr(outs[k], f) for f in BUCKET_FIELDS]
-    torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, out_path)
-    print(json.dumps(res), flush=True)
 
 
 def main():
@@ -410,7 +528,9 @@ def main():
     ap.add_argument("--other", required=True)
     ap.add_argument("--order", default="other,this,this,other")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", choices=("all", "k3"), default="all")
+    ap.add_argument("--only", choices=("all", "k3", "k2"), default="all")
+    ap.add_argument("--seed", type=int, default=4240000001,
+                    help="--only k2: the benchmark cells' seed")
     ap.add_argument("--extra", action="append", default=[],
                     help="NAME=PATH: another checkout for --order")
     ap.add_argument("--time", help=argparse.SUPPRESS)
@@ -432,7 +552,8 @@ def main():
              **dict(e.split("=", 1) for e in args.extra)}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "inputs.pt")
-        info = make_inputs(path, args.only)
+        info = (make_k2_inputs(path, args.seed) if args.only == "k2"
+                else make_inputs(path, args.only))
         print(json.dumps({"inputs": info}), flush=True)
         runs, saved = [], {}
         for i, which in enumerate(args.order.split(",")):
@@ -465,10 +586,11 @@ def main():
                 for k in a if k in b for n, x, y in zip(
                     BUCKET_FIELDS if k.startswith("rebin")
                     else FIELDS6 if k.startswith("k3")
+                    else CG_FIELDS if k.startswith("cg_")
                     else ("vel", "weight", "phi"), a[k], b[k])}}),
                 flush=True)
         # the made-up buckets: each checkout against the plain version
-        if args.only != "k3":
+        if args.only == "all":
             sys.path.insert(0, HERE)
             from mantaflow_tpu_torch.core.domain import Domain
             from mantaflow_tpu_torch.ops import flip_bucket as fb
