@@ -163,17 +163,10 @@ def cg_tally() -> tuple[int, int]:
     return packed, rest
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("cg_solve")
-    lib.cg_solve_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
-    lib.cg_solve_launch.restype = ctypes.c_int
-    lib.cg_solve_error_string.argtypes = [ctypes.c_int]
-    lib.cg_solve_error_string.restype = ctypes.c_char_p
-    return lib
+# csrc/cg_solve.cu: cg_solve_launch's arguments
+_ARGS = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 2
+         + (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_float,)
+         + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 
 
 @functools.cache
@@ -198,7 +191,6 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
                          or fluid.device != rhs.device):
         raise ValueError("cg_solve: fluid must be a contiguous bool "
                          f"{dom.shape} tensor on {rhs.device}")
-    lib = _lib()
     dev = rhs.device.index
     plan = cg_plan(dom.shape, _sm_count(dev))
     p, r, s, tmp = (torch.empty_like(rhs) for _ in range(4))
@@ -209,18 +201,14 @@ def _cg_solve_cuda(rhs, stencil, dom: Domain, accuracy: float, max_iter: int,
     off = (None, None, None) if unit_stencil else \
         (ai.data_ptr(), aj.data_ptr(), ak.data_ptr())
     sz, sy, sx = dom.shape
-    with _build.caller_device():
-        err = lib.cg_solve_launch(
-            rhs.data_ptr(), a0.data_ptr(), *off,
-            fluid.data_ptr() if unit_stencil else None,
-            p.data_ptr(), r.data_ptr(), s.data_ptr(), tmp.data_ptr(),
-            part.data_ptr(), plan.blocks, plan.onchip, iters.data_ptr(),
-            rn.data_ptr(), _tally(dev).data_ptr(),
-            sx, sy, sz, float(accuracy), int(max_iter), int(unit_stencil),
-            dev, torch.cuda.current_stream(rhs.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("cg_solve launch failed: "
-                           + lib.cg_solve_error_string(err).decode())
+    _build.launcher("cg_solve", _ARGS)(
+        rhs.data_ptr(), a0.data_ptr(), *off,
+        fluid.data_ptr() if unit_stencil else None,
+        p.data_ptr(), r.data_ptr(), s.data_ptr(), tmp.data_ptr(),
+        part.data_ptr(), plan.blocks, plan.onchip, iters.data_ptr(),
+        rn.data_ptr(), _tally(dev).data_ptr(),
+        sx, sy, sz, float(accuracy), int(max_iter), int(unit_stencil),
+        dev, torch.cuda.current_stream(rhs.device).cuda_stream)
     cg_solve.launches += 1
     return p, iters, rn
 

@@ -15,7 +15,8 @@ import torch
 from ..core import flags as fl
 from ..core.domain import Domain
 from ..core.masks import interior_mask, shift
-from .pressure import _dot, apply_laplace, make_laplace_stencil
+from .pressure import (_cg_budget, _dot, apply_laplace,
+                       make_laplace_stencil)
 
 
 def calc_sec_deriv_2d(v, dom: Domain):
@@ -50,7 +51,7 @@ def cg_solve_wave_eq(flags, ut, utm1, dt, dom: Domain,
         rhs = rhs + s * calc_sec_deriv_2d(ut, dom)
     rhs = torch.where(interior_mask(dom, 1, ut.device), rhs, 0.0)
 
-    max_iter = int(cg_max_iter_fac * max(dom.size)) * (1 if dom.is3d else 4)
+    max_iter = _cg_budget(dom, cg_max_iter_fac)
     x = torch.zeros_like(rhs)
     r, srch = rhs, rhs
     sigma = _dot(rhs, rhs)

@@ -331,7 +331,9 @@ def unshard_flip_bucket_state(state):
 class Slabs:
     """A grid cut into the mesh's z-slabs: ``parts[i]``, shard i's
     contiguous planes on its device, ``dim`` the z axis of each part (0 for
-    a [z, y, x] grid, 1 for a (3, z, y, x) MAC grid)."""
+    a [z, y, x] grid, 1 for a (3, z, y, x) MAC grid). ``+`` and ``-`` act
+    part by part, and a 0-dim tensor scales it (``c * slabs``): the vector
+    updates of ``ops/pressure.py``'s CG and Richardson loops."""
     parts: list
     mesh: ZMesh
     dim: int
@@ -354,6 +356,16 @@ class Slabs:
         """The parts that hold a plane (a reduction over them needs no
         empty tensor)."""
         return [p for p in self.parts if p.shape[self.dim] > 0]
+
+    def __add__(self, other: "Slabs") -> "Slabs":
+        return self.like(a + b for a, b in zip(self.parts, other.parts))
+
+    def __sub__(self, other: "Slabs") -> "Slabs":
+        return self.like(a - b for a, b in zip(self.parts, other.parts))
+
+    def __rmul__(self, c) -> "Slabs":
+        """A 0-dim tensor times each part, moved to the part's device."""
+        return self.like(c.to(a.device) * a for a in self.parts)
 
 
 @dataclasses.dataclass

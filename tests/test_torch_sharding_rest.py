@@ -189,6 +189,32 @@ def test_multigrid_with_fixing_on_slabs(n):
         assert _err(p2.whole(), p1) <= 1e-6 and _err(v2.whole(), v1) <= 1e-6
 
 
+@pytest.mark.parametrize("n", [3, 4])
+@pytest.mark.parametrize("size,fac,budget",
+                         [((16, 16, 16), 0.125, 2 * 12),
+                          ((24, 24, 1), 0.05, 1 * 4 * 12)],
+                         ids=["3d", "2d"])
+def test_mic_budget_on_slabs(size, fac, budget, n):
+    """PcMIC's plain CG on slabs has the one-device solve's budget: 12
+    times ``cg_max_iter_fac`` times the longest axis, 4 times that again in
+    2D. The budget is too short for the accuracy (61 and 75 iterations),
+    so both stop at it, the pressure within 1e-6."""
+    dom = Domain(size=size, dim=3 if size[2] > 1 else 2)
+    flags = fl.fill_grid(fl.init_domain(dom, 1, device="cpu"), fl.TypeFluid)
+    top = flags[:, -4:-1, :]  # three empty rows under the lid
+    top[top == fl.TypeFluid] = fl.TypeEmpty
+    vel = torch.tensor(np.random.RandomState(9).randn(3, *dom.shape)
+                       .astype(np.float32) * 0.1)
+    kw = dict(cg_max_iter_fac=fac, preconditioner=prs.PcMIC)
+    v1, p1, _, i1, _ = prs.solve_pressure(vel, flags, dom, 1e-5,
+                                          use_pallas_cg=False, **kw)
+    mesh = _mesh(n)
+    v2, p2, _, i2, _ = prs.solve_pressure_slabs(
+        shd.Slabs.of(vel, mesh), shd.Slabs.of(flags, mesh), dom, 1e-5, **kw)
+    assert int(i1) == int(i2) == budget
+    assert _err(p2.whole(), p1) <= 1e-6 and _err(v2.whole(), v1) <= 1e-6
+
+
 # -- any z extent, 2D ---------------------------------------------------------
 
 @pytest.mark.parametrize("size,n", [((20, 20, 20), 3), ((16, 16, 5), 8)],
